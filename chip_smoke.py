@@ -5,24 +5,41 @@
 Phases, each of which must pass (the script exits non-zero otherwise):
 
 1. device: the card's name and power limit;
-2. kernels: builds the window-pass CUDA kernel from ``sparse2dense_tpu_torch/
-   csrc`` and holds it against its plain PyTorch version on the real plans of
-   one synthetic Waymo frame (150k voxels on the 41x1504x1504 grid): conv_input
-   5->16, conv1 16->16, the strided conv2_down 16->32 with V_out=320000 and a
-   (3,1,1) z-only strided conv; times both;
-3. main path: the flagship KD_VoxelNet + S2D_RPN at full width, random weights
-   from a seeded generator, through ``build_detector -> forward -> predict``
-   on 1 warm-up and 3 timed frames, counting the kernel's launches;
-4. agreement: the tiny distillation model on the card against the same model
-   on the CPU (plain versions only) on a small frame.
+2. kernels: builds both CUDA kernels from ``sparse2dense_tpu_torch/csrc``
+   (one nvcc process per source, started together) and holds each against
+   its plain PyTorch version on the real data of one synthetic Waymo frame
+   (150k voxels on the 41x1504x1504 grid):
+   - the window pass on the window plans of conv_input 5->16, conv1 16->16,
+     the strided conv2_down 16->32 (V_out=320000) and a (3,1,1) z-only
+     strided conv, within 1e-4 + 1e-4*|p| (summation order only);
+   - the plane subm conv on the plane states, masks and plans of conv2
+     (32), conv3 (64) and conv4 (128) of the same frame on the plane
+     engine, in bfloat16 within one bf16 rounding step,
+     2^-7*|p| + 1e-3*max|p| (the output is rounded to bf16 after float32
+     sums taken in another order), and in float32 within 1e-4 + 1e-4*|p|;
+   and times kernel, plain version and, for the plane conv, the bf16 cuDNN
+   ``F.conv3d`` on the densified grid (a yardstick the port never calls);
+3. main path, window engine: the flagship KD_VoxelNet + S2D_RPN at full
+   width, random weights from a seeded generator, through ``build_detector
+   -> forward -> predict`` on 3 warm-up and 8 timed frames (median, min and
+   max printed): 6 window-pass launches a frame, residual rows within
+   budget, finite maps and boxes;
+4. main path, plane engine: the same with the reference bench's override
+   ``engine="plane"`` at ``utils.config.FRAME_BUDGETS`` (this frame's sets
+   outgrow the reference's default plane and chunk budgets;
+   ``tests/test_torch_plane_sets.py`` counts them): 6 window-pass and 12
+   plane launches a frame, zero ``plane_drop``, ``planek_miss``,
+   ``plane_chunk_drop`` and ``down_drop``;
+5. agreement: the tiny distillation model on the card against the same model
+   on the CPU (plain versions only), window and plane engines.
 
-TF32 is switched off for cuDNN and matmuls in phases 2 and 4, which compare
-against float32 plain versions; phase 3 runs at PyTorch's defaults (TF32 on
-in cuDNN convs, off in matmuls). With TF32 off cuDNN picks an FFT algorithm
-for the neck's 3x3 convs that costs ~200 ms a frame on an H100
-(``sparse2dense_tpu_torch/tools/profile_flagship.py``). The second-to-last lines are a JSON
-record of the kernels and the card's ``nvidia-smi`` name and power limit; the
-last line is ``{"ok": true, "device": {...}}``.
+TF32 is switched off for cuDNN and matmuls in phases 2 and 5, which compare
+against float32 plain versions; phases 3 and 4 run at PyTorch's defaults
+(TF32 on in cuDNN convs, off in matmuls). With TF32 off cuDNN picks an FFT
+algorithm for the neck's 3x3 convs that costs ~200 ms a frame on an H100
+(``sparse2dense_tpu_torch/tools/profile_flagship.py``). The second-to-last
+lines are a JSON record of the kernels and the card's ``nvidia-smi`` name
+and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -35,7 +52,11 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOPS = 989e12         # dense bf16 tensor-core peak
-TOL_ABS, TOL_REL = 1e-4, 1e-4  # summation order only: the products are exact in f32
+TOL_ABS, TOL_REL = 1e-4, 1e-4  # float32: summation order only
+BF16_STEP = 2.0 ** -7          # one bf16 rounding step, relative
+BF16_FLOOR = 1e-3              # times max|p|: outputs near zero
+PLANE_STAGES = (("conv2", 32), ("conv3", 64), ("conv4", 128))
+WARMUP_FRAMES, TIMED_FRAMES = 3, 8   # a frame's time still falls over its first ~3
 
 
 @contextlib.contextmanager
@@ -67,6 +88,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def phase_device():
     import torch
 
@@ -79,18 +105,23 @@ def phase_device():
     return name, smi
 
 
-def _flagship_frame():
+def _flagship(engine="window", budgets=None):
+    """(cfg, batch, model) of the flagship at full width on the card."""
     import torch
 
-    from sparse2dense_tpu_torch.models.builder import sparse_shape_from_voxel_cfg
+    from sparse2dense_tpu_torch.models import build_detector
     from sparse2dense_tpu_torch.training.synthetic import make_batch
-    from sparse2dense_tpu_torch.utils.config import FLAGSHIP, ConfigDict
+    from sparse2dense_tpu_torch.utils.config import flagship
 
-    cfg = ConfigDict.fromfile(FLAGSHIP)
+    cfg = flagship(engine, budgets)
+    # trained-like heatmap density for NMS (random-init heatmaps sit at the
+    # score threshold and flood NMS)
+    cfg["S_model"]["bbox_head"]["init_bias"] = -6.0
     batch = make_batch(cfg, 1, max_voxels=150000, n_points=170000, n_obj=32, device="cuda")
-    feats = batch["voxels"].sum(-2) / batch["num_points"].clamp(min=1)[..., None]
-    return cfg, batch, feats[0], batch["coordinates"][0], sparse_shape_from_voxel_cfg(
-        cfg["voxel_generator"])
+    model = build_detector(cfg["S_model"], test_cfg=cfg["test_cfg"],
+                           voxel_generator=cfg["voxel_generator"], device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    return cfg, batch, model
 
 
 def _hits(plan, ksize):
@@ -115,22 +146,17 @@ def _hits(plan, ksize):
     return n
 
 
-def phase_kernels():
-    """Kernel vs plain version at the flagship plans; returns per-case rows."""
+def _window_rows(batch, grid, gen):
+    """Window pass against its plain version at the flagship plans."""
     import torch
 
     from sparse2dense_tpu_torch.ops import window_conv as WC
     from sparse2dense_tpu_torch.ops import window_kernel as WK
     from sparse2dense_tpu_torch.ops.sparse_conv import conv_out_grid
 
-    log = WK.build()
-    print("[kernels] built " + WK.LIBRARY + "\n" + "\n".join(
-        "  " + line for line in log.splitlines() if "registers" in line or "smem" in line),
-        flush=True)
-    _, _, vfe, coords, grid = _flagship_frame()
-    feats5, coords, lin = WC.sort_rows(vfe, coords, grid)
+    vfe = (batch["voxels"].sum(-2) / batch["num_points"].clamp(min=1)[..., None])[0]
+    feats5, coords, lin = WC.sort_rows(vfe, batch["coordinates"][0], grid)
     subm = WC.make_subm_plan_presorted(lin, coords, grid, window=384)
-    gen = torch.Generator(device="cuda").manual_seed(1)
     valid = (lin < WC.MISS)[:, None]
     feats16 = torch.randn(lin.shape[0], 16, device="cuda", generator=gen) * valid
 
@@ -167,12 +193,11 @@ def phase_kernels():
                   + 27 * cin * cout * 2 + vo * cout * 4)
         hits = _hits(plan, ksize)
         flops = 2.0 * hits * cin * cout
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-        row = dict(case=name, v_in=v_in, v_out=vo, n_resid=int(plan.n_resid),
-                   hits=hits, max_abs_err=float(err.max()), n_bad=bad, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bytes=nbytes, flops=flops,
-                   bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS
-                   else "operations", per_frame=per_frame)
+        bound_ms, bound_by = bound(nbytes, flops)
+        row = dict(kernel="window_pass", case=name, v_in=v_in, v_out=vo,
+                   n_resid=int(plan.n_resid), hits=hits, max_abs_err=float(err.max()),
+                   n_bad=bad, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bytes=nbytes,
+                   flops=flops, bound_by=bound_by, library_ms=None, per_frame=per_frame)
         print("[kernels] " + json.dumps(row), flush=True)
         if bad:
             raise AssertionError(f"{name}: {bad} outputs beyond {TOL_ABS} + {TOL_REL}*|p|")
@@ -182,90 +207,250 @@ def phase_kernels():
     return rows
 
 
-def phase_main_path(frames_timed: int = 3):
+def _plane_stage_data(batch, model):
+    """(state, mask, sets, grid, plan) of conv2..conv4 of the plane flagship
+    frame: the stage outputs of one backbone forward, with their plans."""
     import torch
 
-    from sparse2dense_tpu_torch.models import build_detector
+    from sparse2dense_tpu_torch.ops import plane_conv as PK
+
+    bb = model.backbone
+    with torch.inference_mode():
+        feats = model.reader(batch["voxels"], batch["num_points"])
+        _, multi_scale, _ = bb(feats, batch["coordinates"])
+    out = []
+    for k, (name, _) in enumerate(PLANE_STAGES):
+        (state, mask, sets), grid = multi_scale[name]
+        plan = PK.make_plane_plan_batched(sets, PK.t1p_of(bb.plane_budgets[k]),
+                                          *bb.plane_wins[k])
+        out.append((state.clone(), mask.clone(), sets, grid, plan))
+    return out
+
+
+def _densify_planes(state, ts, grid):
+    """(T1p, 16C) plane rows -> dense (1, C, D, H, W) for the library call."""
+    import torch
+
+    d, h, w = grid
+    c = state.shape[1] // 16
+    tp = ts.tile_pos.long()
+    ok = (tp[:, 0] >= 0)[:, None]
+    cell = torch.arange(16, device=state.device)
+    yy = tp[:, 1:2] * 4 + cell // 4
+    xx = tp[:, 2:3] * 4 + cell % 4
+    lin = torch.where(ok & (yy < h) & (xx < w), (tp[:, 0:1] * h + yy) * w + xx, d * h * w)
+    flat = state.new_zeros((d * h * w + 1, c))
+    flat[lin.reshape(-1)] = state[:tp.shape[0]].reshape(-1, c)
+    return flat[:-1].reshape(d, h, w, c).permute(3, 0, 1, 2)[None].contiguous()
+
+
+def _plane_rows(stages, gen):
+    """Plane subm kernel against its plain version at conv2..conv4."""
+    import torch
+    import torch.nn.functional as F
+
+    from sparse2dense_tpu_torch.ops import plane_conv as PK
+    from sparse2dense_tpu_torch.ops import plane_kernel as PKK
+
+    rows = []
+    # the three flagship shapes, and C = 16 (built, not on the main path) on
+    # conv2's plan with a random masked state
+    state2, mask2 = stages[0][:2]
+    state16 = (torch.randn((state2.shape[0], 16, 16), device="cuda", generator=gen)
+               * mask2[..., None]).reshape(-1, 256).to(state2.dtype)
+    cases = [(name, c, st, True) for (name, c), st in zip(PLANE_STAGES, stages)]
+    cases.append(("conv2 plan", 16, (state16,) + stages[0][1:], False))
+    for name, c, (state, mask, sets, grid, plan), timed in cases:
+        t1p = state.shape[0]
+        w = torch.randn((27, c, c), device="cuda", generator=gen) * (27 * c) ** -0.5
+        scale = 1 + 0.1 * torch.randn((1, 16 * c), device="cuda", generator=gen)
+        shift = 0.1 * torch.randn((1, 16 * c), device="cuda", generator=gen)
+        mask16 = PK.expand_mask(mask, c).to(state.dtype)
+        for dt in (torch.bfloat16, torch.float32):
+            st, m16, wt = state.to(dt), mask16.to(dt), w.to(dt)
+            args = (st, plan.tgt, wt, scale, shift, m16)
+            got = PKK.plane_subm_cuda(*args, residual=st, relu=True).float()
+            want = PK.plane_subm_plain(*args, residual=st, relu=True).float()
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            tol = (BF16_STEP * want.abs() + BF16_FLOOR * want.abs().max()
+                   if dt == torch.bfloat16 else TOL_ABS + TOL_REL * want.abs())
+            bad = int((err > tol).sum())
+            planes = sum(int(t.valid.sum()) for t in sets)
+            row = dict(kernel="plane_subm", case=f"{name} {c}->{c} {str(dt)[6:]}", t1p=t1p,
+                       planes=planes, max_abs_err=float(err.max()),
+                       max_abs_ref=float(want.abs().max()), n_bad=bad,
+                       per_frame=4 if timed and dt == torch.bfloat16 else 0)
+            if row["per_frame"]:
+                # what the function needs: state, residual and output of the
+                # occupied planes, one mask value per cell, a plane's 27
+                # neighbour targets, the weights and the folded scale/shift
+                s = st.element_size()
+                nbytes = (3 * planes * 16 * c * s + planes * 16 * s + planes * 27 * 4
+                          + 27 * c * c * s + 2 * c * 4)
+                ones = torch.ones((27, 1, 1), device="cuda")
+                hits = float(PK.plane_subm_plain(
+                    mask.float(), plan.tgt, ones, torch.ones((1, 16), device="cuda"),
+                    torch.zeros((1, 16), device="cuda"), mask.float(), relu=False).sum())
+                flops = 2.0 * hits * c * c
+                row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+                row.update(hits=hits, bytes=nbytes, flops=flops)
+                row["ms"] = cuda_ms(lambda: PKK.plane_subm_cuda(*args, residual=st), reps=10)
+                row["plain_ms"] = cuda_ms(lambda: PK.plane_subm_plain(*args, residual=st),
+                                          reps=2, warmup=1)
+                dense = _densify_planes(st, sets[0], grid)
+                w5 = wt.reshape(3, 3, 3, c, c).permute(4, 3, 0, 1, 2).contiguous()
+                row["library_ms"] = cuda_ms(lambda: F.conv3d(dense, w5, padding=1), reps=5)
+                row["dense_shape"] = list(dense.shape)
+                del dense
+            print("[kernels] " + json.dumps(row), flush=True)
+            if bad:
+                raise AssertionError(f"plane {row['case']}: {bad} outputs out of tolerance")
+            rows.append(row)
+    return rows
+
+
+def phase_kernels():
+    """Both kernels against their plain versions at the flagship's data;
+    returns per-case rows."""
+    import torch
+
+    from sparse2dense_tpu_torch.models.builder import sparse_shape_from_voxel_cfg
+    from sparse2dense_tpu_torch.ops import cuda_build
+    from sparse2dense_tpu_torch.ops import plane_kernel as PKK
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+    from sparse2dense_tpu_torch.utils.config import FRAME_BUDGETS
+
+    t0 = time.perf_counter()
+    logs = cuda_build.build_all([(WK.SOURCE, WK.LIBRARY), (PKK.SOURCE, PKK.LIBRARY)])
+    print(f"[kernels] built {sorted(logs)} in {time.perf_counter() - t0:.1f} s\n" + "\n".join(
+        "  " + line for log in logs.values() for line in log.splitlines()
+        if "registers" in line or "smem" in line or "spill" in line), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cfg, batch, model = _flagship("plane", FRAME_BUDGETS)
+    rows = _window_rows(batch, sparse_shape_from_voxel_cfg(cfg["voxel_generator"]), gen)
+    stages = _plane_stage_data(batch, model)
+    del model
+    rows += _plane_rows(stages, gen)
+    del stages
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_main_path(engine: str, budgets=None):
+    """The flagship on one engine: launches per frame of each kernel, with
+    every count set to 0 just before the frames and read just after; every
+    telemetry count within its budget. The first ``WARMUP_FRAMES`` frames
+    (cuDNN autotuning, allocator growth) are not timed."""
+    import torch
+
+    from sparse2dense_tpu_torch.ops import plane_kernel as PKK
     from sparse2dense_tpu_torch.ops import window_kernel as WK
 
-    cfg, batch, _, _, _ = _flagship_frame()
-    # trained-like heatmap density for NMS (random-init heatmaps sit at the
-    # score threshold and flood NMS)
-    cfg["S_model"]["bbox_head"]["init_bias"] = -6.0
-    model = build_detector(cfg["S_model"], test_cfg=cfg["test_cfg"],
-                           voxel_generator=cfg["voxel_generator"], device="cuda",
-                           generator=torch.Generator().manual_seed(0))
-    WK.launches = 0
-    times, per_frame = [], []
-    for i in range(1 + frames_timed):
-        before = WK.launches
+    _, batch, model = _flagship(engine, budgets)
+    expected = {"window_pass": 6, "plane_subm": 12 if engine == "plane" else 0}
+    mods = {"window_pass": WK, "plane_subm": PKK}
+    torch.cuda.reset_peak_memory_stats()
+    times, per_frame = [], {k: [] for k in mods}
+    for mod in mods.values():
+        mod.launches = 0
+    for i in range(WARMUP_FRAMES + TIMED_FRAMES):
+        before = {k: m.launches for k, m in mods.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.inference_mode():
             out = model(batch)
             det = model.predict(out)
         torch.cuda.synchronize()
-        if i:
+        if i >= WARMUP_FRAMES:
             times.append((time.perf_counter() - t0) * 1e3)
-        per_frame.append(WK.launches - before)
-    launches = WK.launches
-    if per_frame != [6] * (1 + frames_timed):
-        raise AssertionError(f"window-pass launches per frame {per_frame}, expected 6")
-    for name, (n_resid, budget) in out["telemetry"].items():
-        if int(n_resid.max()) > budget:
-            raise AssertionError(f"{name}: {int(n_resid.max())} residual rows > {budget}")
+        for k, m in mods.items():
+            per_frame[k].append(m.launches - before[k])
+    launches = {k: m.launches for k, m in mods.items()}
+    for k, n in expected.items():
+        if per_frame[k] != [n] * (WARMUP_FRAMES + TIMED_FRAMES):
+            raise AssertionError(f"{engine}: {k} launches per frame {per_frame[k]}, expected {n}")
+    for name, (count, budget) in out["telemetry"].items():
+        if int(count.max()) > budget:
+            raise AssertionError(f"{engine}: {name} counts {int(count.max())} > {budget}")
     maps = [v for pd in out["preds"] for v in pd.values()]
     if not all(bool(torch.isfinite(m).all()) for m in maps):
-        raise AssertionError("non-finite head maps")
+        raise AssertionError(f"{engine}: non-finite head maps")
     if tuple(maps[0].shape[1:3]) != (188, 188):
-        raise AssertionError(f"head map shape {tuple(maps[0].shape)}")
+        raise AssertionError(f"{engine}: head map shape {tuple(maps[0].shape)}")
     valid = det["valid"]
     if not bool(torch.isfinite(det["box3d_lidar"][valid]).all()):
-        raise AssertionError("non-finite boxes")
-    frame_ms = sorted(times)[len(times) // 2]
-    res = dict(frame_ms_median=frame_ms, frame_ms=times, launches=launches,
-               launches_per_frame=per_frame, detections=int(valid.sum()),
+        raise AssertionError(f"{engine}: non-finite boxes")
+    res = dict(engine=engine, budgets=budgets, frame_ms_median=sorted(times)[len(times) // 2],
+               frame_ms_min=min(times), frame_ms_max=max(times), frame_ms=times,
+               launches=launches, launches_per_frame=per_frame, detections=int(valid.sum()),
                max_heatmap=float(torch.sigmoid(out["preds"][0]["hm"]).max()),
                telemetry={k: int(v[0].max()) for k, v in out["telemetry"].items()},
                peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
     print("[main] " + json.dumps(res), flush=True)
+    del model, out
+    torch.cuda.empty_cache()
     return res
 
 
+# tiny-model plane budgets: every key of every stage fits (as in the CPU test)
+TINY_PLANE = dict(engine="plane", tile_budgets=(96, 96, 24, 4), plane_budgets=(336, 44, 5),
+                  plane_window=10 ** 6)
+
+
 def phase_agreement():
-    """Tiny model on the card (CUDA kernel, bf16 window products) against the
-    same weights on the CPU (plain versions, f32)."""
+    """Tiny model on the card (CUDA kernels: bf16 window products, float32
+    plane convs) against the same weights on the CPU (plain versions, f32),
+    on the window and the plane engine."""
     import torch
 
     from sparse2dense_tpu_torch.models import build_detector
     from sparse2dense_tpu_torch.training.synthetic import make_batch
     from sparse2dense_tpu_torch.utils.config import ConfigDict
 
-    cfg = ConfigDict.fromfile(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                           "configs", "tests", "distill_tiny.py"))
-    cfg["S_model"]["backbone"].update(engine="window", dense_from_stage=1)
-    outs, dets = {}, {}
-    for dev in ("cuda", "cpu"):
-        model = build_detector(cfg["S_model"], test_cfg=cfg["test_cfg"],
-                               voxel_generator=cfg["voxel_generator"], device=dev,
-                               generator=torch.Generator().manual_seed(3))
-        batch = make_batch(cfg, 1, max_voxels=512, n_points=3000, n_obj=6, device=dev)
-        with torch.inference_mode():
-            out = model(batch)
-            outs[dev], dets[dev] = out["preds"][0], model.predict(out)
-    worst = 0.0
-    for k, ref in outs["cpu"].items():
-        got = outs["cuda"][k].cpu()
-        rel = float((got - ref).abs().max() / ref.abs().max().clamp(min=1e-6))
-        worst = max(worst, rel)
-    n_det = {dev: int(d["valid"].sum()) for dev, d in dets.items()}
-    print(f"[agreement] tiny model cuda vs cpu: max |diff| / max |ref| = {worst:.3e}; "
-          f"valid detections {n_det}", flush=True)
-    if worst > 2e-2:  # bf16 products in the window pass, f32 on the CPU
-        raise AssertionError(f"tiny model disagrees with its CPU run: {worst}")
-    if not n_det["cuda"] or not bool(torch.isfinite(dets["cuda"]["box3d_lidar"]).all()):
-        raise AssertionError("predict on the card gave no finite detections")
+    worst = {}
+    for engine in ("window", "plane"):
+        cfg = ConfigDict.fromfile(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                               "configs", "tests", "distill_tiny.py"))
+        cfg["S_model"]["backbone"].update(
+            dict(engine="window", dense_from_stage=1) if engine == "window" else TINY_PLANE)
+        outs, dets = {}, {}
+        for dev in ("cuda", "cpu"):
+            model = build_detector(cfg["S_model"], test_cfg=cfg["test_cfg"],
+                                   voxel_generator=cfg["voxel_generator"], device=dev,
+                                   generator=torch.Generator().manual_seed(3))
+            batch = make_batch(cfg, 1, max_voxels=512, n_points=3000, n_obj=6, device=dev)
+            with torch.inference_mode():
+                out = model(batch)
+                outs[dev], dets[dev] = out["preds"][0], model.predict(out)
+        worst[engine] = max(
+            float((outs["cuda"][k].cpu() - ref).abs().max() / ref.abs().max().clamp(min=1e-6))
+            for k, ref in outs["cpu"].items())
+        n_det = {dev: int(d["valid"].sum()) for dev, d in dets.items()}
+        print(f"[agreement] tiny model, {engine} engine, cuda vs cpu: max |diff| / max |ref| "
+              f"= {worst[engine]:.3e}; valid detections {n_det}", flush=True)
+        if worst[engine] > 2e-2:  # bf16 products in the window pass, f32 on the CPU
+            raise AssertionError(f"tiny {engine} model disagrees with its CPU run: {worst}")
+        if not n_det["cuda"] or not bool(torch.isfinite(dets["cuda"]["box3d_lidar"]).all()):
+            raise AssertionError(f"predict on the card gave no finite detections ({engine})")
     return worst
+
+
+def _record(name, source, replaces, launches, rows):
+    frame = [r for r in rows if r["per_frame"]]
+    lib = [r["library_ms"] for r in frame]
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+        # per frame: each timed shape times its launches in one frame
+        "ms": sum(r["ms"] * r["per_frame"] for r in frame),
+        "plain_ms": sum(r["plain_ms"] * r["per_frame"] for r in frame),
+        "bound_ms": sum(r["bound_ms"] * r["per_frame"] for r in frame),
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in frame)
+                     else "operations"),
+        "library_ms": (None if any(x is None for x in lib)
+                       else sum(x * r["per_frame"] for x, r in zip(lib, frame))),
+    }
 
 
 def main() -> int:
@@ -279,29 +464,31 @@ def main() -> int:
     kind, smi = phase_device()
     with no_tf32():
         rows = phase_kernels()
-    main_res = phase_main_path()
+    from sparse2dense_tpu_torch.utils.config import FRAME_BUDGETS
+
+    window = phase_main_path("window")
+    plane = phase_main_path("plane", budgets=FRAME_BUDGETS)
     with no_tf32():
         phase_agreement()
 
-    frame = [r for r in rows if r["per_frame"]]
-    ms = sum(r["ms"] * r["per_frame"] for r in frame)
-    print(f"[main] window-pass share of the median frame: {ms:.3f} ms of "
-          f"{main_res['frame_ms_median']:.1f} ms = {ms / main_res['frame_ms_median']:.2%}",
-          flush=True)
-    record = {"kernels": [{
-        "name": "window_pass",
-        "route": "cuda",
-        "source": "sparse2dense_tpu_torch/csrc/window_pass.cu",
-        "replaces": "sparse2dense_tpu/ops/pallas/window_kernel.py:69",
-        "launches": main_res["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        # the six launches of one frame (conv_input, 4 x conv1, conv2_down)
-        "ms": ms,
-        "plain_ms": sum(r["plain_ms"] * r["per_frame"] for r in frame),
-        "bound_ms": sum(r["bound_ms"] * r["per_frame"] for r in frame),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in frame) else "operations",
-        "library_ms": None,
-    }]}
+    wrows = [r for r in rows if r["kernel"] == "window_pass"]
+    prows = [r for r in rows if r["kernel"] == "plane_subm"]
+    record = {"kernels": [
+        _record("window_pass", "sparse2dense_tpu_torch/csrc/window_pass.cu",
+                "sparse2dense_tpu/ops/pallas/window_kernel.py:69",
+                window["launches"]["window_pass"], wrows),
+        _record("plane_subm", "sparse2dense_tpu_torch/csrc/plane_subm.cu",
+                "sparse2dense_tpu/ops/pallas/plane_block_kernel.py:131",
+                plane["launches"]["plane_subm"], prows),
+    ]}
+    for rec, res in zip(record["kernels"], (window, plane)):
+        print(f"[main] {rec['name']} share of the {res['engine']} frame: {rec['ms']:.3f} ms "
+              f"of {res['frame_ms_median']:.1f} ms = {rec['ms'] / res['frame_ms_median']:.2%}",
+              flush=True)
+    for res in (window, plane):
+        print(f"[main] {res['engine']} engine frame: median {res['frame_ms_median']:.1f} ms, "
+              f"min {res['frame_ms_min']:.1f}, max {res['frame_ms_max']:.1f} over "
+              f"{len(res['frame_ms'])} frames", flush=True)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

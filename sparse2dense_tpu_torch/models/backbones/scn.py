@@ -1,24 +1,33 @@
-"""SpMiddleResNetFHD, window engine (counterpart of
+"""SpMiddleResNetFHD, window and plane engines (counterpart of
 ``sparse2dense_tpu/models/backbones/scn.py``).
 
 The conv1 stage (conv_input, conv1_0, conv1_1) and the strided conv2_down run
 as windowed sparse convs on voxel rows (``ops/window_conv.py``; the window
-pass is the hand-written CUDA kernel on the card). From ``dense_from_stage``
-on, the stages run as masked dense 3D convs: one ``F.conv3d`` followed by the
-occupancy mask is the operator the reference's z-packed / z-decomposed TPU
-convs compute. Rows are (B, V, C); dense tensors are NCDHW with a
-(B, 1, D, H, W) occupancy mask. 3D conv weights are stored as Conv3d weights
+pass is the hand-written CUDA kernel on the card). With ``engine="window"``,
+the stages from ``dense_from_stage`` on run as masked dense 3D convs: one
+``F.conv3d`` followed by the occupancy mask is the operator the reference's
+z-packed / z-decomposed TPU convs compute. With ``engine="plane"``, conv2 to
+conv4 run as fused submanifold convs over the occupied (by, bx, z) planes of
+4x4 BEV tiles (``ops/plane_conv.py``; the conv is the hand-written CUDA
+kernel on the card), and the strided transitions and ``extra_conv`` in the
+chunk-planes layout (``ops/tile_planes.py``). Rows are (B, V, C); dense
+tensors are NCDHW with a (B, 1, D, H, W) occupancy mask; plane state is
+(B * T1p, 16C). 3D conv weights are stored as Conv3d weights
 (Cout, Cin, kz, ky, kx) in every stage, so the names and shapes of the
 parameters do not depend on the engine.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops import plane_conv as PK
+from ...ops import tile_conv as TLC
+from ...ops import tile_planes as TP
 from ...ops import window_conv as WC
 from ...ops.sparse_conv import conv_out_grid, scatter_to_dense
 from ..norm import BatchNorm
@@ -30,6 +39,13 @@ def _kernel(cin: int, cout: int, ksize=(3, 3, 3)) -> nn.Parameter:
 
 def _dtype(name: Optional[str]) -> Optional[torch.dtype]:
     return getattr(torch, name) if name else None
+
+
+def _taps(w: torch.Tensor) -> torch.Tensor:
+    """Conv3d weight (Cout, Cin, kz, ky, kx) -> (kz*ky*kx, Cin, Cout) taps,
+    z-major (the reference's checkpoint layout)."""
+    cout, cin = w.shape[:2]
+    return w.permute(2, 3, 4, 1, 0).reshape(-1, cin, cout)
 
 
 def _win_conv(feats, plans, w, b=None, ksize=(3, 3, 3)):
@@ -192,6 +208,84 @@ class DenseDownsample(nn.Module):
         return F.relu(self.norm(y, mask=new_mask)) * new_mask, new_mask
 
 
+class PlaneKBlock(nn.Module):
+    """Residual block of two fused plane subm convs (names of
+    DenseBasicBlock). Bias, inference BatchNorm, ReLU, the residual and the
+    occupancy mask fold into the conv's epilogue; inference only."""
+
+    def __init__(self, cin: int, planes: int):
+        super().__init__()
+        self.planes = planes
+        self.conv1_weight = _kernel(cin, planes)
+        self.conv1_bias = nn.Parameter(torch.zeros(planes))
+        self.bn1 = BatchNorm(planes)
+        self.conv2_weight = _kernel(planes, planes)
+        self.conv2_bias = nn.Parameter(torch.zeros(planes))
+        self.bn2 = BatchNorm(planes)
+
+    def _fold(self, bias, bn):
+        return PK.fold_epilogue(self.planes, bias=bias, bn_scale=bn.weight, bn_bias=bn.bias,
+                                bn_mean=bn.running_mean, bn_var=bn.running_var, eps=bn.eps)
+
+    def forward(self, state, mask, plan: PK.PKPlan):
+        if self.training:
+            raise NotImplementedError(
+                "PlaneKBlock runs inference only; the plane engine's training half "
+                "(the reference-formula backward) comes with the training slice")
+        mask16 = PK.expand_mask(mask, self.planes).to(state.dtype)
+        sc1, sh1 = self._fold(self.conv1_bias, self.bn1)
+        sc2, sh2 = self._fold(self.conv2_bias, self.bn2)
+        out = PK.pk_subm_conv(state, plan, _taps(self.conv1_weight), sc1, sh1, mask16,
+                              relu=True)
+        return PK.pk_subm_conv(out, plan, _taps(self.conv2_weight), sc2, sh2, mask16,
+                               residual=state, relu=True)
+
+
+class TileDownsample(nn.Module):
+    """Strided (2, 2, 2) conv + BN + ReLU in the chunk-planes layout (names
+    of DenseDownsample)."""
+
+    def __init__(self, cin: int, out_channels: int, tz: int, tz_out: int, budget_out: int,
+                 padding, ksize=(3, 3, 3), compute_dtype: Optional[str] = None):
+        super().__init__()
+        self.tz, self.tz_out, self.budget_out = tz, tz_out, budget_out
+        self.padding, self.ksize, self.cd = tuple(padding), tuple(ksize), _dtype(compute_dtype)
+        self.conv_weight = _kernel(cin, out_channels, ksize)
+        self.norm = BatchNorm(out_channels, channel_dim=-1)
+
+    def forward(self, ys, masks, sets, grid):
+        """Per sample: chunk planes (N, 4, 4, C), mask (N, 4, 4, 1), chunk
+        TileSet. Returns (y (B, N', 4, 4, Co), mask (B, N', 4, 4, 1), output
+        TileSets, output grid)."""
+        w = _taps(self.conv_weight)
+        outs = [TP.downsample(y, m, ts, grid, w, self.ksize, self.padding, self.tz,
+                              self.tz_out, self.budget_out, self.cd)
+                for y, m, ts in zip(ys, masks, sets)]
+        y = torch.stack([o[0] for o in outs])
+        mout = torch.stack([o[1] for o in outs])
+        y = F.relu(self.norm(y, mask=mout)) * mout.to(y.dtype)
+        return y, mout, [o[2] for o in outs], outs[0][3]
+
+
+class TileZConv(nn.Module):
+    """extra_conv in the chunk-planes layout: (3, 1, 1) stride (2, 1, 1) conv
+    + BN + ReLU inside a single z-chunk (names of DenseDownsample)."""
+
+    def __init__(self, cin: int, out_channels: int, d: int, tz: int,
+                 compute_dtype: Optional[str] = None):
+        super().__init__()
+        self.d, self.tz, self.cd = d, tz, _dtype(compute_dtype)
+        self.conv_weight = _kernel(cin, out_channels, (3, 1, 1))
+        self.norm = BatchNorm(out_channels, channel_dim=-1)
+
+    def forward(self, ys, masks):
+        w = _taps(self.conv_weight)
+        outs = [TP.zconv(y, m, w, self.d, self.tz, self.cd) for y, m in zip(ys, masks)]
+        y = torch.stack([o[0] for o in outs])
+        m = torch.stack([o[1] for o in outs])
+        return F.relu(self.norm(y, mask=m)) * m.to(y.dtype), m
+
+
 def densify(feats, coords, valid, grid) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rows -> (dense (B, C, D, H, W), occupancy mask (B, 1, D, H, W))."""
     dense = torch.stack([scatter_to_dense(f, c, v, grid) for f, c, v in zip(feats, coords, valid)])
@@ -215,16 +309,24 @@ _STAGES = [  # (name, channels, down stride, down padding, down ksize)
 
 
 class SpMiddleResNetFHD(nn.Module):
-    """CenterPoint residual sparse backbone, window engine.
+    """CenterPoint residual sparse backbone, window or plane engine.
 
     forward(voxel_features (B, V, C), coords (B, V, 3) zyx)
       -> (bev NHWC (B, H/8, W/8, 128*2), multi_scale, telemetry)
-    where telemetry maps each window plan group to (per-sample residual row
-    counts (B,), residual row budget): the result is exact while every count
-    is within its budget.
+    where telemetry maps each counter to (per-sample counts (B,), budget):
+    the window plan groups ("conv1", "conv2_down") to their residual rows
+    and budget, and with the plane engine "plane_drop", "planek_miss",
+    "plane_chunk_drop" and "down_drop" (summed over the stages) to budget 0.
+    The result is exact while every count is within its budget.
 
-    ``dense_from_stage`` 1 runs conv1 and conv2_down sparse and the rest
-    dense (the shipped setting); 0 runs every stage dense.
+    ``engine="window"``: ``dense_from_stage`` 1 runs conv1 and conv2_down
+    sparse and the rest dense (the shipped setting); 0 runs every stage
+    dense. ``engine="plane"`` runs conv1 and conv2_down on the window engine
+    and conv2..conv4 as fused plane convs (inference only), with the
+    reference's plane knobs: per-stage z-chunk heights ``tile_tz``, chunk
+    budgets ``tile_budgets``, plane budgets ``plane_budgets`` (conv2..conv4)
+    and plan windows ``plane_window`` (an int, or per stage an int or a
+    (w0, wy) pair); ``dense_from_stage`` is not read.
     """
 
     def __init__(self, num_input_features: int = 128,
@@ -232,20 +334,28 @@ class SpMiddleResNetFHD(nn.Module):
                  stage_budgets: Optional[Tuple[int, int, int, int]] = None,
                  dense_from_stage: int = 2, engine: str = "gather",
                  win_window: int = 384, win_resid_budget: int = 16384,
-                 dense_compute_dtype: Optional[str] = None):
+                 dense_compute_dtype: Optional[str] = None,
+                 tile_tz: Tuple[int, int, int, int] = (8, 4, 2, 6),
+                 tile_budgets: Tuple[int, int, int, int] = (72000, 36000, 14000, 2400),
+                 plane_budgets: Tuple[int, int, int] = (80000, 26000, 6400),
+                 plane_window=128):
         super().__init__()
-        if engine != "window":
+        if engine not in ("window", "plane"):
             raise NotImplementedError(
-                f"engine={engine!r}: this port runs engine='window'; 'plane' is the "
-                "next engine slice, 'gather', 'column' and 'tile' come last")
-        if dense_from_stage not in (0, 1):
+                f"engine={engine!r}: this port runs engine='window' and 'plane'; 'tile' "
+                "is the next engine slice, 'gather' and 'column' come last")
+        if engine == "window" and dense_from_stage not in (0, 1):
             raise NotImplementedError(
                 f"dense_from_stage={dense_from_stage}: sparse stages past conv2_down "
                 "need a window kernel for 64/128 channels, a later slice")
+        self.engine = engine
         self.sparse_shape = tuple(sparse_shape)
         self.stage_budgets = stage_budgets
-        self.dfs = dense_from_stage
+        self.dfs = 1 if engine == "plane" else dense_from_stage
         self.win_window, self.win_resid_budget = win_window, win_resid_budget
+        self.tile_tz, self.tile_budgets = tuple(tile_tz), tuple(tile_budgets)
+        self.plane_budgets = tuple(plane_budgets)
+        self.plane_wins = _plane_stage_wins(plane_window)
         cd = dense_compute_dtype
         self.cd = _dtype(cd)
         cin = num_input_features
@@ -263,14 +373,24 @@ class SpMiddleResNetFHD(nn.Module):
                 budget = stage_budgets[k - 1] if stage_budgets else None
                 down = WinDownsample(cin, ch, grid, stride, pad, ksz, out_budget=budget,
                                      window=win_window, resid_budget=win_resid_budget)
+            elif engine == "plane":
+                down = TileDownsample(cin, ch, tz=self.tile_tz[k - 1], tz_out=self.tile_tz[k],
+                                      budget_out=self.tile_budgets[k], padding=pad,
+                                      ksize=ksz, compute_dtype=cd)
             else:
                 down = DenseDownsample(cin, ch, stride, pad, ksz, compute_dtype=cd)
             setattr(self, f"{name}_down", down)
-            setattr(self, f"{name}_0", DenseBasicBlock(ch, ch, compute_dtype=cd))
-            setattr(self, f"{name}_1", DenseBasicBlock(ch, ch, compute_dtype=cd))
+            block = PlaneKBlock if engine == "plane" else partial(DenseBasicBlock,
+                                                                  compute_dtype=cd)
+            setattr(self, f"{name}_0", block(ch, ch))
+            setattr(self, f"{name}_1", block(ch, ch))
             cin, grid = ch, conv_out_grid(grid, stride, pad, ksz)
-        self.extra_conv = DenseDownsample(128, 128, (2, 1, 1), (0, 0, 0), (3, 1, 1),
-                                          compute_dtype=cd)
+        if engine == "plane":
+            self.extra_conv = TileZConv(128, 128, d=grid[0], tz=self.tile_tz[3],
+                                        compute_dtype=cd)
+        else:
+            self.extra_conv = DenseDownsample(128, 128, (2, 1, 1), (0, 0, 0), (3, 1, 1),
+                                              compute_dtype=cd)
 
     def _dense_stream(self, feats, coords, valid, grid):
         """Densify in the dense stages' storage dtype (cast before the
@@ -279,6 +399,24 @@ class SpMiddleResNetFHD(nn.Module):
             feats = feats.to(self.cd)
         return densify(feats, coords, valid, grid)
 
+    def _window_stages(self, feats, coords, grid, telemetry, multi_scale):
+        """conv1 stage and the strided conv2_down on the window engine."""
+        rows = [WC.sort_rows(f, c, grid) for f, c in zip(feats, coords)]
+        feats, coords, lin = (torch.stack(t) for t in zip(*rows))
+        valid = lin < WC.MISS
+        plans: List[WC.ConvPlan] = [
+            WC.make_subm_plan_presorted(l, c, grid, window=self.win_window)
+            for l, c in zip(lin, coords)]
+        telemetry["conv1"] = (torch.stack([p.n_resid for p in plans]),
+                              plans[0].resid_rows.shape[0])
+        feats = self.conv_input(feats, valid, plans)
+        feats = self.conv1_1(self.conv1_0(feats, valid, plans), valid, plans)
+        multi_scale["conv1"] = ((feats, coords, valid), grid)
+        feats, coords, lin, valid, grid, plans = self.conv2_down(feats, coords, lin)
+        telemetry["conv2_down"] = (torch.stack([p.n_resid for p in plans]),
+                                   self.win_resid_budget)
+        return feats, coords, valid, grid
+
     def forward(self, voxel_features, coords):
         coords = coords.to(torch.int32)
         valid0 = (coords >= 0).all(-1)
@@ -286,6 +424,8 @@ class SpMiddleResNetFHD(nn.Module):
         grid = self.sparse_shape
         telemetry: Dict[str, Tuple[torch.Tensor, int]] = {}
         multi_scale: Dict[str, tuple] = {}
+        if self.engine == "plane":
+            return self._plane_forward(feats, coords, grid, telemetry, multi_scale)
 
         if self.dfs == 0:
             x, mask = self._dense_stream(feats, coords, valid0, grid)
@@ -293,20 +433,8 @@ class SpMiddleResNetFHD(nn.Module):
             x = self.conv1_1(self.conv1_0(x, mask), mask)
             multi_scale["conv1"] = (x, grid)
         else:
-            rows = [WC.sort_rows(f, c, grid) for f, c in zip(feats, coords)]
-            feats, coords, lin = (torch.stack(t) for t in zip(*rows))
-            valid = lin < WC.MISS
-            plans: List[WC.ConvPlan] = [
-                WC.make_subm_plan_presorted(l, c, grid, window=self.win_window)
-                for l, c in zip(lin, coords)]
-            telemetry["conv1"] = (torch.stack([p.n_resid for p in plans]),
-                                  plans[0].resid_rows.shape[0])
-            feats = self.conv_input(feats, valid, plans)
-            feats = self.conv1_1(self.conv1_0(feats, valid, plans), valid, plans)
-            multi_scale["conv1"] = ((feats, coords, valid), grid)
-            feats, coords, lin, valid, grid, plans = self.conv2_down(feats, coords, lin)
-            telemetry["conv2_down"] = (torch.stack([p.n_resid for p in plans]),
-                                       self.win_resid_budget)
+            feats, coords, valid, grid = self._window_stages(feats, coords, grid, telemetry,
+                                                             multi_scale)
             x, mask = self._dense_stream(feats, coords, valid, grid)
 
         for k, (name, _, stride, pad, ksz) in enumerate(_STAGES, start=1):
@@ -318,3 +446,86 @@ class SpMiddleResNetFHD(nn.Module):
             multi_scale[name] = (x, grid)
         x, mask = self.extra_conv(x, mask)
         return dense_to_bev(x), multi_scale, telemetry
+
+    def _chunk_planes(self, state, mask, sets, grid, tz, budget_t, counts):
+        """Plane rows -> chunk planes of the chunk sets that cover the planes
+        (a row permutation). Returns (planes, masks, chunk sets) per sample."""
+        b = len(sets)
+        t1p = state.shape[0] // b
+        sb = state.reshape(b, t1p, -1)
+        mb = mask.reshape(b, t1p, 16).to(state.dtype)
+        cts = [PK.chunk_set_of_planes(t, grid, tz, budget_t) for t in sets]
+        counts["plane_chunk_drop"] += torch.stack([c.n_drop for c in cts])
+        pocs = [PK.plane_ranks_of_chunks(c, t, grid, tz, t1p - 1) for c, t in zip(cts, sets)]
+        pch = [PK.plane_state_to_planes(s, po, tz) for s, po in zip(sb, pocs)]
+        mch = [PK.plane_state_to_planes(m, po, tz) for m, po in zip(mb, pocs)]
+        return pch, mch, cts
+
+    def _plane_down(self, k, name, state, mask, sets, grid, counts):
+        """Strided transition between plane stages: plane rows -> chunk
+        planes, chunk-layout strided conv, -> the next stage's plane set and
+        state."""
+        tz, tz_out = self.tile_tz[k], self.tile_tz[k + 1]
+        tbud_out, pbud_out = self.tile_budgets[k + 1], self.plane_budgets[k]
+        pch, mch, cts = self._chunk_planes(state, mask, sets, grid, tz, self.tile_budgets[k],
+                                           counts)
+        y, mo, tso, grid_out = getattr(self, f"{name}_down")(pch, mch, cts, grid)
+        counts["down_drop"] += torch.stack([t.n_drop for t in tso])
+        t1p_out = PK.t1p_of(pbud_out)
+        pts = [PK.plane_set_from_chunk_mask(m, t, grid_out, tz_out, pbud_out)
+               for m, t in zip(mo, tso)]
+        counts["plane_drop"] += torch.stack([t.n_drop for t in pts])
+        cr = [PK.chunk_ranks_of_planes(p, t, grid_out, tz_out, tbud_out)
+              for p, t in zip(pts, tso)]
+        state = torch.cat([PK.planes_to_plane_state(yy, c, t1p_out) for yy, c in zip(y, cr)])
+        mask = torch.cat([PK.planes_to_plane_state(m, c, t1p_out) for m, c in zip(mo, cr)])
+        return state, mask, pts, grid_out
+
+    def _plane_forward(self, feats, coords, grid, telemetry, multi_scale):
+        """conv1 + conv2_down on the window engine; conv2..conv4 as fused
+        plane convs over the batch flattened to (B * T1p) plane rows, with
+        the strided transitions and extra_conv in the chunk-planes layout."""
+        out_dtype = feats.dtype
+        feats, coords, valid, grid = self._window_stages(feats, coords, grid, telemetry,
+                                                         multi_scale)
+        cd = self.cd or feats.dtype
+        b = feats.shape[0]
+        counts = {k: torch.zeros(b, dtype=torch.int32, device=feats.device)
+                  for k in ("plane_drop", "planek_miss", "plane_chunk_drop", "down_drop")}
+        state = mask = sets = None
+        for k, (name, _, _, _, _) in enumerate(_STAGES):
+            t1p = PK.t1p_of(self.plane_budgets[k])
+            if k == 0:
+                sets = [PK.build_plane_set(c, grid, self.plane_budgets[0])[0] for c in coords]
+                counts["plane_drop"] += torch.stack([t.n_drop for t in sets])
+                st = [PK.build_plane_state(f.to(cd), c, t, grid, t1p)
+                      for f, c, t in zip(feats, coords, sets)]
+                state = torch.cat([s_[0] for s_ in st])
+                mask = torch.cat([s_[1] for s_ in st])
+            else:
+                state, mask, sets, grid = self._plane_down(k, name, state, mask, sets, grid,
+                                                           counts)
+            plan = PK.make_plane_plan_batched(sets, t1p, *self.plane_wins[k])
+            counts["planek_miss"] += plan.n_miss
+            state = getattr(self, f"{name}_0")(state, mask, plan)
+            state = getattr(self, f"{name}_1")(state, mask, plan)
+            multi_scale[name] = ((state, mask, sets), grid)
+
+        pch, mch, cts = self._chunk_planes(state, mask, sets, grid, self.tile_tz[3],
+                                           self.tile_budgets[3], counts)
+        y, _ = self.extra_conv(pch, mch)                      # (B, T1, d2, 4, 4, C)
+        g4 = ((grid[0] - 3) // 2 + 1, grid[1], grid[2])
+        dense = torch.stack([TLC.tiles_to_dense(yy, t, g4, yy.shape[1])
+                             for yy, t in zip(y, cts)])        # (B, D, H, W, C)
+        telemetry.update({k: (v, 0) for k, v in counts.items()})
+        return dense_to_bev(dense.to(out_dtype).permute(0, 4, 1, 2, 3)), multi_scale, telemetry
+
+
+def _plane_stage_wins(pw) -> List[Tuple[int, int]]:
+    """Per-stage (w0, wy) plan windows of conv2..conv4 from an int or a
+    3-tuple of ints or pairs."""
+    if isinstance(pw, (tuple, list)):
+        assert len(pw) == 3, pw
+        return [(int(w), int(w)) if not isinstance(w, (tuple, list)) else (int(w[0]), int(w[1]))
+                for w in pw]
+    return [(int(pw), int(pw))] * 3

@@ -3,8 +3,8 @@
 The kernel replaces the TPU kernel ``window_pass_pallas``
 (``sparse2dense_tpu/ops/pallas/window_kernel.py``). It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface at
-first use (into ``_build/``, which git ignores) and called through ctypes on
-PyTorch's current stream.
+first use (``ops/cuda_build.py``: into ``_build/``, which git ignores) and
+called through ctypes on PyTorch's current stream.
 
 :func:`window_pass` takes the plain version (``window_conv.window_pass_plain``)
 for a tensor on the CPU, and launches the kernel for a CUDA tensor or raises:
@@ -14,18 +14,15 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import subprocess
 from typing import Optional, Tuple
 
 import torch
 
+from . import cuda_build
 from .window_conv import ConvPlan, window_pass_plain
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "window_pass.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-LIBRARY = os.path.join(BUILD_DIR, "libwindow_pass.so")
+SOURCE = os.path.join(cuda_build.CSRC, "window_pass.cu")
+LIBRARY = os.path.join(cuda_build.BUILD_DIR, "libwindow_pass.so")
 BLOCK = 128
 COUTS = (16, 32)           # output widths the kernel is instantiated for
 SMEM_LIMIT = 232448        # dynamic shared memory a Hopper block may use
@@ -34,29 +31,10 @@ launches = 0               # kernel launches since the caller last reset it
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the window-pass kernel is built on a "
-                           "machine with the CUDA toolkit")
-    return nvcc
-
-
 def build() -> str:
     """Compile the kernel library if it is missing or older than its source;
     returns ptxas's register and shared-memory report (empty if up to date)."""
-    if os.path.exists(LIBRARY) and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE):
-        return ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-           "-o", tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, LIBRARY)
-    return res.stderr
+    return cuda_build.build(SOURCE, LIBRARY)
 
 
 def _library() -> ctypes.CDLL:
@@ -81,17 +59,6 @@ def live_taps(ksize: Tuple[int, int, int]) -> Tuple[int, int]:
     dy_mask = sum(1 << d for d in dys)
     j_mask = sum(1 << (dxi * 3 + dzi) for dxi in dxs for dzi in dzs)
     return dy_mask, j_mask
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, features on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def window_pass_cuda(features: torch.Tensor, plan: ConvPlan, weights: torch.Tensor,
@@ -120,11 +87,11 @@ def window_pass_cuda(features: torch.Tensor, plan: ConvPlan, weights: torch.Tens
         raise ValueError(f"window {window} x Cin {cin} needs {smem} B of shared memory")
     feat = features.to(torch.bfloat16).contiguous()
     w = weights.to(torch.bfloat16).contiguous()
-    _check("plan.lin", plan.lin, torch.int32, (v_in,), dev)
-    _check("plan.kbase", plan.kbase, torch.int32, (nb * BLOCK, 3), dev)
-    _check("plan.ws", plan.ws, torch.int32, (nb, 3), dev)
-    _check("plan.offsets", plan.offsets, torch.int32, (3, 9), dev)
-    _check("weights", w, torch.bfloat16, (27, cin, cout), dev)
+    cuda_build.check_tensor("plan.lin", plan.lin, torch.int32, (v_in,), dev)
+    cuda_build.check_tensor("plan.kbase", plan.kbase, torch.int32, (nb * BLOCK, 3), dev)
+    cuda_build.check_tensor("plan.ws", plan.ws, torch.int32, (nb, 3), dev)
+    cuda_build.check_tensor("plan.offsets", plan.offsets, torch.int32, (3, 9), dev)
+    cuda_build.check_tensor("weights", w, torch.bfloat16, (27, cin, cout), dev)
     out = torch.empty((nb * BLOCK, cout), dtype=torch.float32, device=dev)
     dy_mask, j_mask = live_taps(ksize)
     lib = _library()

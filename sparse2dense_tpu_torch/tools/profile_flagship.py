@@ -1,15 +1,20 @@
 """Where the time of a flagship frame goes, on one NVIDIA GPU.
 
     python3 -m sparse2dense_tpu_torch.tools.profile_flagship [--frames 3] [--no-tf32]
+        [--engine window|plane]
 
 Runs the flagship KD_VoxelNet + S2D_RPN (random weights from a seeded
 generator, heatmap bias -6 as in chip_smoke.py) on a 150k-voxel synthetic
-Waymo frame and prints one JSON line per measurement:
+Waymo frame, on the window engine (the config as it is) or the plane engine
+(the reference bench's override, with the plane and tile budgets
+``utils.config.FRAME_BUDGETS`` that this frame needs to drop nothing),
+and prints one JSON line per measurement:
 
 - ``stages``: per-module wall time (ms, median over the frames) of the
   backbone's and the neck's layers, the head and predict, with the device
   synchronised at every module boundary; ``glue`` is what lies between the
-  modules (row sort, window plans, densify, BEV reshape);
+  modules (row sort, window plans, densify, BEV reshape; with the plane
+  engine: plane and chunk sets, plane plans, layout permutations);
 - ``device``: a torch.profiler trace of one frame: device-busy time (sum of
   GPU kernel time), the frame's wall time, the idle share, and the ten GPU
   kernels with the most time.
@@ -25,12 +30,12 @@ from collections import defaultdict
 import torch
 
 
-def _flagship():
+def _flagship(engine: str):
     from sparse2dense_tpu_torch.models import build_detector
     from sparse2dense_tpu_torch.training.synthetic import make_batch
-    from sparse2dense_tpu_torch.utils.config import FLAGSHIP, ConfigDict
+    from sparse2dense_tpu_torch.utils.config import FRAME_BUDGETS, flagship
 
-    cfg = ConfigDict.fromfile(FLAGSHIP)
+    cfg = flagship(engine, FRAME_BUDGETS)
     cfg["S_model"]["bbox_head"]["init_bias"] = -6.0
     model = build_detector(cfg["S_model"], test_cfg=cfg["test_cfg"],
                            voxel_generator=cfg["voxel_generator"], device="cuda",
@@ -123,6 +128,7 @@ def device_profile(model, batch):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--engine", choices=("window", "plane"), default="window")
     ap.add_argument("--no-tf32", action="store_true",
                     help="full float32 in cuDNN convs (PyTorch's default lets them use "
                          "TF32), as chip_smoke.py's comparison phases run")
@@ -131,9 +137,9 @@ def main():
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    model, batch = _flagship()
+    model, batch = _flagship(args.engine)
     _frame(model, batch)  # warm-up: kernel build, allocator
-    print(json.dumps({"gpu": smi, "tf32": torch.backends.cudnn.allow_tf32,
+    print(json.dumps({"gpu": smi, "engine": args.engine, "tf32": torch.backends.cudnn.allow_tf32,
                       "stages": stage_times(model, batch, args.frames)}), flush=True)
     print(json.dumps({"device": device_profile(model, batch)}), flush=True)
 

@@ -52,3 +52,30 @@ class ConfigDict(dict):
 
 FLAGSHIP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "configs", "waymo_centerpoint_voxelnet_3x_distill_interval_5.py")
+
+
+# plane-engine budgets for the 150k-voxel synthetic frame of the chip runs
+# (``make_batch(cfg, 1, max_voxels=150000, n_points=170000, n_obj=32)``,
+# the reference bench's frame). Its occupied sets, counted on an H100:
+# conv2 81,470 planes; chunk tiles 39,637 (tz 4) -> 33,009 after conv3_down;
+# conv3 33,760 planes; chunk tiles 21,031 (tz 2) -> 1,887 after conv4_down;
+# conv4 7,866 planes; 1,862 chunk tiles (tz 6) at extra_conv. The
+# reference's defaults (80,000 / 26,000 / 6,400 planes, 36,000 / 14,000
+# tiles) drop part of it, in the reference as in the port (PERF.md,
+# tests/test_torch_plane_sets.py); these cover it with ~10% to spare.
+FRAME_BUDGETS = dict(plane_budgets=(90000, 37000, 8700),
+                     tile_budgets=(72000, 44000, 36000, 2400))
+
+
+def flagship(engine: str = "window", budgets=None) -> ConfigDict:
+    """The flagship config; ``engine="plane"`` applies the reference bench's
+    override (``backbone.engine = "plane"``, ``dense_from_stage`` dropped),
+    and ``budgets`` (such as ``FRAME_BUDGETS``), if given, replaces the plane
+    engine's default budgets; every other knob keeps its default."""
+    cfg = ConfigDict.fromfile(FLAGSHIP)
+    if engine != "window":
+        backbone = cfg["S_model"]["backbone"]
+        backbone["engine"] = engine
+        backbone.pop("dense_from_stage", None)
+        backbone.update(budgets or {})
+    return cfg

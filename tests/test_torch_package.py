@@ -18,6 +18,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         sparse2dense_tpu_torch.__path__, "sparse2dense_tpu_torch."))
     assert "sparse2dense_tpu_torch.ops.window_kernel" in mods
+    assert "sparse2dense_tpu_torch.ops.plane_kernel" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -47,9 +48,11 @@ def test_entry_points_need_cuda_or_an_explicit_device():
 
 
 def test_other_engines_raise():
-    from sparse2dense_tpu_torch.models.backbones.scn import SpMiddleResNetFHD
+    from sparse2dense_tpu_torch.models.backbones.scn import PlaneKBlock, SpMiddleResNetFHD
 
-    with pytest.raises(NotImplementedError, match="plane"):
-        SpMiddleResNetFHD(num_input_features=5, engine="plane")
+    plane = SpMiddleResNetFHD(num_input_features=5, sparse_shape=(41, 32, 32), engine="plane")
+    assert isinstance(plane.conv4_1, PlaneKBlock)
+    with pytest.raises(NotImplementedError, match="tile"):
+        SpMiddleResNetFHD(num_input_features=5, engine="tile")
     with pytest.raises(NotImplementedError, match="dense_from_stage"):
         SpMiddleResNetFHD(num_input_features=5, engine="window", dense_from_stage=2)
