@@ -5,7 +5,7 @@
 Phases, each of which must pass (the script exits non-zero otherwise):
 
 1. device: the card's name and power limit;
-2. kernels: builds both CUDA kernels from ``sparse2dense_tpu_torch/csrc``
+2. kernels: builds the three CUDA kernels from ``sparse2dense_tpu_torch/csrc``
    (one nvcc process per source, started together) and holds each against
    its plain PyTorch version on the real data of one synthetic Waymo frame
    (150k voxels on the 41x1504x1504 grid):
@@ -17,8 +17,15 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      engine, in bfloat16 within one bf16 rounding step,
      2^-7*|p| + 1e-3*max|p| (the output is rounded to bf16 after float32
      sums taken in another order), and in float32 within 1e-4 + 1e-4*|p|;
-   and times kernel, plain version and, for the plane conv, the bf16 cuDNN
-   ``F.conv3d`` on the densified grid (a yardstick the port never calls);
+   - the tile subm conv on the tile states, masks and plans of conv1 (16,
+     tz 8), conv2 (32, tz 4), conv3 (64, tz 2) and conv4 (128, tz 6) of the
+     same frame on the tile engine with every stage on tiles, at
+     ``utils.config.TILE_FRAME_BUDGETS``, with the same tolerances, and on
+     conv1's plan at the reference's default window of 256 tiles, which
+     misses targets: the kernel leaves out exactly the taps the plan drops;
+   and times kernel, plain version and, for the plane and tile convs, the
+   bf16 cuDNN ``F.conv3d`` on the densified grid (a yardstick the port never
+   calls);
 3. main path, window engine: the flagship KD_VoxelNet + S2D_RPN at full
    width, random weights from a seeded generator, through ``build_detector
    -> forward -> predict`` on 3 warm-up and 8 timed frames (median, min and
@@ -30,11 +37,15 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ``tests/test_torch_plane_sets.py`` counts them): 6 window-pass and 12
    plane launches a frame, zero ``plane_drop``, ``planek_miss``,
    ``plane_chunk_drop`` and ``down_drop``;
-5. agreement: the tiny distillation model on the card against the same model
-   on the CPU (plain versions only), window and plane engines.
+5. main path, tile engine: the same with the reference bench's override
+   ``engine="tile", tile_backend="pallas"`` (``dense_from_stage`` 2) at
+   ``TILE_FRAME_BUDGETS``: 9 tile launches a frame and none of the other
+   kernels, zero ``conv1_tile_drop``, ``tilek_miss`` and ``down_drop``;
+6. agreement: the tiny distillation model on the card against the same model
+   on the CPU (plain versions only), window, plane and tile engines.
 
-TF32 is switched off for cuDNN and matmuls in phases 2 and 5, which compare
-against float32 plain versions; phases 3 and 4 run at PyTorch's defaults
+TF32 is switched off for cuDNN and matmuls in phases 2 and 6, which compare
+against float32 plain versions; phases 3 to 5 run at PyTorch's defaults
 (TF32 on in cuDNN convs, off in matmuls). With TF32 off cuDNN picks an FFT
 algorithm for the neck's 3x3 convs that costs ~200 ms a frame on an H100
 (``sparse2dense_tpu_torch/tools/profile_flagship.py``). The second-to-last
@@ -56,6 +67,10 @@ TOL_ABS, TOL_REL = 1e-4, 1e-4  # float32: summation order only
 BF16_STEP = 2.0 ** -7          # one bf16 rounding step, relative
 BF16_FLOOR = 1e-3              # times max|p|: outputs near zero
 PLANE_STAGES = (("conv2", 32), ("conv3", 64), ("conv4", 128))
+# (stage, channels, launches a frame on the tile main path, dense_from_stage 2)
+TILE_STAGES = (("conv1", 16, 5), ("conv2", 32, 4), ("conv3", 64, 0), ("conv4", 128, 0))
+# launches a frame of (window_pass, plane_subm, tile_subm) per engine
+EXPECTED_LAUNCHES = {"window": (6, 0, 0), "plane": (6, 12, 0), "tile": (0, 0, 9)}
 WARMUP_FRAMES, TIMED_FRAMES = 3, 8   # a frame's time still falls over its first ~3
 
 
@@ -105,7 +120,7 @@ def phase_device():
     return name, smi
 
 
-def _flagship(engine="window", budgets=None):
+def _flagship(engine="window", budgets=None, dense_from_stage=None):
     """(cfg, batch, model) of the flagship at full width on the card."""
     import torch
 
@@ -114,6 +129,8 @@ def _flagship(engine="window", budgets=None):
     from sparse2dense_tpu_torch.utils.config import flagship
 
     cfg = flagship(engine, budgets)
+    if dense_from_stage is not None:
+        cfg["S_model"]["backbone"]["dense_from_stage"] = dense_from_stage
     # trained-like heatmap density for NMS (random-init heatmaps sit at the
     # score threshold and flood NMS)
     cfg["S_model"]["bbox_head"]["init_bias"] = -6.0
@@ -244,6 +261,21 @@ def _densify_planes(state, ts, grid):
     return flat[:-1].reshape(d, h, w, c).permute(3, 0, 1, 2)[None].contiguous()
 
 
+def _compare(got, want):
+    """(|got - want|, want, outputs out of tolerance) of a kernel's output
+    against its plain version's, both in the state's dtype: one bf16
+    rounding step for bfloat16, summation order only for float32."""
+    import torch
+
+    bf16 = want.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    tol = (BF16_STEP * want.abs() + BF16_FLOOR * want.abs().max() if bf16
+           else TOL_ABS + TOL_REL * want.abs())
+    return err, want, int((err > tol).sum())
+
+
 def _plane_rows(stages, gen):
     """Plane subm kernel against its plain version at conv2..conv4."""
     import torch
@@ -269,13 +301,8 @@ def _plane_rows(stages, gen):
         for dt in (torch.bfloat16, torch.float32):
             st, m16, wt = state.to(dt), mask16.to(dt), w.to(dt)
             args = (st, plan.tgt, wt, scale, shift, m16)
-            got = PKK.plane_subm_cuda(*args, residual=st, relu=True).float()
-            want = PK.plane_subm_plain(*args, residual=st, relu=True).float()
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            tol = (BF16_STEP * want.abs() + BF16_FLOOR * want.abs().max()
-                   if dt == torch.bfloat16 else TOL_ABS + TOL_REL * want.abs())
-            bad = int((err > tol).sum())
+            err, want, bad = _compare(PKK.plane_subm_cuda(*args, residual=st, relu=True),
+                                      PK.plane_subm_plain(*args, residual=st, relu=True))
             planes = sum(int(t.valid.sum()) for t in sets)
             row = dict(kernel="plane_subm", case=f"{name} {c}->{c} {str(dt)[6:]}", t1p=t1p,
                        planes=planes, max_abs_err=float(err.max()),
@@ -310,6 +337,100 @@ def _plane_rows(stages, gen):
     return rows
 
 
+def _tile_stage_data(batch, model):
+    """(state, mask, sets, grid, plan) of conv1..conv4 of the tile flagship
+    frame with every stage on tiles: the stage outputs of one backbone
+    forward, in the tile state layout, with their plans. conv1 and conv2 are
+    the same computation as on the main path (dense_from_stage 2)."""
+    import torch
+
+    from sparse2dense_tpu_torch.ops import tile_kernel as TKK
+
+    bb = model.backbone
+    with torch.inference_mode():
+        feats = model.reader(batch["voxels"], batch["num_points"])
+        _, multi_scale, _ = bb(feats, batch["coordinates"])
+    out = []
+    for k, (name, _, _) in enumerate(TILE_STAGES):
+        (p, mk, sets), grid = multi_scale[name]
+        t1p = TKK.t1p_of(bb.tile_budgets[k])
+        state = TKK.planes_to_state_batched(p, bb.tile_tz[k], t1p)
+        mask = TKK.planes_to_state_batched(mk, bb.tile_tz[k], t1p)
+        plan = TKK.make_block_plan_batched(sets, t1p, *bb.tile_wins[k])
+        out.append((state, mask, sets, grid, plan))
+    return out
+
+
+def _tile_rows(stages, gen):
+    """Tile subm kernel against its plain version at conv1..conv4, and on
+    conv1's plan at the reference's default window (misses)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sparse2dense_tpu_torch.ops import tile_block_kernel as TBK
+    from sparse2dense_tpu_torch.ops import tile_kernel as TKK
+    from sparse2dense_tpu_torch.ops import tile_planes as TP
+
+    rows = []
+    state1, mask1, sets1, grid1, _ = stages[0]
+    t1p1 = state1.shape[1]
+    plan256 = TKK.make_block_plan_batched(sets1, t1p1, 256, 256)
+    cases = [(name, c, per_frame, st, True)
+             for (name, c, per_frame), st in zip(TILE_STAGES, stages)]
+    cases.append(("conv1 plan at window 256", 16, 0,
+                  (state1, mask1, sets1, grid1, plan256), False))
+    for name, c, per_frame, (state, mask, sets, grid, plan), main in cases:
+        tz, t1p = state.shape[:2]
+        w = torch.randn((27, c, c), device="cuda", generator=gen) * (27 * c) ** -0.5
+        scale = 1 + 0.1 * torch.randn((1, 16 * c), device="cuda", generator=gen)
+        shift = 0.1 * torch.randn((1, 16 * c), device="cuda", generator=gen)
+        mask16 = TKK.expand_mask(mask, c).to(state.dtype)
+        for dt in (torch.bfloat16, torch.float32):
+            st, m16, wt = state.to(dt), mask16.to(dt), w.to(dt)
+            args = (st, plan.tgt, wt, scale, shift, m16)
+            # the main cases add the residual and ReLU; the miss case neither
+            kw = dict(residual=st, relu=True) if main else dict(relu=False)
+            err, want, bad = _compare(TBK.tile_subm_cuda(*args, **kw),
+                                      TKK.tile_subm_plain(*args, **kw))
+            planes = int((mask.reshape(-1, 16) > 0).any(-1).sum())
+            row = dict(kernel="tile_subm", case=f"{name} {c}->{c} tz {tz} {str(dt)[6:]}",
+                       tz=tz, t1p=t1p, planes=planes, n_miss=int(plan.n_miss.sum()),
+                       max_abs_err=float(err.max()), max_abs_ref=float(want.abs().max()),
+                       n_bad=bad, per_frame=per_frame if main and dt == torch.bfloat16 else 0)
+            if main and dt == torch.bfloat16:
+                # what the function needs: state and residual of the occupied
+                # (z, tile) planes, one mask value per cell, the whole output
+                # (the contract defines every row), 26 targets a tile, the
+                # weights and the folded scale/shift
+                s = st.element_size()
+                nbytes = (2 * planes * 16 * c * s + tz * t1p * 16 * s + tz * t1p * 16 * c * s
+                          + t1p * 26 * 4 + 27 * c * c * s + 2 * c * 4)
+                ones = torch.ones((27, 1, 1), device="cuda")
+                hits = float(TKK.tile_subm_plain(
+                    mask.float(), plan.tgt, ones, torch.ones((1, 16), device="cuda"),
+                    torch.zeros((1, 16), device="cuda"), mask.float(), relu=False).sum())
+                flops = 2.0 * hits * c * c
+                row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+                row.update(hits=hits, bytes=nbytes, flops=flops)
+                row["ms"] = cuda_ms(lambda: TBK.tile_subm_cuda(*args, **kw), reps=10)
+                row["plain_ms"] = cuda_ms(lambda: TKK.tile_subm_plain(*args, **kw),
+                                          reps=2, warmup=1)
+                b = len(sets)
+                p = TKK.state_to_planes_batched(st, b, t1p // b, tz, t1p // b)[0]
+                dense = TP.to_dense(p, sets[0], grid, tz).permute(3, 0, 1, 2)[None].contiguous()
+                del p
+                w5 = wt.reshape(3, 3, 3, c, c).permute(4, 3, 0, 1, 2).contiguous()
+                row["library_ms"] = cuda_ms(lambda: F.conv3d(dense, w5, padding=1), reps=5)
+                row["dense_shape"] = list(dense.shape)
+                del dense
+            print("[kernels] " + json.dumps(row), flush=True)
+            if bad:
+                raise AssertionError(f"tile {row['case']}: {bad} outputs out of tolerance")
+            rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels():
     """Both kernels against their plain versions at the flagship's data;
     returns per-case rows."""
@@ -318,11 +439,13 @@ def phase_kernels():
     from sparse2dense_tpu_torch.models.builder import sparse_shape_from_voxel_cfg
     from sparse2dense_tpu_torch.ops import cuda_build
     from sparse2dense_tpu_torch.ops import plane_kernel as PKK
+    from sparse2dense_tpu_torch.ops import tile_block_kernel as TBK
     from sparse2dense_tpu_torch.ops import window_kernel as WK
-    from sparse2dense_tpu_torch.utils.config import FRAME_BUDGETS
+    from sparse2dense_tpu_torch.utils.config import FRAME_BUDGETS, TILE_FRAME_BUDGETS
 
     t0 = time.perf_counter()
-    logs = cuda_build.build_all([(WK.SOURCE, WK.LIBRARY), (PKK.SOURCE, PKK.LIBRARY)])
+    logs = cuda_build.build_all([(WK.SOURCE, WK.LIBRARY), (PKK.SOURCE, PKK.LIBRARY),
+                                 (TBK.SOURCE, TBK.LIBRARY)])
     print(f"[kernels] built {sorted(logs)} in {time.perf_counter() - t0:.1f} s\n" + "\n".join(
         "  " + line for log in logs.values() for line in log.splitlines()
         if "registers" in line or "smem" in line or "spill" in line), flush=True)
@@ -334,6 +457,10 @@ def phase_kernels():
     rows += _plane_rows(stages, gen)
     del stages
     torch.cuda.empty_cache()
+    _, _, model = _flagship("tile", TILE_FRAME_BUDGETS, dense_from_stage=99)
+    stages = _tile_stage_data(batch, model)
+    del model
+    rows += _tile_rows(stages, gen)
     return rows
 
 
@@ -345,11 +472,12 @@ def phase_main_path(engine: str, budgets=None):
     import torch
 
     from sparse2dense_tpu_torch.ops import plane_kernel as PKK
+    from sparse2dense_tpu_torch.ops import tile_block_kernel as TBK
     from sparse2dense_tpu_torch.ops import window_kernel as WK
 
     _, batch, model = _flagship(engine, budgets)
-    expected = {"window_pass": 6, "plane_subm": 12 if engine == "plane" else 0}
-    mods = {"window_pass": WK, "plane_subm": PKK}
+    mods = {"window_pass": WK, "plane_subm": PKK, "tile_subm": TBK}
+    expected = dict(zip(mods, EXPECTED_LAUNCHES[engine]))
     torch.cuda.reset_peak_memory_stats()
     times, per_frame = [], {k: [] for k in mods}
     for mod in mods.values():
@@ -393,15 +521,24 @@ def phase_main_path(engine: str, budgets=None):
     return res
 
 
-# tiny-model plane budgets: every key of every stage fits (as in the CPU test)
-TINY_PLANE = dict(engine="plane", tile_budgets=(96, 96, 24, 4), plane_budgets=(336, 44, 5),
-                  plane_window=10 ** 6)
+# tiny-model engine settings: every key of every stage fits and the plan
+# windows cover every neighbour (as in the CPU tests)
+TINY_ENGINES = {
+    "window": dict(engine="window", dense_from_stage=1),
+    "plane": dict(engine="plane", tile_budgets=(96, 96, 24, 4), plane_budgets=(336, 44, 5),
+                  plane_window=10 ** 6),
+    "tile": dict(engine="tile", tile_backend="pallas", tile_budgets=(384, 96, 24, 4),
+                 tilek_window=10 ** 6),
+}
+# card against CPU, max |diff| / max |ref|: bf16 products in the window pass
+# (the window engine's conv1 and the plane engine's), float32 on the tile engine
+TINY_TOL = {"window": 2e-2, "plane": 2e-2, "tile": 1e-3}
 
 
 def phase_agreement():
     """Tiny model on the card (CUDA kernels: bf16 window products, float32
-    plane convs) against the same weights on the CPU (plain versions, f32),
-    on the window and the plane engine."""
+    plane and tile convs) against the same weights on the CPU (plain
+    versions, f32), on the window, plane and tile engines."""
     import torch
 
     from sparse2dense_tpu_torch.models import build_detector
@@ -409,11 +546,10 @@ def phase_agreement():
     from sparse2dense_tpu_torch.utils.config import ConfigDict
 
     worst = {}
-    for engine in ("window", "plane"):
+    for engine, settings in TINY_ENGINES.items():
         cfg = ConfigDict.fromfile(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                                "configs", "tests", "distill_tiny.py"))
-        cfg["S_model"]["backbone"].update(
-            dict(engine="window", dense_from_stage=1) if engine == "window" else TINY_PLANE)
+        cfg["S_model"]["backbone"].update(settings)
         outs, dets = {}, {}
         for dev in ("cuda", "cpu"):
             model = build_detector(cfg["S_model"], test_cfg=cfg["test_cfg"],
@@ -429,7 +565,7 @@ def phase_agreement():
         n_det = {dev: int(d["valid"].sum()) for dev, d in dets.items()}
         print(f"[agreement] tiny model, {engine} engine, cuda vs cpu: max |diff| / max |ref| "
               f"= {worst[engine]:.3e}; valid detections {n_det}", flush=True)
-        if worst[engine] > 2e-2:  # bf16 products in the window pass, f32 on the CPU
+        if worst[engine] > TINY_TOL[engine]:
             raise AssertionError(f"tiny {engine} model disagrees with its CPU run: {worst}")
         if not n_det["cuda"] or not bool(torch.isfinite(dets["cuda"]["box3d_lidar"]).all()):
             raise AssertionError(f"predict on the card gave no finite detections ({engine})")
@@ -464,15 +600,16 @@ def main() -> int:
     kind, smi = phase_device()
     with no_tf32():
         rows = phase_kernels()
-    from sparse2dense_tpu_torch.utils.config import FRAME_BUDGETS
+    from sparse2dense_tpu_torch.utils.config import FRAME_BUDGETS, TILE_FRAME_BUDGETS
 
     window = phase_main_path("window")
     plane = phase_main_path("plane", budgets=FRAME_BUDGETS)
+    tile = phase_main_path("tile", budgets=TILE_FRAME_BUDGETS)
     with no_tf32():
         phase_agreement()
 
-    wrows = [r for r in rows if r["kernel"] == "window_pass"]
-    prows = [r for r in rows if r["kernel"] == "plane_subm"]
+    wrows, prows, trows = ([r for r in rows if r["kernel"] == k]
+                           for k in ("window_pass", "plane_subm", "tile_subm"))
     record = {"kernels": [
         _record("window_pass", "sparse2dense_tpu_torch/csrc/window_pass.cu",
                 "sparse2dense_tpu/ops/pallas/window_kernel.py:69",
@@ -480,12 +617,15 @@ def main() -> int:
         _record("plane_subm", "sparse2dense_tpu_torch/csrc/plane_subm.cu",
                 "sparse2dense_tpu/ops/pallas/plane_block_kernel.py:131",
                 plane["launches"]["plane_subm"], prows),
+        _record("tile_subm", "sparse2dense_tpu_torch/csrc/tile_subm.cu",
+                "sparse2dense_tpu/ops/pallas/tile_block_kernel.py:156",
+                tile["launches"]["tile_subm"], trows),
     ]}
-    for rec, res in zip(record["kernels"], (window, plane)):
+    for rec, res in zip(record["kernels"], (window, plane, tile)):
         print(f"[main] {rec['name']} share of the {res['engine']} frame: {rec['ms']:.3f} ms "
               f"of {res['frame_ms_median']:.1f} ms = {rec['ms'] / res['frame_ms_median']:.2%}",
               flush=True)
-    for res in (window, plane):
+    for res in (window, plane, tile):
         print(f"[main] {res['engine']} engine frame: median {res['frame_ms_median']:.1f} ms, "
               f"min {res['frame_ms_min']:.1f}, max {res['frame_ms_max']:.1f} over "
               f"{len(res['frame_ms'])} frames", flush=True)

@@ -1,20 +1,25 @@
-"""SpMiddleResNetFHD, window and plane engines (counterpart of
+"""SpMiddleResNetFHD, window, plane and tile engines (counterpart of
 ``sparse2dense_tpu/models/backbones/scn.py``).
 
-The conv1 stage (conv_input, conv1_0, conv1_1) and the strided conv2_down run
-as windowed sparse convs on voxel rows (``ops/window_conv.py``; the window
-pass is the hand-written CUDA kernel on the card). With ``engine="window"``,
-the stages from ``dense_from_stage`` on run as masked dense 3D convs: one
-``F.conv3d`` followed by the occupancy mask is the operator the reference's
-z-packed / z-decomposed TPU convs compute. With ``engine="plane"``, conv2 to
-conv4 run as fused submanifold convs over the occupied (by, bx, z) planes of
-4x4 BEV tiles (``ops/plane_conv.py``; the conv is the hand-written CUDA
-kernel on the card), and the strided transitions and ``extra_conv`` in the
-chunk-planes layout (``ops/tile_planes.py``). Rows are (B, V, C); dense
-tensors are NCDHW with a (B, 1, D, H, W) occupancy mask; plane state is
-(B * T1p, 16C). 3D conv weights are stored as Conv3d weights
-(Cout, Cin, kz, ky, kx) in every stage, so the names and shapes of the
-parameters do not depend on the engine.
+With ``engine="window"`` and ``"plane"``, the conv1 stage (conv_input,
+conv1_0, conv1_1) and the strided conv2_down run as windowed sparse convs on
+voxel rows (``ops/window_conv.py``; the window pass is the hand-written CUDA
+kernel on the card). With ``engine="window"``, the stages from
+``dense_from_stage`` on run as masked dense 3D convs: one ``F.conv3d``
+followed by the occupancy mask is the operator the reference's z-packed /
+z-decomposed TPU convs compute. With ``engine="plane"``, conv2 to conv4 run as
+fused submanifold convs over the occupied (by, bx, z) planes of 4x4 BEV tiles
+(``ops/plane_conv.py``; the conv is the hand-written CUDA kernel on the
+card), and the strided transitions and ``extra_conv`` in the chunk-planes
+layout (``ops/tile_planes.py``). With ``engine="tile"`` (``tile_backend=
+"pallas"``), every stage before ``dense_from_stage`` runs on z-chunked 4x4
+BEV tiles: the subm convs as fused tile convs (``ops/tile_kernel.py``; the
+conv is the hand-written CUDA kernel on the card), the strided convs in the
+chunk-planes layout; the rest is dense. Rows are (B, V, C); dense tensors
+are NCDHW with a (B, 1, D, H, W) occupancy mask; plane state is (B * T1p,
+16C), tile state (tz, B * T1p, 16C). 3D conv weights are stored as Conv3d
+weights (Cout, Cin, kz, ky, kx) in every stage, so the names and shapes of
+the parameters do not depend on the engine.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from torch import nn
 
 from ...ops import plane_conv as PK
 from ...ops import tile_conv as TLC
+from ...ops import tile_kernel as TKK
 from ...ops import tile_planes as TP
 from ...ops import window_conv as WC
 from ...ops.sparse_conv import conv_out_grid, scatter_to_dense
@@ -213,6 +219,9 @@ class PlaneKBlock(nn.Module):
     DenseBasicBlock). Bias, inference BatchNorm, ReLU, the residual and the
     occupancy mask fold into the conv's epilogue; inference only."""
 
+    engine = "plane"
+    conv = staticmethod(PK.pk_subm_conv)
+
     def __init__(self, cin: int, planes: int):
         super().__init__()
         self.planes = planes
@@ -227,18 +236,55 @@ class PlaneKBlock(nn.Module):
         return PK.fold_epilogue(self.planes, bias=bias, bn_scale=bn.weight, bn_bias=bn.bias,
                                 bn_mean=bn.running_mean, bn_var=bn.running_var, eps=bn.eps)
 
-    def forward(self, state, mask, plan: PK.PKPlan):
+    def forward(self, state, mask, plan):
         if self.training:
             raise NotImplementedError(
-                "PlaneKBlock runs inference only; the plane engine's training half "
-                "(the reference-formula backward) comes with the training slice")
+                f"{type(self).__name__} runs inference only; the {self.engine} engine's "
+                "training half comes with the training slice")
         mask16 = PK.expand_mask(mask, self.planes).to(state.dtype)
         sc1, sh1 = self._fold(self.conv1_bias, self.bn1)
         sc2, sh2 = self._fold(self.conv2_bias, self.bn2)
-        out = PK.pk_subm_conv(state, plan, _taps(self.conv1_weight), sc1, sh1, mask16,
-                              relu=True)
-        return PK.pk_subm_conv(out, plan, _taps(self.conv2_weight), sc2, sh2, mask16,
-                               residual=state, relu=True)
+        out = self.conv(state, plan, _taps(self.conv1_weight), sc1, sh1, mask16, relu=True)
+        return self.conv(out, plan, _taps(self.conv2_weight), sc2, sh2, mask16,
+                         residual=state, relu=True)
+
+
+class TileKBlock(PlaneKBlock):
+    """Residual block of two fused tile subm convs on z-major tile state
+    (tz, B * T1p, 16C) (names of DenseBasicBlock); inference only."""
+
+    engine = "tile"
+    conv = staticmethod(TKK.tk_subm_conv)
+
+
+class TileKStage(nn.Module):
+    """n x [fused tile subm conv (no bias) + BN + ReLU] (names of
+    WinSubMStage); inference only. The weights keep the true input width;
+    their taps get zero rows for the state's channel padding."""
+
+    def __init__(self, cin: int, channels: Sequence[int]):
+        super().__init__()
+        self.channels = tuple(channels)
+        for i, ch in enumerate(channels):
+            setattr(self, f"conv_{i}_weight", _kernel(cin, ch))
+            setattr(self, f"norm_{i}", BatchNorm(ch))
+            cin = ch
+
+    def forward(self, state, mask, plan: TKK.TKPlan):
+        if self.training:
+            raise NotImplementedError(
+                "TileKStage runs inference only; the tile engine's training half (the XLA "
+                "tile engine) comes with the training slice")
+        for i, ch in enumerate(self.channels):
+            w = _taps(getattr(self, f"conv_{i}_weight"))
+            w = F.pad(w, (0, 0, 0, state.shape[-1] // 16 - w.shape[1]))
+            bn = getattr(self, f"norm_{i}")
+            sc, sh = PK.fold_epilogue(ch, bn_scale=bn.weight, bn_bias=bn.bias,
+                                      bn_mean=bn.running_mean, bn_var=bn.running_var,
+                                      eps=bn.eps)
+            mask16 = TKK.expand_mask(mask, ch).to(state.dtype)
+            state = TKK.tk_subm_conv(state, plan, w, sc, sh, mask16, relu=True)
+        return state
 
 
 class TileDownsample(nn.Module):
@@ -309,15 +355,17 @@ _STAGES = [  # (name, channels, down stride, down padding, down ksize)
 
 
 class SpMiddleResNetFHD(nn.Module):
-    """CenterPoint residual sparse backbone, window or plane engine.
+    """CenterPoint residual sparse backbone, window, plane or tile engine.
 
     forward(voxel_features (B, V, C), coords (B, V, 3) zyx)
       -> (bev NHWC (B, H/8, W/8, 128*2), multi_scale, telemetry)
     where telemetry maps each counter to (per-sample counts (B,), budget):
     the window plan groups ("conv1", "conv2_down") to their residual rows
-    and budget, and with the plane engine "plane_drop", "planek_miss",
-    "plane_chunk_drop" and "down_drop" (summed over the stages) to budget 0.
-    The result is exact while every count is within its budget.
+    and budget; with the plane engine "plane_drop", "planek_miss",
+    "plane_chunk_drop" and "down_drop", with the tile engine
+    "conv1_tile_drop", "tilek_miss" and "down_drop" (each summed over the
+    stages) to budget 0. The result is exact while every count is within its
+    budget.
 
     ``engine="window"``: ``dense_from_stage`` 1 runs conv1 and conv2_down
     sparse and the rest dense (the shipped setting); 0 runs every stage
@@ -326,40 +374,65 @@ class SpMiddleResNetFHD(nn.Module):
     reference's plane knobs: per-stage z-chunk heights ``tile_tz``, chunk
     budgets ``tile_budgets``, plane budgets ``plane_budgets`` (conv2..conv4)
     and plan windows ``plane_window`` (an int, or per stage an int or a
-    (w0, wy) pair); ``dense_from_stage`` is not read.
+    (w0, wy) pair); ``dense_from_stage`` is not read. ``engine="tile"`` with
+    ``tile_backend="pallas"`` (inference only) runs the stages before
+    ``dense_from_stage`` (1 to 4; above 4 also ``extra_conv``) on z-chunked
+    4x4 BEV tiles (``tile_size``) of per-stage heights ``tile_tz`` within
+    the tile budgets ``tile_budgets``, with plan windows ``tilek_window`` (an
+    int, or per stage (conv1..conv4) an int or a (w0, wz) pair).
     """
 
     def __init__(self, num_input_features: int = 128,
                  sparse_shape: Tuple[int, int, int] = (41, 1504, 1504),
                  stage_budgets: Optional[Tuple[int, int, int, int]] = None,
-                 dense_from_stage: int = 2, engine: str = "gather",
+                 dense_from_stage: Optional[int] = 2, engine: str = "gather",
                  win_window: int = 384, win_resid_budget: int = 16384,
                  dense_compute_dtype: Optional[str] = None,
+                 tile_size: Tuple[int, int] = (4, 4),
                  tile_tz: Tuple[int, int, int, int] = (8, 4, 2, 6),
                  tile_budgets: Tuple[int, int, int, int] = (72000, 36000, 14000, 2400),
+                 tile_backend: str = "xla", tilek_window=256,
                  plane_budgets: Tuple[int, int, int] = (80000, 26000, 6400),
                  plane_window=128):
         super().__init__()
-        if engine not in ("window", "plane"):
+        dfs = 99 if dense_from_stage is None else dense_from_stage
+        if engine not in ("window", "plane", "tile"):
             raise NotImplementedError(
-                f"engine={engine!r}: this port runs engine='window' and 'plane'; 'tile' "
-                "is the next engine slice, 'gather' and 'column' come last")
-        if engine == "window" and dense_from_stage not in (0, 1):
+                f"engine={engine!r}: this port runs engine='window', 'plane' and 'tile'; "
+                "'gather' and 'column' come in a later slice")
+        if engine == "tile" and tile_backend != "pallas":
+            raise NotImplementedError(
+                f"tile_backend={tile_backend!r}: this port runs the tile engine's fused "
+                "inference backend 'pallas'; the trainable XLA tile engine comes with the "
+                "training slice")
+        if engine == "tile" and dfs <= 0:
+            raise NotImplementedError(
+                "dense_from_stage=0 with the tile engine (a dense conv1 fed from the tile "
+                "state) comes in a later slice")
+        if engine == "tile" and tuple(tile_size) != (4, 4):
+            raise ValueError(f"the tile kernel needs 4x4 BEV tiles, got {tile_size}")
+        if engine == "window" and dfs not in (0, 1):
             raise NotImplementedError(
                 f"dense_from_stage={dense_from_stage}: sparse stages past conv2_down "
                 "need a window kernel for 64/128 channels, a later slice")
         self.engine = engine
         self.sparse_shape = tuple(sparse_shape)
         self.stage_budgets = stage_budgets
-        self.dfs = 1 if engine == "plane" else dense_from_stage
+        self.dfs = 1 if engine == "plane" else dfs
         self.win_window, self.win_resid_budget = win_window, win_resid_budget
         self.tile_tz, self.tile_budgets = tuple(tile_tz), tuple(tile_budgets)
+        self.tile_wins = _stage_wins(tilek_window, 4)
         self.plane_budgets = tuple(plane_budgets)
-        self.plane_wins = _plane_stage_wins(plane_window)
+        self.plane_wins = _stage_wins(plane_window, 3)
         cd = dense_compute_dtype
         self.cd = _dtype(cd)
         cin = num_input_features
-        if self.dfs == 0:
+        if engine == "tile":
+            _check_tile_chain(self.sparse_shape, self.tile_tz)
+            self.conv_input = TileKStage(cin, (16,))
+            self.conv1_0 = TileKBlock(16, 16)
+            self.conv1_1 = TileKBlock(16, 16)
+        elif self.dfs == 0:
             self.conv_input = DenseSubMStage(cin, (16,), compute_dtype=cd)
             self.conv1_0 = DenseBasicBlock(16, 16, compute_dtype=cd)
             self.conv1_1 = DenseBasicBlock(16, 16, compute_dtype=cd)
@@ -369,23 +442,27 @@ class SpMiddleResNetFHD(nn.Module):
             self.conv1_1 = WinBasicBlock(16, 16)
         cin, grid = 16, self.sparse_shape
         for k, (name, ch, stride, pad, ksz) in enumerate(_STAGES, start=1):
-            if k <= self.dfs:
-                budget = stage_budgets[k - 1] if stage_budgets else None
-                down = WinDownsample(cin, ch, grid, stride, pad, ksz, out_budget=budget,
-                                     window=win_window, resid_budget=win_resid_budget)
-            elif engine == "plane":
+            if engine == "tile" and k <= self.dfs or engine == "plane" and k > 1:
                 down = TileDownsample(cin, ch, tz=self.tile_tz[k - 1], tz_out=self.tile_tz[k],
                                       budget_out=self.tile_budgets[k], padding=pad,
                                       ksize=ksz, compute_dtype=cd)
+            elif k <= self.dfs:
+                budget = stage_budgets[k - 1] if stage_budgets else None
+                down = WinDownsample(cin, ch, grid, stride, pad, ksz, out_budget=budget,
+                                     window=win_window, resid_budget=win_resid_budget)
             else:
                 down = DenseDownsample(cin, ch, stride, pad, ksz, compute_dtype=cd)
             setattr(self, f"{name}_down", down)
-            block = PlaneKBlock if engine == "plane" else partial(DenseBasicBlock,
-                                                                  compute_dtype=cd)
+            if engine == "plane":
+                block = PlaneKBlock
+            elif engine == "tile" and k < self.dfs:
+                block = TileKBlock
+            else:
+                block = partial(DenseBasicBlock, compute_dtype=cd)
             setattr(self, f"{name}_0", block(ch, ch))
             setattr(self, f"{name}_1", block(ch, ch))
             cin, grid = ch, conv_out_grid(grid, stride, pad, ksz)
-        if engine == "plane":
+        if engine == "plane" or engine == "tile" and self.dfs > 4:
             self.extra_conv = TileZConv(128, 128, d=grid[0], tz=self.tile_tz[3],
                                         compute_dtype=cd)
         else:
@@ -426,6 +503,8 @@ class SpMiddleResNetFHD(nn.Module):
         multi_scale: Dict[str, tuple] = {}
         if self.engine == "plane":
             return self._plane_forward(feats, coords, grid, telemetry, multi_scale)
+        if self.engine == "tile":
+            return self._tile_forward(feats, coords, grid, telemetry, multi_scale)
 
         if self.dfs == 0:
             x, mask = self._dense_stream(feats, coords, valid0, grid)
@@ -520,12 +599,103 @@ class SpMiddleResNetFHD(nn.Module):
         telemetry.update({k: (v, 0) for k, v in counts.items()})
         return dense_to_bev(dense.to(out_dtype).permute(0, 4, 1, 2, 3)), multi_scale, telemetry
 
+    def _tile_stage(self, k, state, mask, sets, counts, modules):
+        """Subm convs of stage k on tile state (tz, B * T1p, 16C)."""
+        plan = TKK.make_block_plan_batched(sets, TKK.t1p_of(self.tile_budgets[k]),
+                                           *self.tile_wins[k])
+        counts["tilek_miss"] += plan.n_miss
+        for mod in modules:
+            state = mod(state, mask, plan)
+        return state
 
-def _plane_stage_wins(pw) -> List[Tuple[int, int]]:
-    """Per-stage (w0, wy) plan windows of conv2..conv4 from an int or a
-    3-tuple of ints or pairs."""
-    if isinstance(pw, (tuple, list)):
-        assert len(pw) == 3, pw
+    def _tile_forward(self, feats, coords, grid, telemetry, multi_scale):
+        """Stages before ``dense_from_stage`` on z-chunked tiles: fused subm
+        convs on tile state over the batch flattened to (B * T1p) tile rows,
+        strided convs (and, past stage 4, ``extra_conv``) in the
+        chunk-planes layout; densify at the transition."""
+        out_dtype = feats.dtype
+        feats = feats.to(self.cd or feats.dtype)
+        if feats.shape[-1] < 16:  # the state's channels are padded to 16
+            feats = F.pad(feats, (0, 16 - feats.shape[-1]))
+        b, dev = feats.shape[0], feats.device
+        tzs, tbud, dfs = self.tile_tz, self.tile_budgets, self.dfs
+        counts = {k: torch.zeros(b, dtype=torch.int32, device=dev)
+                  for k in ("conv1_tile_drop", "tilek_miss", "down_drop")}
+
+        def to_planes(state, mask, k):
+            t1p = TKK.t1p_of(tbud[k])
+            return (TKK.state_to_planes_batched(state, b, t1p, tzs[k], tbud[k] + 1),
+                    TKK.state_to_planes_batched(mask, b, t1p, tzs[k], tbud[k] + 1))
+
+        def densify_tiles(p, mk, sets, grid, tz):
+            dense = [torch.stack([TP.to_dense(y, t, grid, tz) for y, t in zip(a, sets)])
+                     for a in (p, mk)]
+            return tuple(d.permute(0, 4, 1, 2, 3).contiguous() for d in dense)
+
+        sets = [TLC.build_tile_set(c, grid, 4, 4, tzs[0], tbud[0])[0] for c in coords]
+        counts["conv1_tile_drop"] += torch.stack([t.n_drop for t in sets])
+        state, mask = TKK.build_state_batched(feats, coords, sets, grid, 4, 4, tzs[0],
+                                              TKK.t1p_of(tbud[0]))
+        state = self._tile_stage(0, state, mask, sets, counts,
+                                 (self.conv_input, self.conv1_0, self.conv1_1))
+        p, mk = to_planes(state, mask, 0)
+        multi_scale["conv1"] = ((p, mk, sets), grid)
+
+        x = dmask = None
+        for k, (name, _, stride, pad, ksz) in enumerate(_STAGES, start=1):
+            down = getattr(self, f"{name}_down")
+            if k <= dfs:
+                p, mk, sets, grid = down(p, mk, sets, grid)
+                counts["down_drop"] += torch.stack([t.n_drop for t in sets])
+                if k == dfs:
+                    x, dmask = densify_tiles(p, mk, sets, grid, tzs[k])
+            else:
+                x, dmask = down(x, dmask)
+                grid = conv_out_grid(grid, stride, pad, ksz)
+            blocks = (getattr(self, f"{name}_0"), getattr(self, f"{name}_1"))
+            if x is None:
+                t1p = TKK.t1p_of(tbud[k])
+                state = TKK.planes_to_state_batched(p, tzs[k], t1p)
+                mask = TKK.planes_to_state_batched(mk, tzs[k], t1p)
+                p, mk = to_planes(self._tile_stage(k, state, mask, sets, counts, blocks),
+                                  mask, k)
+                multi_scale[name] = ((p, mk, sets), grid)
+            else:
+                x = blocks[1](blocks[0](x, dmask), dmask)
+                multi_scale[name] = (x, grid)
+        telemetry.update({k: (v, 0) for k, v in counts.items()})
+
+        if dfs > 4:
+            y, _ = self.extra_conv(p, mk)                      # (B, T1, d2, 4, 4, C)
+            g4 = ((grid[0] - 3) // 2 + 1, grid[1], grid[2])
+            dense = torch.stack([TLC.tiles_to_dense(yy, t, g4, yy.shape[1])
+                                 for yy, t in zip(y, sets)])   # (B, D, H, W, C)
+            x = dense.permute(0, 4, 1, 2, 3)
+        else:
+            if x is None:
+                x, dmask = densify_tiles(p, mk, sets, grid, tzs[3])
+            x, _ = self.extra_conv(x, dmask)
+        return dense_to_bev(x.to(out_dtype)), multi_scale, telemetry
+
+
+def _check_tile_chain(grid: Sequence[int], tzs: Sequence[int]) -> None:
+    """Each strided conv needs 2 * tz_out == tz or one output chunk, and
+    conv4's chunk must cover its grid (the reference's static asserts)."""
+    d_chain = [grid[0]]
+    for pz in (1, 1, 0):
+        d_chain.append((d_chain[-1] + 2 * pz - 3) // 2 + 1)
+    for k in range(1, 4):
+        if not (2 * tzs[k] == tzs[k - 1] or tzs[k] >= d_chain[k]):
+            raise ValueError(f"tile_tz[{k}]={tzs[k]} breaks the chunk chain at d={d_chain[k]}")
+    if tzs[3] < d_chain[3]:
+        raise ValueError(f"tile_tz[3]={tzs[3]}: the conv4 z-chunk must cover d={d_chain[3]}")
+
+
+def _stage_wins(win, n: int) -> List[Tuple[int, int]]:
+    """Per-stage plan windows from an int or an n-tuple of ints or pairs."""
+    if isinstance(win, (tuple, list)):
+        if len(win) != n:
+            raise ValueError(f"expected an int or {n} per-stage windows, got {win!r}")
         return [(int(w), int(w)) if not isinstance(w, (tuple, list)) else (int(w[0]), int(w[1]))
-                for w in pw]
-    return [(int(pw), int(pw))] * 3
+                for w in win]
+    return [(int(win), int(win))] * n

@@ -1,5 +1,5 @@
 """Occupied-tile sets of BEV tiles (counterpart of the parts of
-``sparse2dense_tpu/ops/tile_conv.py`` that the plane engine uses).
+``sparse2dense_tpu/ops/tile_conv.py`` that the plane and tile engines use).
 
 A ``TileSet`` holds the occupied (z-chunk, by, bx) tiles of one stage, or,
 with the plane engine, its occupied (by, bx, z) planes; ranks ascend with
@@ -75,6 +75,53 @@ def _neighbor_ranks(tpos, tvalid, tmap, nbz, nby, nbx, budget):
         key = torch.where(ok, (zz * nby + yy) * nbx + xx, nbz * nby * nbx)
         nbrs.append(torch.where(ok, tmap[key.long()], budget))
     return torch.stack(nbrs, -1).to(_I32)
+
+
+def _floor(a, b):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _tile_keys(coords: torch.Tensor, grid: Sequence[int], ty: int, tx: int, tz: int):
+    """(V,) (bz, by, bx) chunk-tile key of each zyx row (undefined on padded
+    rows), the valid-row mask and the tile counts."""
+    nbz, nby, nbx = tile_counts(grid, ty, tx, tz)
+    z, y, x = coords.long().unbind(-1)
+    key = (_floor(z, tz) * nby + _floor(y, ty)) * nbx + _floor(x, tx)
+    return key, (coords >= 0).all(-1), (nbz, nby, nbx)
+
+
+def build_tile_set(coords: torch.Tensor, grid: Sequence[int], ty: int, tx: int, tz: int,
+                   budget: int) -> Tuple[TileSet, torch.Tensor]:
+    """Occupied (tz, ty, tx) chunk tiles of rows (V, 3) zyx (-1 padding).
+    Returns (TileSet, row_slot) as :func:`row_slots` gives it; n_drop counts
+    the valid rows whose tile fell past the budget."""
+    key, valid, (nbz, nby, nbx) = _tile_keys(coords, grid, ty, tx, tz)
+    tid, tvalid, tmap, n_tiles = _compact_keys(torch.where(valid, key, BIG), budget,
+                                               nbz * nby * nbx)
+    t = tid.clamp(min=0)
+    tpos = torch.where(tvalid[:, None],
+                       torch.stack([t // (nby * nbx), (t // nbx) % nby, t % nbx], -1),
+                       -1).to(_I32)
+    nbr = _neighbor_ranks(tpos, tvalid, tmap, nbz, nby, nbx, budget)
+    ts = TileSet(tpos, tvalid, nbr, tmap, n_tiles, n_tiles.new_zeros(()))
+    row_slot, in_set = row_slots(coords, ts, grid, ty, tx, tz)
+    return ts._replace(n_drop=(valid & ~in_set).sum(dtype=_I32)), row_slot
+
+
+def row_slots(coords: torch.Tensor, ts: TileSet, grid: Sequence[int], ty: int, tx: int,
+              tz: int):
+    """Flat slot of each zyx row inside the halo-padded (T+1, tz+2, ty+2,
+    tx+2) tile buffer, and whether it is in the set; (NSLOT, False) for
+    padded rows and rows of tiles past the budget."""
+    key, valid, (nbz, nby, nbx) = _tile_keys(coords, grid, ty, tx, tz)
+    budget = ts.tile_pos.shape[0]
+    rank = ts.tmap[torch.where(valid, key, nbz * nby * nbx)].long()
+    in_set = valid & (rank < budget)
+    z, y, x = coords.long().unbind(-1)
+    zi, yi, xi = z - _floor(z, tz) * tz + 1, y - _floor(y, ty) * ty + 1, x - _floor(x, tx) * tx + 1
+    nslot = (budget + 1) * (tz + 2) * (ty + 2) * (tx + 2)
+    flat = ((rank * (tz + 2) + zi) * (ty + 2) + yi) * (tx + 2) + xi
+    return torch.where(in_set, flat, nslot).to(_I32), in_set
 
 
 def _z_sources(pzn: int, pz: int, tz: int):

@@ -1,6 +1,6 @@
-"""Strided convs of the plane engine in the chunk-planes layout (counterpart
-of ``downsample``, ``zconv`` and ``_pad_phantom`` of
-``sparse2dense_tpu/ops/tile_planes.py``).
+"""Strided convs of the plane and tile engines in the chunk-planes layout
+(counterpart of ``downsample``, ``zconv``, ``to_dense`` and ``_pad_phantom``
+of ``sparse2dense_tpu/ops/tile_planes.py``).
 
 State is interior plane rows y (N, ty, tx, C), N = (T+1) * tz: the rows of
 (tz-chunk, by, bx) tiles of 4x4 BEV cells, the phantom tile T last. The
@@ -14,7 +14,7 @@ XLA outside any Pallas kernel.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -176,3 +176,10 @@ def zconv(y: torch.Tensor, mask: torch.Tensor, w: torch.Tensor, d: int, tz: int,
     m = F.max_pool3d(m6[:, None], (3, 1, 1), (2, 1, 1))[:, 0, ..., None]
     m = (m > 0).to(mask.dtype)
     return out * m.to(out.dtype), m
+
+
+def to_dense(y: torch.Tensor, ts: TC.TileSet, grid: Sequence[int], tz: int) -> torch.Tensor:
+    """Chunk planes (N, ty, tx, C), N = (T+1) * tz -> dense (D, H, W, C)
+    (absent tiles read the phantom tile, which is zero)."""
+    n, ty, tx, c = y.shape
+    return TC.tiles_to_dense(y.reshape(n // tz, tz, ty, tx, c), ts, grid, tz)

@@ -1,20 +1,25 @@
 """Where the time of a flagship frame goes, on one NVIDIA GPU.
 
     python3 -m sparse2dense_tpu_torch.tools.profile_flagship [--frames 3] [--no-tf32]
-        [--engine window|plane]
+        [--engine window|plane|tile]
 
 Runs the flagship KD_VoxelNet + S2D_RPN (random weights from a seeded
 generator, heatmap bias -6 as in chip_smoke.py) on a 150k-voxel synthetic
-Waymo frame, on the window engine (the config as it is) or the plane engine
+Waymo frame, on the window engine (the config as it is), the plane engine
 (the reference bench's override, with the plane and tile budgets
-``utils.config.FRAME_BUDGETS`` that this frame needs to drop nothing),
-and prints one JSON line per measurement:
+``utils.config.FRAME_BUDGETS`` that this frame needs to drop nothing) or
+the tile engine (the override ``engine="tile", tile_backend="pallas"``,
+with ``utils.config.TILE_FRAME_BUDGETS``), and prints one JSON line per
+measurement:
 
 - ``stages``: per-module wall time (ms, median over the frames) of the
-  backbone's and the neck's layers, the head and predict, with the device
-  synchronised at every module boundary; ``glue`` is what lies between the
-  modules (row sort, window plans, densify, BEV reshape; with the plane
-  engine: plane and chunk sets, plane plans, layout permutations);
+  backbone's and the neck's layers (on the tile engine: conv_input,
+  conv1_0, conv1_1 and conv2_0, conv2_1 are fused tile convs, conv2_down
+  and conv3_down chunk-layout strided convs), the head and predict, with
+  the device synchronised at every module boundary; ``glue`` is what lies
+  between the modules (row sort, window plans, densify, BEV reshape; with
+  the plane engine: plane and chunk sets, plane plans, layout permutations;
+  with the tile engine: tile sets, tile state, block plans, layouts);
 - ``device``: a torch.profiler trace of one frame: device-busy time (sum of
   GPU kernel time), the frame's wall time, the idle share, and the ten GPU
   kernels with the most time.
@@ -33,9 +38,9 @@ import torch
 def _flagship(engine: str):
     from sparse2dense_tpu_torch.models import build_detector
     from sparse2dense_tpu_torch.training.synthetic import make_batch
-    from sparse2dense_tpu_torch.utils.config import FRAME_BUDGETS, flagship
+    from sparse2dense_tpu_torch.utils.config import FRAME_BUDGETS, TILE_FRAME_BUDGETS, flagship
 
-    cfg = flagship(engine, FRAME_BUDGETS)
+    cfg = flagship(engine, TILE_FRAME_BUDGETS if engine == "tile" else FRAME_BUDGETS)
     cfg["S_model"]["bbox_head"]["init_bias"] = -6.0
     model = build_detector(cfg["S_model"], test_cfg=cfg["test_cfg"],
                            voxel_generator=cfg["voxel_generator"], device="cuda",
@@ -128,7 +133,7 @@ def device_profile(model, batch):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=3)
-    ap.add_argument("--engine", choices=("window", "plane"), default="window")
+    ap.add_argument("--engine", choices=("window", "plane", "tile"), default="window")
     ap.add_argument("--no-tf32", action="store_true",
                     help="full float32 in cuDNN convs (PyTorch's default lets them use "
                          "TF32), as chip_smoke.py's comparison phases run")

@@ -66,16 +66,34 @@ FLAGSHIP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 FRAME_BUDGETS = dict(plane_budgets=(90000, 37000, 8700),
                      tile_budgets=(72000, 44000, 36000, 2400))
 
+# tile-engine budgets and plan window for the same frame. Its occupied chunk
+# tiles: conv1 66,334 (tz 8); conv2_down output 81,523 (tz 4, the
+# two-candidate output tiles); conv3_down output 38,759 (tz 2); conv4_down
+# output 1,902 (tz 6). The reference's defaults (72,000 / 36,000 / 14,000 /
+# 2,400 tiles) drop part of it: conv2_down loses 14,989 active cells, in the
+# reference as in the port (PERF.md, ``python tests/test_torch_tile_kernel.py``);
+# these cover it with ~10% to spare. The reference's default plan window of
+# 256 tiles misses neighbour targets on this frame (``tilek_miss`` 34,238 at
+# conv1): the TPU kernel DMAs a window of that many tiles per cluster, so it
+# must be narrow there, but the CUDA kernel reads each neighbour straight
+# from the state by its rank, so a window as wide as the state (clipped to
+# T1p by the plan) costs it nothing and leaves out no tap.
+TILE_FRAME_BUDGETS = dict(tile_budgets=(73000, 90000, 43000, 2400), tilek_window=10 ** 6)
+
 
 def flagship(engine: str = "window", budgets=None) -> ConfigDict:
-    """The flagship config; ``engine="plane"`` applies the reference bench's
-    override (``backbone.engine = "plane"``, ``dense_from_stage`` dropped),
-    and ``budgets`` (such as ``FRAME_BUDGETS``), if given, replaces the plane
-    engine's default budgets; every other knob keeps its default."""
+    """The flagship config; ``engine="plane"`` or ``"tile"`` applies the
+    reference bench's override (``backbone.engine`` set, for the tile engine
+    with ``tile_backend = "pallas"``; ``dense_from_stage`` dropped), and
+    ``budgets`` (such as ``FRAME_BUDGETS`` or ``TILE_FRAME_BUDGETS``), if
+    given, replaces the engine's default budgets; every other knob keeps its
+    default."""
     cfg = ConfigDict.fromfile(FLAGSHIP)
     if engine != "window":
         backbone = cfg["S_model"]["backbone"]
         backbone["engine"] = engine
+        if engine == "tile":
+            backbone["tile_backend"] = "pallas"
         backbone.pop("dense_from_stage", None)
         backbone.update(budgets or {})
     return cfg

@@ -19,6 +19,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         sparse2dense_tpu_torch.__path__, "sparse2dense_tpu_torch."))
     assert "sparse2dense_tpu_torch.ops.window_kernel" in mods
     assert "sparse2dense_tpu_torch.ops.plane_kernel" in mods
+    assert "sparse2dense_tpu_torch.ops.tile_block_kernel" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -48,11 +49,20 @@ def test_entry_points_need_cuda_or_an_explicit_device():
 
 
 def test_other_engines_raise():
-    from sparse2dense_tpu_torch.models.backbones.scn import PlaneKBlock, SpMiddleResNetFHD
+    from sparse2dense_tpu_torch.models.backbones.scn import (
+        PlaneKBlock, SpMiddleResNetFHD, TileKBlock)
 
-    plane = SpMiddleResNetFHD(num_input_features=5, sparse_shape=(41, 32, 32), engine="plane")
+    kw = dict(num_input_features=5, sparse_shape=(41, 32, 32))
+    plane = SpMiddleResNetFHD(engine="plane", **kw)
     assert isinstance(plane.conv4_1, PlaneKBlock)
-    with pytest.raises(NotImplementedError, match="tile"):
-        SpMiddleResNetFHD(num_input_features=5, engine="tile")
+    tile = SpMiddleResNetFHD(engine="tile", tile_backend="pallas", **kw)
+    assert isinstance(tile.conv2_1, TileKBlock) and not isinstance(tile.conv3_1, TileKBlock)
+    with pytest.raises(NotImplementedError, match="xla"):
+        SpMiddleResNetFHD(engine="tile", **kw)   # the reference's default backend
+    with pytest.raises(NotImplementedError, match="dense_from_stage=0"):
+        SpMiddleResNetFHD(engine="tile", tile_backend="pallas", dense_from_stage=0, **kw)
+    for engine in ("gather", "column"):
+        with pytest.raises(NotImplementedError, match=engine):
+            SpMiddleResNetFHD(engine=engine, **kw)
     with pytest.raises(NotImplementedError, match="dense_from_stage"):
-        SpMiddleResNetFHD(num_input_features=5, engine="window", dense_from_stage=2)
+        SpMiddleResNetFHD(engine="window", dense_from_stage=2, **kw)

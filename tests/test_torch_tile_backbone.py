@@ -1,0 +1,87 @@
+"""The tile engine with every stage on tiles (``dense_from_stage=99``: the
+four tile stages, the three chunk-layout strided convs and the tile z conv
+for ``extra_conv``) against JAX at the backbone level: SpMiddleResNetFHD
+with ``engine="tile", tile_backend="pallas"`` on distill_tiny's (41, 32, 32)
+grid, a batch of two random scenes (the batch-flattened tile state and
+plans), float32, the same (seeded random) weights. Budgets cover every key
+and the plan window every tile, so the reference is exact. JAX runs init
+shapes and one apply for the module (its tile kernel in interpret mode)."""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from sparse2dense_tpu.models.backbones.scn import SpMiddleResNetFHD as JaxFHD
+from sparse2dense_tpu_torch.models.backbones.scn import SpMiddleResNetFHD
+
+from tests.test_torch_layers import load, rand_variables
+from tests.test_torch_tile_detector import COUNTERS, counter_sum
+
+GRID = (41, 32, 32)
+KW = dict(num_input_features=5, sparse_shape=GRID, engine="tile", tile_backend="pallas",
+          dense_from_stage=99, tile_budgets=(384, 96, 24, 4), tilek_window=10 ** 6)
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _scene(seed=0, v=400, b=2):
+    rng = np.random.RandomState(seed)
+    coords, feats = [], []
+    for _ in range(b):
+        lin = rng.choice(int(np.prod(GRID)), v, replace=False)
+        c = np.stack(np.unravel_index(lin, GRID), -1).astype(np.int32)
+        c[-20:] = -1
+        f = rng.randn(v, 5).astype(np.float32)
+        f[-20:] = 0
+        coords.append(c)
+        feats.append(f)
+    return np.stack(feats), np.stack(coords)
+
+
+@pytest.fixture(scope="module")
+def run():
+    feats, coords = _scene()
+    jbb = JaxFHD(**KW)
+    variables = rand_variables(lambda: jbb.init(jax.random.PRNGKey(0), jnp.asarray(feats),
+                                                jnp.asarray(coords), False), seed=17)
+    (jbev, jms), coll = jax.jit(lambda v, f, c: jbb.apply(v, f, c, False, mutable=["telemetry"])
+                                )(variables, jnp.asarray(feats), jnp.asarray(coords))
+    tbb = load(SpMiddleResNetFHD(**KW), variables)
+    with torch.no_grad():
+        tbev, tms, tele = tbb(torch.from_numpy(feats), torch.from_numpy(coords))
+    return dict(jbev=jbev, jms=jms, jtele=coll["telemetry"], tbev=tbev, tms=tms, tele=tele,
+                tbb=tbb)
+
+
+def test_bev_matches_jax(run):
+    assert tuple(run["tbev"].shape) == tuple(run["jbev"].shape)
+    np.testing.assert_allclose(run["tbev"].numpy(), np.asarray(run["jbev"]), **TOL)
+
+
+@pytest.mark.parametrize("stage", ["conv1", "conv2", "conv3", "conv4"])
+def test_stage_planes_match_jax(run, stage):
+    """Chunk planes and masks of every tile stage (the phantom tile included)."""
+    (jp, jm, _), jg = run["jms"][stage]
+    (tp, tm, _), tg = run["tms"][stage]
+    assert tuple(tg) == tuple(jg)
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **TOL)
+
+
+def test_tile_telemetry_equal_and_zero(run):
+    for k in COUNTERS:
+        counts, budget = run["tele"][k]
+        want = counter_sum(run["jtele"], k)
+        assert (int(counts.sum()), budget) == (want, 0), k
+        assert want == 0, k
+
+
+def test_every_stage_runs_on_tiles(run):
+    from sparse2dense_tpu_torch.models.backbones.scn import TileDownsample, TileKBlock, TileZConv
+
+    bb = run["tbb"]
+    assert all(isinstance(getattr(bb, f"conv{k}_{i}"), TileKBlock)
+               for k in (1, 2, 3, 4) for i in (0, 1))
+    assert all(isinstance(getattr(bb, f"conv{k}_down"), TileDownsample) for k in (2, 3, 4))
+    assert isinstance(bb.extra_conv, TileZConv)
