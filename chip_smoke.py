@@ -5,10 +5,10 @@
 Phases, each of which must pass (the script exits non-zero otherwise):
 
 1. device: the card's name and power limit;
-2. kernels: builds the three CUDA kernels from ``sparse2dense_tpu_torch/csrc``
-   (one nvcc process per source, started together) and holds each against
-   its plain PyTorch version on the real data of one synthetic Waymo frame
-   (150k voxels on the 41x1504x1504 grid):
+2. kernels: builds the four CUDA sources of ``sparse2dense_tpu_torch/csrc``
+   (one nvcc process per source, started together) and holds each sparse
+   conv kernel against its plain PyTorch version on the real data of one
+   synthetic Waymo frame (150k voxels on the 41x1504x1504 grid):
    - the window pass on the window plans of conv_input 5->16, conv1 16->16,
      the strided conv2_down 16->32 (V_out=320000) and a (3,1,1) z-only
      strided conv, within 1e-4 + 1e-4*|p| (summation order only);
@@ -26,31 +26,43 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    and times kernel, plain version and, for the plane and tile convs, the
    bf16 cuDNN ``F.conv3d`` on the densified grid (a yardstick the port never
    calls);
-3. main path, window engine: the flagship KD_VoxelNet + S2D_RPN at full
+3. gather probes: with the launch counts set to 0, the B4 suites of
+   ``tools/microbench.py`` through their functions (``pallas_take``,
+   ``pallas_onehot``, ``pallas_dma``, ``pallas_run``) at the reference's
+   sizes (V = 2^17 rows of 16 float32): the take (B4a), window-take (B4b,
+   (BLK, W) = (256, 512) and (512, 1024)) and run-gather (B4c, R = 1, 8,
+   64) kernels of ``ops/gather_probes.py``, each held bit-equal to its plain
+   version and to one ``index_select``, then the three timed L2-warm (back
+   to back) and L2-cold (a 256 MB buffer written before each call); every
+   kernel must have launched there. Bound: the distinct table rows the
+   indices name, the output written and the indices read, once each, over
+   3.35 TB/s. Each case is a record of its own in the kernels line;
+4. main path, window engine: the flagship KD_VoxelNet + S2D_RPN at full
    width, random weights from a seeded generator, through ``build_detector
    -> forward -> predict`` on 3 warm-up and 8 timed frames (median, min and
    max printed): 6 window-pass launches a frame, residual rows within
    budget, finite maps and boxes;
-4. main path, plane engine: the same with the reference bench's override
+5. main path, plane engine: the same with the reference bench's override
    ``engine="plane"`` at ``utils.config.FRAME_BUDGETS`` (this frame's sets
    outgrow the reference's default plane and chunk budgets;
    ``tests/test_torch_plane_sets.py`` counts them): 6 window-pass and 12
    plane launches a frame, zero ``plane_drop``, ``planek_miss``,
    ``plane_chunk_drop`` and ``down_drop``;
-5. main path, tile engine: the same with the reference bench's override
+6. main path, tile engine: the same with the reference bench's override
    ``engine="tile", tile_backend="pallas"`` (``dense_from_stage`` 2) at
    ``TILE_FRAME_BUDGETS``: 9 tile launches a frame and none of the other
    kernels, zero ``conv1_tile_drop``, ``tilek_miss`` and ``down_drop``;
-6. agreement: the tiny distillation model on the card against the same model
+7. agreement: the tiny distillation model on the card against the same model
    on the CPU (plain versions only), window, plane and tile engines.
 
-TF32 is switched off for cuDNN and matmuls in phases 2 and 6, which compare
-against float32 plain versions; phases 3 to 5 run at PyTorch's defaults
+TF32 is switched off for cuDNN and matmuls in phases 2 and 7, which compare
+against float32 plain versions; phases 3 to 6 run at PyTorch's defaults
 (TF32 on in cuDNN convs, off in matmuls). With TF32 off cuDNN picks an FFT
 algorithm for the neck's 3x3 convs that costs ~200 ms a frame on an H100
 (``sparse2dense_tpu_torch/tools/profile_flagship.py``). The second-to-last
-lines are a JSON record of the kernels and the card's ``nvidia-smi`` name
-and power limit; the last line is ``{"ok": true, "device": {...}}``.
+lines are a JSON record of the kernels (the sparse convs per frame, the
+probes per call, L2-cold) and the card's ``nvidia-smi`` name and power
+limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -432,20 +444,20 @@ def _tile_rows(stages, gen):
 
 
 def phase_kernels():
-    """Both kernels against their plain versions at the flagship's data;
-    returns per-case rows."""
+    """The sparse-conv kernels against their plain versions at the flagship's
+    data (after building all four sources); returns per-case rows."""
     import torch
 
     from sparse2dense_tpu_torch.models.builder import sparse_shape_from_voxel_cfg
     from sparse2dense_tpu_torch.ops import cuda_build
+    from sparse2dense_tpu_torch.ops import gather_probes as GP
     from sparse2dense_tpu_torch.ops import plane_kernel as PKK
     from sparse2dense_tpu_torch.ops import tile_block_kernel as TBK
     from sparse2dense_tpu_torch.ops import window_kernel as WK
     from sparse2dense_tpu_torch.utils.config import FRAME_BUDGETS, TILE_FRAME_BUDGETS
 
     t0 = time.perf_counter()
-    logs = cuda_build.build_all([(WK.SOURCE, WK.LIBRARY), (PKK.SOURCE, PKK.LIBRARY),
-                                 (TBK.SOURCE, TBK.LIBRARY)])
+    logs = cuda_build.build_all([(m.SOURCE, m.LIBRARY) for m in (WK, PKK, TBK, GP)])
     print(f"[kernels] built {sorted(logs)} in {time.perf_counter() - t0:.1f} s\n" + "\n".join(
         "  " + line for log in logs.values() for line in log.splitlines()
         if "registers" in line or "smem" in line or "spill" in line), flush=True)
@@ -462,6 +474,52 @@ def phase_kernels():
     del model
     rows += _tile_rows(stages, gen)
     return rows
+
+
+# probe kernel -> (record name, TPU kernel it replaces)
+PROBES = {"take": ("gather_take", "sparse2dense_tpu/tools/microbench.py:203"),
+          "window_take": ("gather_window_take", "sparse2dense_tpu/tools/microbench.py:285"),
+          "run_gather": ("gather_run", "sparse2dense_tpu/tools/microbench.py:358")}
+PROBE_SUITES = ("pallas_take", "pallas_onehot", "pallas_dma", "pallas_run")
+
+
+def phase_probes():
+    """The microbench's B4 suites at the reference's sizes, with every launch
+    count set to 0 just before and read just after: each case holds its
+    kernel bit-equal to its plain version and to ``index_select`` (or
+    raises), then times the three. Returns the suites' rows (times in ms,
+    each with its bound and launches)."""
+    import torch
+
+    from sparse2dense_tpu_torch.ops import gather_probes as GP
+    from sparse2dense_tpu_torch.tools import microbench as MB
+
+    dev = torch.device("cuda")
+    for k in GP.launches:
+        GP.launches[k] = 0
+    rows = [row for name in PROBE_SUITES for row in MB.SUITES[name](dev)]
+    launches = dict(GP.launches)
+    for k, n in launches.items():
+        if not n:
+            raise AssertionError(f"the microbench's B4 suites launched no {k} kernel")
+    for row in rows:
+        row["bound_ms"], row["bound_by"] = bound(row["nbytes"], 0.0)
+        print(f"[probes] {row['case']}: bit-equal to its plain version and index_select; "
+              + json.dumps(row), flush=True)
+    print(f"[probes] launches in the B4 suites: {launches}", flush=True)
+    return rows
+
+
+def _probe_record(row):
+    """One probe case, per call, L2-cold; named by its kernel and case."""
+    name, replaces = PROBES[row["kernel"]]
+    case = row["case"].split(" (")[0].split(" ", 1)[1].replace(" ", ",")
+    return {"name": f"{name}[{case}]", "route": "cuda",
+            "source": "sparse2dense_tpu_torch/csrc/gather_probes.cu", "replaces": replaces,
+            "launches": row["launches"], "max_abs_err": row["max_abs_err"],
+            "ms": row["cold_ms"], "plain_ms": row["plain_cold_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_cold_ms"]}
 
 
 def phase_main_path(engine: str, budgets=None):
@@ -600,6 +658,7 @@ def main() -> int:
     kind, smi = phase_device()
     with no_tf32():
         rows = phase_kernels()
+    probe_rows = phase_probes()
     from sparse2dense_tpu_torch.utils.config import FRAME_BUDGETS, TILE_FRAME_BUDGETS
 
     window = phase_main_path("window")
@@ -620,8 +679,8 @@ def main() -> int:
         _record("tile_subm", "sparse2dense_tpu_torch/csrc/tile_subm.cu",
                 "sparse2dense_tpu/ops/pallas/tile_block_kernel.py:156",
                 tile["launches"]["tile_subm"], trows),
-    ]}
-    for rec, res in zip(record["kernels"], (window, plane, tile)):
+    ] + [_probe_record(row) for row in probe_rows]}
+    for rec, res in zip(record["kernels"][:3], (window, plane, tile)):
         print(f"[main] {rec['name']} share of the {res['engine']} frame: {rec['ms']:.3f} ms "
               f"of {res['frame_ms_median']:.1f} ms = {rec['ms'] / res['frame_ms_median']:.2%}",
               flush=True)

@@ -78,6 +78,15 @@ class ConvPlan(NamedTuple):
     block: int
 
 
+def make_subm_plan(features, coords, grid, block=128, window=512, resid_budget=1024):
+    """Plan a submanifold conv stage. Rows may come unsorted: the returned
+    (features, coords, plan) are sorted by (y, x, z). Rows already in yxz
+    order go to :func:`make_subm_plan_presorted`."""
+    features, coords, lin = sort_rows(features, coords, grid)
+    return features, coords, make_subm_plan_presorted(lin, coords, grid, block, window,
+                                                      resid_budget)
+
+
 def make_subm_plan_presorted(lin, coords, grid, block=128, window=512,
                              resid_budget=1024) -> ConvPlan:
     """Submanifold 3x3x3 plan for rows already in yxz order."""

@@ -61,6 +61,19 @@ def live_taps(ksize: Tuple[int, int, int]) -> Tuple[int, int]:
     return dy_mask, j_mask
 
 
+def unsupported(block: int, cin: int, cout: int, window: int) -> Optional[str]:
+    """Why the kernel does not take a plan of this block and window at these
+    widths, or None if it does."""
+    if block != BLOCK:
+        return f"plan block {block} (the kernel takes {BLOCK})"
+    if cout not in COUTS:
+        return f"Cout {cout} (the kernel is built for Cout {COUTS})"
+    smem = window * 4 + window * cin * 2 + 9 * cin * cout * 2
+    if window % 128 or smem > SMEM_LIMIT:
+        return f"window {window} x Cin {cin} (a multiple of 128 within shared memory)"
+    return None
+
+
 def window_pass_cuda(features: torch.Tensor, plan: ConvPlan, weights: torch.Tensor,
                      ksize: Tuple[int, int, int] = (3, 3, 3)) -> torch.Tensor:
     """Launch the kernel: features (V_in, Cin) and weights (27, Cin, Cout) are
@@ -75,16 +88,11 @@ def window_pass_cuda(features: torch.Tensor, plan: ConvPlan, weights: torch.Tens
     v_in, cin = features.shape
     cout = weights.shape[2]
     nb, window = plan.ws.shape[0], plan.window
-    if plan.block != BLOCK:
-        raise ValueError(f"the kernel needs plan block {BLOCK}, got {plan.block}")
-    if window % 128 or window > v_in:
-        raise ValueError(f"the kernel needs a window that is a multiple of 128 and "
-                         f"at most V_in={v_in}, got {window}")
-    if cout not in COUTS:
-        raise ValueError(f"the kernel is built for Cout in {COUTS}, got {cout}")
-    smem = window * 4 + window * cin * 2 + 9 * cin * cout * 2
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"window {window} x Cin {cin} needs {smem} B of shared memory")
+    why = unsupported(plan.block, cin, cout, window)
+    if why:
+        raise ValueError(f"not supported by the window-pass kernel: {why}")
+    if window > v_in:
+        raise ValueError(f"the kernel needs a window of at most V_in={v_in}, got {window}")
     feat = features.to(torch.bfloat16).contiguous()
     w = weights.to(torch.bfloat16).contiguous()
     cuda_build.check_tensor("plan.lin", plan.lin, torch.int32, (v_in,), dev)

@@ -1,7 +1,8 @@
 """Synthetic LiDAR frames: a random point cloud with planted box objects,
 voxelized and padded to a static budget. A copy of the reference's
 ``sparse2dense_tpu/training/synthetic.py`` (inference batches only); for the
-same seed it yields bit-identical voxels, coordinates and counts."""
+same seed it yields bit-identical voxels, coordinates and counts. Beside it,
+``synth_voxels``: a voxel scene with no point cloud, for the microbenchmarks."""
 from __future__ import annotations
 
 from typing import Optional
@@ -88,6 +89,37 @@ def make_gt(rng: np.random.RandomState, n_obj: int, pc_range,
     classes = rng.randint(1, len(class_names) + 1, size=n_obj)
     names = np.asarray(list(class_names))[classes - 1]
     return boxes, classes, names
+
+
+def synth_voxels(v: int, seed: int = 0):
+    """Roughly Waymo-shaped synthetic scene for the microbenchmarks: points
+    concentrated near the ego on a ground plane and objects, so BEV occupancy
+    clusters like real scans. A copy of ``synth_voxels`` of the reference's
+    ``sparse2dense_tpu/tools/profile_model.py``: for the same seed it yields
+    the same arrays. Returns (features (1, v, 5) float32, coords (1, v, 3)
+    zyx int32 on the 41x1504x1504 grid, -1 padding past the occupied
+    voxels)."""
+    rng = np.random.RandomState(seed)
+    n = v * 2
+    r = np.abs(rng.gamma(2.0, 12.0, n)).clip(0, 74)  # radial falloff
+    th = rng.uniform(-np.pi, np.pi, n)
+    x, y = r * np.cos(th), r * np.sin(th)
+    z = rng.choice([0.0, 1.0], n, p=[0.7, 0.3]) * rng.uniform(0, 2.5, n) \
+        + rng.normal(0, 0.2, n)
+    pts = np.stack([x, y, z], -1)
+    grid = np.floor((pts - np.array([-75.2, -75.2, -2.0])) /
+                    np.array([0.1, 0.1, 0.15])).astype(np.int64)
+    ok = ((grid >= 0).all(1) & (grid < np.array([1504, 1504, 41])).all(1))
+    grid = grid[ok]
+    lin = (grid[:, 2] * 1504 + grid[:, 1]) * 1504 + grid[:, 0]
+    _, first = np.unique(lin, return_index=True)
+    grid = grid[np.sort(first)][:v]
+    coords = grid[:, [2, 1, 0]].astype(np.int32)  # zyx
+    nv = len(coords)
+    coords = np.pad(coords, ((0, v - nv), (0, 0)), constant_values=-1)
+    feats = rng.randn(v, 5).astype(np.float32)
+    feats[nv:] = 0
+    return feats[None], coords[None]
 
 
 def make_batch(cfg, batch_size: int, max_voxels: int, seed: int = 0,

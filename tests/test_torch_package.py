@@ -20,6 +20,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert "sparse2dense_tpu_torch.ops.window_kernel" in mods
     assert "sparse2dense_tpu_torch.ops.plane_kernel" in mods
     assert "sparse2dense_tpu_torch.ops.tile_block_kernel" in mods
+    assert "sparse2dense_tpu_torch.ops.gather_probes" in mods
+    assert "sparse2dense_tpu_torch.tools.microbench" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
