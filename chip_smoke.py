@@ -16,7 +16,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      (32), conv3 (64) and conv4 (128) of the same frame on the plane
      engine, in bfloat16 within one bf16 rounding step,
      2^-7*|p| + 1e-3*max|p| (the output is rounded to bf16 after float32
-     sums taken in another order), and in float32 within 1e-4 + 1e-4*|p|;
+     sums taken in another order), and in float32 within 1e-4 + 1e-4*|p|,
+     with the 16-row tiles the kernel multiplies when it skips a tap per
+     group of 4 planes against per plane; then, for each of the four
+     (C, Co) pairs built, in both types, on targets set to SENTINEL,
+     fully masked planes (whole groups of 4 and 8), a T1p whose last plan
+     block is mostly padding, and no residual with no ReLU;
    - the tile subm conv on the tile states, masks and plans of conv1 (16,
      tz 8), conv2 (32, tz 4), conv3 (64, tz 2) and conv4 (128, tz 6) of the
      same frame on the tile engine with every stage on tiles, at
@@ -333,7 +338,7 @@ def _plane_rows(stages, gen):
                     torch.zeros((1, 16), device="cuda"), mask.float(), relu=False).sum())
                 flops = 2.0 * hits * c * c
                 row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
-                row.update(hits=hits, bytes=nbytes, flops=flops)
+                row.update(hits=hits, bytes=nbytes, flops=flops, **_tap_tiles(mask, plan.tgt))
                 row["ms"] = cuda_ms(lambda: PKK.plane_subm_cuda(*args, residual=st), reps=10)
                 row["plain_ms"] = cuda_ms(lambda: PK.plane_subm_plain(*args, residual=st),
                                           reps=2, warmup=1)
@@ -346,6 +351,85 @@ def _plane_rows(stages, gen):
             if bad:
                 raise AssertionError(f"plane {row['case']}: {bad} outputs out of tolerance")
             rows.append(row)
+    return rows
+
+
+def _tap_tiles(mask, tgt):
+    """(plane, tap) tiles of 16 rows a kernel multiplies, on this frame's
+    mask and plan: skipping a tap per plane (16 rows, mma.sync) or per group
+    of 4 planes (64 rows, wgmma), against all 27 taps of every live plane.
+    A tap is live where one of its 16 source cells lies in a present plane;
+    a plane (group) is live where one of its cells (of its 64) is unmasked."""
+    import torch
+
+    from sparse2dense_tpu_torch.ops import plane_conv as PK
+
+    t1p = mask.shape[0]
+    tg = tgt.permute(1, 0, 2).reshape(32, t1p)
+    present = torch.cat([(tg[:27] >= 0) & (tg[:27] < t1p),
+                         torch.ones((1, t1p), dtype=torch.bool, device=tg.device)])
+    rows = torch.tensor(PK.TAP_ROWS, device=tg.device)                  # (27, 16)
+    tap = present[rows].any(1)                                          # (27, T1p)
+    plane = (mask != 0).any(1)
+    group = plane.view(-1, 4).any(1)
+    return dict(tap_tiles_full=27 * int(plane.sum()),
+                tap_tiles_plane=int((tap & plane).sum()),
+                tap_tiles_group=4 * int((tap.view(27, -1, 4).any(2) & group).sum()))
+
+
+def _plane_edge_rows(stages, gen):
+    """The plane subm kernel against its plain version, for every (C, Co)
+    pair built and in bfloat16 and float32, on the inputs where skipping
+    dead groups and taps could go wrong: targets set to SENTINEL (a seeded
+    third of them), fully masked planes (whole groups of 4 and 8 and single
+    planes), a T1p of 1,024 rows whose last plan block holds 10 planes, and
+    no residual with no ReLU. Base data: the stage of that width (C = 16:
+    conv2's plan with a random state)."""
+    import torch
+
+    from sparse2dense_tpu_torch.ops import plane_conv as PK
+    from sparse2dense_tpu_torch.ops import plane_kernel as PKK
+
+    state2, mask2, _, _, plan2 = stages[0]
+    state16 = (torch.randn((state2.shape[0], 16, 16), device="cuda", generator=gen)
+               * mask2[..., None]).reshape(-1, 256).to(state2.dtype)
+    bases = [(16, state16, mask2, plan2.tgt)] + [
+        (c, st[0], st[1], st[4].tgt) for (_, c), st in zip(PLANE_STAGES, stages)]
+    rows = []
+    for c, state, mask, tgt in bases:
+        t1p = state.shape[0]
+        p = torch.arange(t1p, device="cuda")
+        sentinel = torch.rand(tgt.shape, device="cuda", generator=gen) < 1 / 3
+        dead = ((p // 4) % 3 == 0) | ((p // 8) % 7 == 1) | (
+            torch.rand(t1p, device="cuda", generator=gen) < 0.1)
+        n_last = 1024 - 118   # the last 128-row block of the cut holds 10 planes
+        keep = (p < n_last)[:, None]
+        cases = {  # name: (state, tgt, mask, residual?, relu)
+            "sentinel targets": (state, torch.where(sentinel, PK.SENTINEL, tgt), mask, True, True),
+            "masked planes": (state, tgt, mask * ~dead[:, None], True, True),
+            "padded last block": ((state * keep)[:1024], tgt[:8], (mask * keep)[:1024], True,
+                                  True),
+            "no residual, no relu": (state, tgt, mask, False, False),
+        }
+        w = torch.randn((27, c, c), device="cuda", generator=gen) * (27 * c) ** -0.5
+        scale = 1 + 0.1 * torch.randn((1, 16 * c), device="cuda", generator=gen)
+        shift = 0.1 * torch.randn((1, 16 * c), device="cuda", generator=gen)
+        for name, (st0, tg, mk, res, relu) in cases.items():
+            for dt in (torch.bfloat16, torch.float32):
+                st = st0.to(dt)
+                args = (st, tg.contiguous(), w.to(dt), scale, shift,
+                        PK.expand_mask(mk, c).to(dt))
+                kw = dict(residual=st if res else None, relu=relu)
+                err, want, bad = _compare(PKK.plane_subm_cuda(*args, **kw),
+                                          PK.plane_subm_plain(*args, **kw))
+                row = dict(kernel="plane_subm", case=f"edge {name} {c}->{c} {str(dt)[6:]}",
+                           t1p=st.shape[0], live_planes=int((mk > 0).any(-1).sum()),
+                           max_abs_err=float(err.max()), max_abs_ref=float(want.abs().max()),
+                           n_bad=bad, per_frame=0)
+                print("[kernels] " + json.dumps(row), flush=True)
+                if bad:
+                    raise AssertionError(f"plane {row['case']}: {bad} outputs out of tolerance")
+                rows.append(row)
     return rows
 
 
@@ -467,6 +551,8 @@ def phase_kernels():
     stages = _plane_stage_data(batch, model)
     del model
     rows += _plane_rows(stages, gen)
+    torch.cuda.empty_cache()
+    rows += _plane_edge_rows(stages, gen)
     del stages
     torch.cuda.empty_cache()
     _, _, model = _flagship("tile", TILE_FRAME_BUDGETS, dense_from_stage=99)

@@ -29,12 +29,26 @@
 //   every thread selects rows from it. This is the "window in shared memory"
 //   primitive of a windowed sparse conv; the TPU's one-hot MXU matmul has no
 //   place here, a GPU indexes.
-// - run_gather: persistent blocks, each with one thread that issues every
-//   copy: a cp.async.bulk global -> shared copy of R rows per run on a ring
-//   of 16 slots (16 copies in flight, the TPU kernel's NSLOT), each slot
-//   tracked by its mbarrier, and a bulk shared -> global store of each run
-//   once it has landed. The TPU kernel is one grid step on one core; here
-//   the runs are spread over every SM.
+// - run_gather: the asynchronous bulk copy, the counterpart of the TPU's
+//   DMA: a cp.async.bulk global -> shared copy of the R rows of a run,
+//   completed on an mbarrier, then a bulk shared -> global store of the
+//   landed run. Every lane of a one-warp block issues, waits on and
+//   stores its own runs through a slot of its own; it waits for a store to
+//   have read the slot only when the slot comes round again (its next run),
+//   so no store is waited for on the way. Runs are dealt block-first (run r
+//   to block r % grid, lane (r / grid) % 32), and the grid is as many
+//   blocks as fit the SMs at once (at most one a run): R = 64's 2,048 runs
+//   of 4 KB give each of the 132 SMs one block with 15-16 runs, all in
+//   flight at once; R = 8 (512 B) and R = 1 (64 B) fit 12 and 32 blocks an
+//   SM, so every run has a lane of its own there too. Variants tried on the
+//   H100 on copies of this source chose one slot a lane: more slots a lane
+//   mean fewer blocks and were slower at every R, as were runs split into
+//   smaller copies; a lane's first index load is issued before it sets up
+//   its barrier, which shortens the chain a lane waits through. What bounds
+//   it: at R >= 8 HBM bytes cold; warm, the copy engine of each SM, which
+//   takes every load and store of its runs (with loads or stores alone a
+//   copy kept most of the time); at R = 1 (131,072 copies of 64 B) the rate
+//   at which the SMs take copies.
 // An index out of range stops the kernel with a trap, as PyTorch's own
 // indexing kernels stop with a device-side assert.
 #include <cuda_runtime.h>
@@ -42,7 +56,7 @@
 
 namespace {
 
-constexpr int kSlots = 16;           // run_gather: copies in flight per block
+constexpr int kBarBytes = 256;       // run_gather: a block's 32 mbarriers
 constexpr int kThreads = 256;        // take and window_take block size
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -109,10 +123,6 @@ __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
 __global__ void __launch_bounds__(kThreads)
 take_kernel(const float4* __restrict__ feat, const int* __restrict__ idx,
             float4* __restrict__ out, long n_quads, int quads_per_row, int v) {
@@ -154,42 +164,34 @@ window_take_kernel(const float* __restrict__ feat, const int* __restrict__ local
   }
 }
 
+// Every lane issues its own runs, first + k * issuers for k = 0, 1, ...,
+// through one slot of the lane's own (barriers first in shared memory, then
+// the slots).
 __global__ void __launch_bounds__(32)
 run_gather_kernel(const float* __restrict__ feat, const int* __restrict__ idx,
                   float* __restrict__ out, int n, int v, int run_len, int c) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) uint64_t bars[kSlots];
-  if (threadIdx.x != 0) return;  // one thread issues every copy of the block
+  const int lane = threadIdx.x;
   const uint32_t bytes = static_cast<uint32_t>(run_len) * c * 4;
-  const uint32_t slot0 = smem_addr(smem);
-  const uint32_t bar0 = smem_addr(bars);
-  const int first = blockIdx.x, step = gridDim.x;
-  const int k_runs = first < n ? (n - first + step - 1) / step : 0;
-  for (int s = 0; s < kSlots; ++s) mbar_init(bar0 + 8 * s, 1);
+  const uint32_t bar = smem_addr(smem) + lane * 8;
+  const uint32_t slot = smem_addr(smem) + kBarBytes + lane * bytes;
+  const long issuers = static_cast<long>(gridDim.x) * 32;
+  const long first = static_cast<long>(lane) * gridDim.x + blockIdx.x;
+  if (first >= n) return;
+  int src = __ldg(idx + first);  // in flight while the barrier is set up
+  mbar_init(bar, 1);
   fence_barrier_init();
-
-  auto issue = [&](int k) {  // run k of this block into slot k % kSlots
-    const int src = __ldg(idx + first + static_cast<long>(k) * step);
+  uint32_t parity = 0;
+  for (long run = first; run < n; run += issuers, parity ^= 1) {
+    if (run != first) src = __ldg(idx + run);
     if (src < 0 || src > v - run_len || src % run_len) __trap();
-    const int s = k % kSlots;
-    mbar_expect_tx(bar0 + 8 * s, bytes);
-    bulk_load(slot0 + s * bytes, feat + static_cast<long>(src) * c, bytes, bar0 + 8 * s);
-  };
-
-  for (int k = 0; k < min(kSlots, k_runs); ++k) issue(k);
-  for (int k = 0; k < k_runs; ++k) {
-    const int s = k % kSlots;
-    mbar_wait(bar0 + 8 * s, (k / kSlots) & 1);
-    const long run = first + static_cast<long>(k) * step;
-    bulk_store(out + run * run_len * c, slot0 + s * bytes, bytes);
-    // refill the previous run's slot once its store has read it, leaving
-    // this run's store in flight
-    if (k >= 1 && k - 1 + kSlots < k_runs) {
-      bulk_wait_read<1>();
-      issue(k - 1 + kSlots);
-    }
+    bulk_wait_read<0>();  // the slot's last store has read it
+    mbar_expect_tx(bar, bytes);
+    bulk_load(slot, feat + static_cast<long>(src) * c, bytes, bar);
+    mbar_wait(bar, parity);
+    bulk_store(out + run * run_len * c, slot, bytes);
   }
-  bulk_wait_all();  // every store has landed before the block exits
+  bulk_wait_read<0>();  // the last store has read the slot before the lane exits
 }
 
 int sm_count() {
@@ -237,7 +239,7 @@ extern "C" int s2d_window_take(const void* feat, const void* local, void* out, i
 
 extern "C" int s2d_run_gather(const void* feat, const void* idx, void* out, int v, int n,
                               int c, int run_len, void* stream) {
-  const size_t smem = static_cast<size_t>(kSlots) * run_len * c * 4;
+  const size_t smem = kBarBytes + static_cast<size_t>(32) * run_len * c * 4;
   int e = opt_in_smem(run_gather_kernel, smem);
   if (e) return e;
   int per_sm = 0;
@@ -245,8 +247,8 @@ extern "C" int s2d_run_gather(const void* feat, const void* idx, void* out, int 
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, run_gather_kernel, 32, smem));
   if (e) return e;
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const long slots = static_cast<long>(per_sm) * sm_count();
-  const int grid = static_cast<int>(n < slots ? n : slots);
+  const long blocks = static_cast<long>(per_sm) * sm_count();
+  const int grid = static_cast<int>(n < blocks ? n : blocks);
   if (grid > 0)
     run_gather_kernel<<<grid, 32, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(feat), static_cast<const int*>(idx),

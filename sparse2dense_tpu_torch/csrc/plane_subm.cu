@@ -22,38 +22,63 @@
 // Design. The TPU kernel fetches two rank windows per dy cluster by DMA,
 // selects neighbour cells with one-hot MXU matmuls and emits export arrays
 // for the next conv: layout workarounds for a chip without a fast gather.
-// Here a thread block owns P consecutive planes: it gathers the 6x6x3 halo
-// of each plane (108 cells) straight from the state rows by tgt into shared
-// memory, then runs the 27 taps over it, and fuses the epilogue. No atomics;
-// blocks are independent. Two kernels share that frame:
-// - bfloat16 state (the flagship): tensor cores. A warp owns one plane (its
-//   16 cells are the 16 rows of an mma.sync m16n8k16 tile) and 64 output
-//   channels at most; per tap it multiplies the 16 gathered halo rows by the
-//   tap's (C, Co) weight slice, staged in shared memory as (Co, C) for the
-//   B fragments, 27, 9 or 3 taps at a time as room allows. A warp skips a
-//   tap whose 16 source cells all lie in absent planes, and a plane whose 16
-//   cells are all masked out (its output is zero).
+// Here the halo of a plane (3 z sources x 6 x 6 cells = 108 rows) is
+// gathered straight from the state rows by tgt into shared memory, the 27
+// taps run over it and the epilogue is fused. No atomics. Two kernels:
+// - bfloat16 state (the flagship): wgmma. The unit of work is a group of 4
+//   consecutive planes, the 64 rows of a warpgroup's m64nNk16 (a warp's 16
+//   rows are its plane's cells). A comes from registers: each warp loads
+//   its plane's halo rows of a tap with ldmatrix, one row address a lane,
+//   so scattered rows cost nothing extra; B is the tap's (C, N) weight
+//   slice in shared memory, laid out on the host for wgmma (no swizzle,
+//   K-major, plane_kernel.wgmma_weights). Two taps are in flight: the next
+//   one's A loads while the last multiplies. Blocks are persistent, as many
+//   as fit the SMs at once, and walk over the groups. A group is read by
+//   its cell mask first: if all 64 cells are masked out (the padded tail of
+//   T1p, or dead planes) its rows are written as zeros with no gather and
+//   no weights. A tap is skipped when none of the group's 64 rows has a
+//   source in a present plane (wgmma cannot skip for one warp alone;
+//   PERF.md counts the tiles this costs against a skip per plane). The
+//   halo's 108 rows a plane come by cp.async, 16 B a thread, zero-filled
+//   where the source is absent; the tap masks come with them.
+//   Weights, by width (L2 reads a conv on the flagship frame):
+//   * C <= 32: all 27 taps stay in shared memory for the block's life (14 /
+//     55 KB, one bulk copy): ~7 MB a conv. Four warpgroups a block each walk
+//     their own groups; the targets and mask of a warpgroup's next group and
+//     its epilogue operands load while it multiplies.
+//   * C = 64 and 128 (221 / 885 KB): taps stream through a ring of shared
+//     slots (8 of 8 KB, 3 of 32 KB), filled by a producer warp with bulk
+//     copies on mbarriers and released by each consumer warp once its
+//     wgmma is done. Two teams share each tap (two groups at C = 64; at
+//     C = 128 one group, each warpgroup with half of the output channels),
+//     so a conv reads 221 KB per 8 planes at C = 64 (~0.93 GB over the live
+//     passes) and 885 KB per 4 planes at C = 128 (~1.74 GB). Variants
+//     tried on the H100 on copies of this source and dropped: halos of 32
+//     input channels with four teams (half those reads) were slower at both
+//     widths; a deeper ring was no faster.
 // - float32 state (the tiny agreement runs): CUDA-core FMAs, a thread per
-//   (plane, cell) row and 16 output channels.
-// Halo rows are padded so a warp's reads spread over the banks.
+//   (plane, cell) row and 16 output channels, blocks of P planes.
+// Halo rows are padded by 16 B so the lanes of an ldmatrix spread over the
+// banks.
 //
-// Bound on an H100 (3.35 TB/s, 989 TFLOP/s bf16): bytes. At conv2 of the
-// flagship frame (90,112 plane rows, C = Co = 32) a conv reads and writes
-// ~0.38 GB (state, mask, residual, output) in ~0.11 ms, and its active
-// (cell, tap) pairs need ~6 GFLOP, ~6 us. This design re-reads each plane's
-// halo from L2 for its neighbours, computes the mma tiles of every present
-// plane in full (absent cells of a present plane are zeros), and gives each
-// block one warp per plane with no overlap of the gather and the mmas;
-// reaching the bound means a pipelined gather (cp.async / TMA) feeding
-// wgmma: later work.
+// Bound on an H100 (3.35 TB/s, 989 TFLOP/s bf16): bytes at conv2 and conv3,
+// operations at conv4 (~0.08 / 0.06 / 0.04 ms). What bounds this design: a
+// copy of it with the wgmma taken out keeps most of its time (same card),
+// so the traffic around the tiles comes first: each state row is gathered
+// into 6.75 halos from L2 (~0.6 / 0.5 / 0.2 GB at conv2 / 3 / 4), the
+// epilogue reads mask and residual, and at C >= 64 the taps stream; the
+// full wgmma tiles add the rest. What is left: the halo re-read (a halo
+// shared by the z-neighbours of a tile column would halve it), and the full
+// tiles: every live (group, tap) multiplies 64 rows x C x Co however few of
+// its cells are active, several times the active (cell, tap) pairs of the
+// hits-only bound.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;  // float32 kernel
 constexpr int kBlk = 128;       // plane rows per plan block
 constexpr int kHalo = 108;      // 3 z sources x 6 x 6 halo cells
 constexpr int kSmemMax = 232448;
@@ -79,129 +104,531 @@ __device__ __forceinline__ int halo_of(int cell, int kz, int ky, int kx) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 state: mma.sync m16n8k16, one plane per warp
+// asynchronous copies, barriers and wgmma
 // ---------------------------------------------------------------------------
 
-template <int C, int CO>
-struct MmaShape {
-  static constexpr int kCoW = CO < 64 ? CO : 64;         // output channels a warp
-  static constexpr int kWpp = CO / kCoW;                 // warps per plane
-  static constexpr int kPlanes = kWarps / kWpp;          // planes per block
-  static constexpr int kStride = C + 8;                  // halo / weight row, bf16
-  static constexpr int kTaps = C <= 32 ? 27 : (C == 64 ? 9 : 3);  // staged at a time
-  static constexpr size_t kSmem = sizeof(int) * kPlanes * kHalo +
-                                  2 * (size_t(kPlanes) * kHalo + kTaps * CO) * kStride;
-  static_assert(kSmem <= kSmemMax, "shared memory");
-  static_assert(kBlk % kPlanes == 0 && C % 16 == 0 && kCoW % 8 == 0, "shape");
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Make the barriers' initialisation visible to the async proxy and to the
+// other threads (a __syncthreads follows).
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Bulk copy global -> shared of `bytes` (a multiple of 16), completed on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes zeros (an absent source).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// barrier of the 128 threads of warpgroup `wg` < 4 (barrier 0 is __syncthreads)
+__device__ __forceinline__ void wg_sync(int wg) {
+  switch (wg) {
+    case 0: asm volatile("bar.sync 1, 128;\n" ::: "memory"); break;
+    case 1: asm volatile("bar.sync 2, 128;\n" ::: "memory"); break;
+    case 2: asm volatile("bar.sync 3, 128;\n" ::: "memory"); break;
+    default: asm volatile("bar.sync 4, 128;\n" ::: "memory"); break;
+  }
+}
+
+// barrier of a team: one warpgroup, or the block's two (barrier 5)
+template <int kSplit>
+__device__ __forceinline__ void team_sync(int wg) {
+  if (kSplit == 2)
+    asm volatile("bar.sync 5, 256;\n" ::: "memory");
+  else
+    wg_sync(wg);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* a, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// at most N of this warpgroup's wgmma groups still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from touching an accumulator while a wgmma owns it
+__device__ __forceinline__ void fence_operand(float& x) { asm volatile("" : "+f"(x)::"memory"); }
+
+// Shared-memory matrix descriptor of a B operand in the no-swizzle K-major
+// layout: 8 x 8 core matrices of 128 contiguous bytes, `lbo` bytes apart
+// along K and `sbo` bytes apart along N.
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// D (64 x N, f32, registers) += A (64 x 16 bf16, registers: the mma.sync A
+// fragment of each warp's 16 rows) * B (16 x N bf16, shared memory)
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{"
+        "%0,%1,%2,%3,%4,%5,%6,%7"
+        "}, {%8,%9,%10,%11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
 };
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+template <>
+struct Wgmma<32> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15"
+        "}, {%16,%17,%18,%19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
 
-__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
+template <>
+struct Wgmma<64> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+        "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
+        "}, {%32,%33,%34,%35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
 
-// wt: weights (27, CO, C) bf16, transposed by the wrapper for the B fragments
+// ---------------------------------------------------------------------------
+// bfloat16 state: wgmma over groups of 4 planes
+// ---------------------------------------------------------------------------
+
+constexpr int kGroup = 4;   // planes a group: the 64 rows of a wgmma, a warp's 16 each
+
 template <int C, int CO>
-__global__ void __launch_bounds__(kThreads)
-plane_subm_mma(const __nv_bfloat16* __restrict__ state, const int* __restrict__ tgt,
-               const __nv_bfloat16* __restrict__ wt, const float* __restrict__ scale,
-               const float* __restrict__ shift, const __nv_bfloat16* __restrict__ mask,
-               const __nv_bfloat16* __restrict__ resid, __nv_bfloat16* __restrict__ out,
-               int t1p, int relu) {
-  using S = MmaShape<C, CO>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* halo = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* wsm = halo + S::kPlanes * kHalo * S::kStride;
-  int* src = reinterpret_cast<int*>(wsm + S::kTaps * CO * S::kStride);
+struct WgShape {
+  static constexpr bool kResident = C <= 32;       // all 27 taps stay in shared memory
+  static constexpr int kWG = kResident ? 4 : 2;    // consumer warpgroups a block
+  // streamed weights: one more warp, the producer, keeps the ring full
+  static constexpr int kThreads = kWG * 128 + (kResident ? 0 : 32);
+  static constexpr int kSplit = C == 128 ? 2 : 1;  // warpgroups sharing a group (CO split)
+  static constexpr int kN = CO / kSplit;           // output channels a warpgroup
+  static constexpr int kTeams = kWG / kSplit;      // groups a block works on at once
+  static constexpr int kNA = 2;                    // A fragments of taps in flight
+  static constexpr int kRing = C == 64 ? 8 : 3;    // streamed taps in flight
+  static constexpr int kBars = kResident ? 1 : 2 * kRing;   // full, then empty
+  static constexpr int kStride = C + 8;            // halo row, bf16 (16 B pad: banks)
+  static constexpr int kTapElems = C * CO;
+  static constexpr uint32_t kTapBytes = 2 * kTapElems;
+  static constexpr int kWElems = (kResident ? 27 : kRing) * kTapElems;
+  static constexpr int kHaloElems = kGroup * kHalo * kStride;   // a team's halo
+  static constexpr int kTeamThreads = 128 * kSplit;
+  static constexpr int kRows = (kGroup * kHalo + kTeamThreads - 1) / kTeamThreads;
+  // mbarriers [0, 256), tap masks [256, 320), halo tables [512, 1376)
+  static constexpr size_t kHead = 1536;
+  static constexpr size_t kSmem = kHead + 2 * (size_t(kWElems) + kTeams * kHaloElems);
+  static_assert(kSmem <= kSmemMax, "shared memory");
+  static_assert(8 * kBars <= 256 && 4 * 4 * kWG <= 64, "head");
+  static_assert(C % 16 == 0 && (kN == 16 || kN == 32 || kN == 64), "shape");
+};
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, tig = lane % 4;       // mma row group, thread in group
-  const int p0 = blockIdx.x * S::kPlanes;
-  const int pl = warp / S::kWpp, co0 = (warp % S::kWpp) * S::kCoW;
-  const int p = p0 + pl;
+// 27-bit mask of the taps that read halo cell h for some cell of its plane
+__device__ __forceinline__ int halo_taps(int h) {
+  const int kz = h / 36, yy = (h / 6) % 6, xx = h % 6;
+  int bits = 0;
+  for (int ky = max(0, yy - 3); ky <= min(2, yy); ++ky)
+    for (int kx = max(0, xx - 3); kx <= min(2, xx); ++kx) bits |= 1 << (kz * 9 + ky * 3 + kx);
+  return bits;
+}
 
-  for (int i = tid; i < S::kPlanes * kHalo; i += kThreads)
-    src[i] = halo_source(tgt, p0 + i / kHalo, i % kHalo, t1p);
-  __syncthreads();
-  constexpr int kVec = C / 8;                   // 16-byte pieces of a halo row
-  for (int i = tid; i < S::kPlanes * kHalo * kVec; i += kThreads) {
-    const int row = i / kVec, v = i % kVec, s = src[row];
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (s >= 0) val = reinterpret_cast<const uint4*>(state + static_cast<size_t>(s) * C)[v];
-    reinterpret_cast<uint4*>(halo + row * S::kStride)[v] = val;
-  }
-
-  // a plane whose 16 cells are all masked out has a zero output
-  const bool live = __any_sync(0xffffffffu,
-                               __bfloat162float(mask[(static_cast<size_t>(p) * 16 + lane % 16) * CO]) != 0.f);
-  const int* psrc = src + pl * kHalo;
-  const __nv_bfloat16* ph = halo + pl * kHalo * S::kStride;
-
-  float acc[S::kCoW / 8][4];
+// acc += A * B over one tap, issued and committed, not waited for: A is
+// the 16 halo rows of this warp's plane, loaded into a by ldmatrix (arow:
+// this lane's row), B the tap's (C, N) slice of weights at w0 in the
+// layout of plane_kernel.wgmma_weights (CO / 8 core matrices along N for
+// each 8 input channels). The registers of a stay the wgmma's until it has
+// completed.
+template <int C, int CO, int N>
+__device__ __forceinline__ void tap_issue(float (&acc)[N / 2], uint32_t (&a)[C / 16][4],
+                                          uint32_t arow, uint32_t w0) {
 #pragma unroll
-  for (int j = 0; j < S::kCoW / 8; ++j)
+  for (int s = 0; s < C / 16; ++s) ldmatrix_x4(a[s], arow + 32 * s);
+  wgmma_fence();
 #pragma unroll
-    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+  for (int s = 0; s < C / 16; ++s)
+    Wgmma<N>::run(acc, a[s], b_desc(w0 + s * 2 * (CO / 8) * 128, (CO / 8) * 128, 128));
+  wgmma_commit();
+}
 
-  for (int k0 = 0; k0 < 27; k0 += S::kTaps) {
-    __syncthreads();  // halo staged / the previous taps' readers are done
-    const __nv_bfloat16* wk = wt + static_cast<size_t>(k0) * CO * C;
-    for (int i = tid; i < S::kTaps * CO * kVec; i += kThreads) {
-      const int row = i / kVec, v = i % kVec;
-      reinterpret_cast<uint4*>(wsm + row * S::kStride)[v] =
-          reinterpret_cast<const uint4*>(wk + static_cast<size_t>(row) * C)[v];
+template <int N>
+__device__ __forceinline__ void acc_done(float (&acc)[N / 2]) {
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) fence_operand(acc[i]);
+}
+
+// The fused epilogue of plane p (a warp's 16 rows) over columns n0 .. n0 + N,
+// in two steps so that its loads can be issued early: a thread owns rows
+// lane / 4 and lane / 4 + 8 (cells) and columns n0 + 8j + 2 (lane % 4) +
+// {0, 1}; m and r hold their mask and residual pairs.
+template <int CO, int N>
+__device__ __forceinline__ void epi_load(int p, int n0, int lane,
+                                         const __nv_bfloat16* __restrict__ mask,
+                                         const __nv_bfloat16* __restrict__ resid,
+                                         uint32_t (&m)[2][N / 8], uint32_t (&r)[2][N / 8]) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const size_t at = (static_cast<size_t>(p) * 16 + lane / 4 + 8 * half) * CO + n0 + j * 8 +
+                        (lane % 4) * 2;
+      m[half][j] = *reinterpret_cast<const uint32_t*>(mask + at);
+      r[half][j] = resid != nullptr ? *reinterpret_cast<const uint32_t*>(resid + at) : 0u;
     }
-    __syncthreads();
-    if (!live) continue;
-    for (int t = 0; t < S::kTaps; ++t) {
-      const int k = k0 + t, kz = k / 9, ky = (k / 3) % 3, kx = k % 3;
-      const int h0 = halo_of(g, kz, ky, kx), h1 = halo_of(g + 8, kz, ky, kx);
-      if (!__any_sync(0xffffffffu, psrc[h0] >= 0 || psrc[h1] >= 0)) continue;
-      const __nv_bfloat16* r0 = ph + h0 * S::kStride + tig * 2;
-      const __nv_bfloat16* r1 = ph + h1 * S::kStride + tig * 2;
-      const __nv_bfloat16* wb = wsm + (t * CO + co0 + g) * S::kStride + tig * 2;
-#pragma unroll
-      for (int kk = 0; kk < C; kk += 16) {
-        const uint32_t a0 = ld32(r0 + kk), a1 = ld32(r1 + kk);
-        const uint32_t a2 = ld32(r0 + kk + 8), a3 = ld32(r1 + kk + 8);
-#pragma unroll
-        for (int j = 0; j < S::kCoW / 8; ++j) {
-          const __nv_bfloat16* b = wb + j * 8 * S::kStride + kk;
-          mma_bf16(acc[j], a0, a1, a2, a3, ld32(b), ld32(b + 8));
-        }
-      }
-    }
-  }
+}
 
-  // ---- fused epilogue: rows g and g + 8 (cells), columns co0 + 8j + 2tig ---
+__device__ __forceinline__ float2 bf2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+template <int CO, int N>
+__device__ __forceinline__ void epi_store(const float (&acc)[N / 2], int p, int n0, int lane,
+                                          const float* __restrict__ scale,
+                                          const float* __restrict__ shift,
+                                          const uint32_t (&m)[2][N / 8],
+                                          const uint32_t (&r)[2][N / 8],
+                                          __nv_bfloat16* __restrict__ out, int relu) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int cell = g + 8 * half;
+    const int cell = lane / 4 + 8 * half;
 #pragma unroll
-    for (int j = 0; j < S::kCoW / 8; ++j) {
-      const int col = cell * CO + co0 + j * 8 + tig * 2;
-      const size_t at = static_cast<size_t>(p) * 16 * CO + col;
-      const float2 m = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(mask + at));
-      float v0 = acc[j][2 * half] * scale[col] + shift[col];
-      float v1 = acc[j][2 * half + 1] * scale[col + 1] + shift[col + 1];
-      if (resid != nullptr) {
-        const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(resid + at));
-        v0 += r.x;
-        v1 += r.y;
-      }
+    for (int j = 0; j < N / 8; ++j) {
+      const int col = cell * CO + n0 + j * 8 + (lane % 4) * 2;
+      const float2 mm = bf2(m[half][j]), rr = bf2(r[half][j]);
+      float v0 = acc[4 * j + 2 * half] * scale[col] + shift[col] + rr.x;
+      float v1 = acc[4 * j + 2 * half + 1] * scale[col + 1] + shift[col + 1] + rr.y;
       if (relu) {
         v0 = fmaxf(v0, 0.f);
         v1 = fmaxf(v1, 0.f);
       }
-      *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(v0 * m.x, v1 * m.y);
+      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(p) * 16 * CO + col) =
+          __floats2bfloat162_rn(v0 * mm.x, v1 * mm.y);
+    }
+  }
+}
+
+// wb: weights in the B layout of wgmma (plane_kernel.wgmma_weights): per tap
+// (C / 8, CO / 8, 8 co, 8 ci) bf16, core matrices 128 B apart along CO and
+// CO / 8 * 128 B apart along C
+template <int C, int CO>
+__global__ void __launch_bounds__(WgShape<C, CO>::kThreads)
+plane_subm_wgmma(const __nv_bfloat16* __restrict__ state, const int* __restrict__ tgt,
+                 const __nv_bfloat16* __restrict__ wb, const float* __restrict__ scale,
+                 const float* __restrict__ shift, const __nv_bfloat16* __restrict__ mask,
+                 const __nv_bfloat16* __restrict__ resid, __nv_bfloat16* __restrict__ out,
+                 int t1p, int relu) {
+  using S = WgShape<C, CO>;
+  constexpr int N = S::kN;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem + S::kHead);
+  const int tid = threadIdx.x, wg = tid / 128, wtid = tid % 128;
+  const int warp = wtid / 32, lane = tid % 32;
+  const int team = wg / S::kSplit, n0 = (wg % S::kSplit) * N;   // group slot, columns
+  const int ttid = tid % S::kTeamThreads, twarp = ttid / 32;      // in the team
+  const int n_groups = t1p / kGroup;
+  const uint32_t bar0 = smem_addr(smem);
+  __nv_bfloat16* halo = wsm + S::kWElems + team * S::kHaloElems;
+  int* tw = reinterpret_cast<int*>(smem + 256) + team * 4 * S::kSplit;  // a word a team warp
+  // halo cell h: its direction row in tgt (13: the plane itself) and cell,
+  // and the taps that read it
+  int* hinfo = reinterpret_cast<int*>(smem + 512);
+  int* htaps = hinfo + kHalo;
+  for (int h = tid; h < kHalo; h += S::kThreads) {
+    const int kz = h / 36, yy = (h / 6) % 6 - 1, xx = h % 6 - 1;
+    const int dyb = yy < 0 ? -1 : (yy > 3 ? 1 : 0), dxb = xx < 0 ? -1 : (xx > 3 ? 1 : 0);
+    hinfo[h] = ((kz * 3 + dyb + 1) * 3 + dxb + 1) | ((((yy + 4) & 3) * 4 + ((xx + 4) & 3)) << 8);
+    htaps[h] = halo_taps(h);
+  }
+
+  if (tid == 0) {  // weights: all 27 taps at once, or the ring's barriers
+    for (int s = 0; s < S::kBars; ++s)
+      mbar_init(bar0 + 8 * s, S::kResident || s < S::kRing ? 1 : 4 * S::kWG);
+    fence_barrier_init();
+    if (S::kResident) {
+      mbar_expect_tx(bar0, 27 * S::kTapBytes);
+      bulk_load(smem_addr(wsm), wb, 27 * S::kTapBytes, bar0);
+    }
+  }
+  __syncthreads();
+
+  // A team thread owns halo rows ttid + kTeamThreads j of a group (4 planes
+  // x 108 rows). The sources of group g's rows (state row * 16 + cell, -1
+  // for none), and the mask of two of its 64 cells:
+  auto sources = [&](int g, int (&src)[S::kRows], float& m) {
+#pragma unroll
+    for (int j = 0; j < S::kRows; ++j) {
+      const int r = ttid + S::kTeamThreads * j;
+      src[j] = -1;
+      if (r < kGroup * kHalo) {
+        const int p = g * kGroup + r / kHalo, info = hinfo[r % kHalo], dir = info & 255;
+        const int t = dir == 13 ? p : tgt[((p / kBlk) * 32 + dir) * kBlk + p % kBlk];
+        if (t >= 0 && t < t1p) src[j] = t * 16 + (info >> 8);
+      }
+    }
+    const size_t q = static_cast<size_t>(g) * 64 + lane;
+    m = fabsf(__bfloat162float(mask[q * CO])) + fabsf(__bfloat162float(mask[(q + 32) * CO]));
+  };
+  // issue the halo copies of a group and note its live taps
+  auto gather = [&](const int (&src)[S::kRows]) {
+    int bits = 0;
+#pragma unroll
+    for (int j = 0; j < S::kRows; ++j) {
+      const int r = ttid + S::kTeamThreads * j;
+      if (r >= kGroup * kHalo) break;
+      const __nv_bfloat16* from = state + (src[j] >= 0 ? static_cast<size_t>(src[j]) * C : 0);
+      const uint32_t to = smem_addr(halo + r * S::kStride);
+#pragma unroll
+      for (int v = 0; v < C / 8; ++v) cp_async16(to + 16 * v, from + 8 * v, src[j] >= 0 ? 16 : 0);
+      if (src[j] >= 0) bits |= htaps[r % kHalo];
+    }
+    bits = __reduce_or_sync(0xffffffffu, bits);
+    if (lane == 0) tw[twarp] = bits;
+  };
+  auto tap_mask = [&]() {
+    int taps = 0;
+#pragma unroll
+    for (int i = 0; i < 4 * S::kSplit; ++i) taps |= tw[i];
+    return taps;
+  };
+  // a dead group's output rows are zero
+  auto zero_group = [&](int g) {
+    uint4* o = reinterpret_cast<uint4*>(out + static_cast<size_t>(g) * 64 * CO);
+    for (int i = ttid; i < 8 * CO; i += S::kTeamThreads) o[i] = make_uint4(0, 0, 0, 0);
+  };
+  const int a_cell = lane % 16, a_koff = (lane / 16) * 8;
+  // shared address of this lane's A row of tap k
+  auto a_row = [&](int k) {
+    const int h = halo_of(a_cell, k / 9, (k / 3) % 3, k % 3);
+    return smem_addr(halo + (warp * kHalo + h) * S::kStride + a_koff);
+  };
+  uint32_t a[S::kNA][C / 16][4];         // A of the taps in flight
+  uint32_t em[2][N / 8], er[2][N / 8];   // the epilogue's mask and residual
+
+  if constexpr (S::kResident) {
+    // Each warpgroup walks its own groups g0, g0 + stride, ...: it gathers
+    // a group's halo, multiplies it and stores the epilogue, while the
+    // targets and mask of the next group and the epilogue operands of the
+    // group after load; the block's other warpgroups fill the SM meanwhile.
+    // A group whose 64 cells are all masked out is neither gathered nor
+    // multiplied: its rows are written as zeros.
+    const int stride = gridDim.x * S::kWG;
+    const int g0 = blockIdx.x * S::kWG + wg;
+    int src[S::kRows];
+    float m = 0.f;
+    if (g0 < n_groups) sources(g0, src, m);
+    bool live = g0 < n_groups && __any_sync(0xffffffffu, m != 0.f);
+    if (live) epi_load<CO, N>(g0 * kGroup + warp, 0, lane, mask, resid, em, er);
+    mbar_wait(bar0, 0);  // the weights have landed
+    for (int g = g0; g < n_groups; g += stride) {
+      const int g1 = g + stride;
+      if (live) {
+        gather(src);
+        cp_async_commit();
+      }
+      if (g1 < n_groups) sources(g1, src, m);
+      if (live) {
+        cp_async_wait_all();  // this thread's copies have landed
+        wg_sync(wg);         // ... and everyone's, with their tap masks
+        int taps = tap_mask();
+        float acc[N / 2];
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+        // two taps in flight: A of the next loads while the last multiplies
+        while (taps) {
+#pragma unroll
+          for (int i = 0; i < S::kNA; ++i) {
+            if (taps) {
+              const int k = __ffs(taps) - 1;
+              taps &= taps - 1;
+              tap_issue<C, CO, N>(acc, a[i], a_row(k), smem_addr(wsm + k * S::kTapElems));
+              wgmma_wait<S::kNA - 1>();
+            }
+          }
+        }
+        acc_done<N>(acc);
+        epi_store<CO, N>(acc, g * kGroup + warp, 0, lane, scale, shift, em, er, out, relu);
+        wg_sync(wg);  // the halo is free for the next group
+      } else {
+        zero_group(g);
+      }
+      live = g1 < n_groups && __any_sync(0xffffffffu, m != 0.f);
+      if (live) epi_load<CO, N>(g1 * kGroup + warp, 0, lane, mask, resid, em, er);
+    }
+  } else {
+    // Streamed weights. The block's teams take a group each per pass (at
+    // C = 128 the two warpgroups are one team, each with half of the output
+    // channels); every pass runs the 27 taps in order through a ring of
+    // kRing slots. The producer warp loads tap after tap into the ring
+    // (full[s]: the copy has landed); each consumer warp releases a slot
+    // once its wgmma on it is done (empty[s]: 4 kWG arrivals). Teams drift
+    // apart by up to the ring's depth, so one multiplies while another
+    // gathers or waits. A pass whose groups are all dead is skipped by
+    // everyone alike (the same mask test), so it streams no weights.
+    const int n_pass = (n_groups + S::kTeams - 1) / S::kTeams;
+    const uint32_t full0 = bar0, empty0 = bar0 + 8 * S::kRing;
+    auto pass_live = [&](int q) {
+      bool any = false;
+#pragma unroll
+      for (int t = 0; t < S::kTeams; ++t) {
+        const int g = q * S::kTeams + t;
+        if (g < n_groups) {
+          const size_t c0 = static_cast<size_t>(g) * 64 + lane;
+          any |= __bfloat162float(mask[c0 * CO]) != 0.f ||
+                 __bfloat162float(mask[(c0 + 32) * CO]) != 0.f;
+        }
+      }
+      return __any_sync(0xffffffffu, any);
+    };
+    if (wg == S::kWG) {  // the producer warp
+      uint32_t seq = 0;
+      for (int q = blockIdx.x; q < n_pass; q += gridDim.x) {
+        if (!pass_live(q)) continue;
+        for (int k = 0; k < 27; ++k, ++seq) {
+          const int slot = seq % S::kRing;
+          if (lane == 0) {
+            mbar_wait(empty0 + 8 * slot, ((seq / S::kRing) & 1) ^ 1);
+            mbar_expect_tx(full0 + 8 * slot, S::kTapBytes);
+            bulk_load(smem_addr(wsm + slot * S::kTapElems), wb + k * S::kTapElems,
+                      S::kTapBytes, full0 + 8 * slot);
+          }
+        }
+      }
+      return;
+    }
+    uint32_t seq = 0;  // taps consumed; slot seq % kRing
+    for (int q = blockIdx.x; q < n_pass; q += gridDim.x) {
+      const int g = q * S::kTeams + team;
+      if (!pass_live(q)) {
+        if (g < n_groups) zero_group(g);
+        continue;
+      }
+      int src[S::kRows];
+      float m = 0.f;
+      if (g < n_groups) sources(g, src, m);
+      const bool live = g < n_groups && __any_sync(0xffffffffu, m != 0.f);
+      if (live) {
+        gather(src);
+        cp_async_commit();
+        epi_load<CO, N>(g * kGroup + warp, n0, lane, mask, resid, em, er);
+        cp_async_wait_all();
+      } else if (g < n_groups) {
+        zero_group(g);
+      }
+      team_sync<S::kSplit>(wg);  // the halo and the tap masks are in place
+      const int taps = live ? tap_mask() : 0;
+      float acc[N / 2];
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+      // a tap's wgmma runs while the next slot is awaited and its A loads;
+      // the slot before is released once its wgmma is done
+      auto step = [&](int k, uint32_t (&ak)[C / 16][4]) {
+        const int slot = seq % S::kRing;
+        mbar_wait(full0 + 8 * slot, (seq / S::kRing) & 1);
+        if ((taps >> k) & 1) {
+          tap_issue<C, CO, N>(acc, ak, a_row(k), smem_addr(wsm + slot * S::kTapElems + n0 * 8));
+          wgmma_wait<1>();
+        } else {
+          wgmma_wait<0>();  // the other A buffer is free again, as after a tap
+        }
+        if (k > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((seq - 1) % S::kRing));
+        ++seq;
+      };
+      for (int k = 0; k < 27; k += 2) {
+        step(k, a[0]);
+        if (k + 1 < 27) step(k + 1, a[1]);
+      }
+      acc_done<N>(acc);
+      if (lane == 0) mbar_arrive(empty0 + 8 * ((seq - 1) % S::kRing));
+      if (live) epi_store<CO, N>(acc, g * kGroup + warp, n0, lane, scale, shift, em, er, out, relu);
+      team_sync<S::kSplit>(wg);  // every warp of the team is done with the halo
     }
   }
 }
@@ -286,42 +713,65 @@ plane_subm_fma(const float* __restrict__ state, const int* __restrict__ tgt,
   }
 }
 
-template <typename T, typename S, typename K>
-int launch(K kernel, const void* state, const void* tgt, const void* w, const void* scale,
-           const void* shift, const void* mask, const void* resid, void* out, int t1p,
-           int relu, cudaStream_t stream) {
-  if (t1p % S::kPlanes != 0) return -2;
+template <typename T, typename K>
+int launch(K kernel, int grid, int threads, size_t smem, const void* state, const void* tgt,
+           const void* w, const void* scale, const void* shift, const void* mask,
+           const void* resid, void* out, int t1p, int relu, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (grid > 0)
+    kernel<<<grid, threads, smem, stream>>>(
+        static_cast<const T*>(state), static_cast<const int*>(tgt), static_cast<const T*>(w),
+        static_cast<const float*>(scale), static_cast<const float*>(shift),
+        static_cast<const T*>(mask), static_cast<const T*>(resid), static_cast<T*>(out), t1p,
+        relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// persistent blocks: as many as fit the SMs at once, at most one a unit of work
+template <int C, int CO>
+int launch_wgmma(const void* state, const void* tgt, const void* w, const void* scale,
+                 const void* shift, const void* mask, const void* resid, void* out, int t1p,
+                 int relu, cudaStream_t stream) {
+  using S = WgShape<C, CO>;
+  auto kernel = plane_subm_wgmma<C, CO>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(S::kSmem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<t1p / S::kPlanes, kThreads, S::kSmem, stream>>>(
-      static_cast<const T*>(state), static_cast<const int*>(tgt), static_cast<const T*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(shift),
-      static_cast<const T*>(mask), static_cast<const T*>(resid), static_cast<T*>(out), t1p,
-      relu);
-  return static_cast<int>(cudaGetLastError());
+  int per_sm = 0, dev = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, S::kThreads, S::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int units = (t1p / kGroup + S::kTeams - 1) / S::kTeams;
+  const int grid = per_sm * sms < units ? per_sm * sms : units;
+  return launch<__nv_bfloat16>(kernel, grid, S::kThreads, S::kSmem, state, tgt, w, scale, shift,
+                               mask, resid, out, t1p, relu, stream);
 }
 
 }  // namespace
 
 // Launches on `stream`; returns the cudaGetLastError() code (0 = launched),
 // -1 for a (C, Co) pair the kernel is not built for, -2 for a T1p that is
-// not a whole number of blocks. dtype 0 = float32 state with w (27, C, Co);
-// dtype 1 = bfloat16 state with w transposed, (27, Co, C). resid may be null.
+// not a whole number of plan blocks. dtype 0 = float32 state with w
+// (27, C, Co); dtype 1 = bfloat16 state with w in wgmma's B layout
+// (plane_kernel.wgmma_weights). resid may be null.
 extern "C" int s2d_plane_subm(const void* state, const void* tgt, const void* w,
                               const void* scale, const void* shift, const void* mask,
                               const void* resid, void* out, int t1p, int c, int co,
                               int dtype, int relu, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define S2D_PLANE_CASE(CI, CO_)                                                          \
-  if (c == CI && co == CO_) {                                                            \
-    if (dtype == 1)                                                                      \
-      return launch<__nv_bfloat16, MmaShape<CI, CO_>>(plane_subm_mma<CI, CO_>, state,   \
-                                                      tgt, w, scale, shift, mask, resid, \
-                                                      out, t1p, relu, s);                \
-    return launch<float, FmaShape<CI, CO_>>(plane_subm_fma<CI, CO_>, state, tgt, w,      \
-                                            scale, shift, mask, resid, out, t1p, relu,  \
-                                            s);                                          \
+  if (t1p % kBlk != 0) return -2;
+#define S2D_PLANE_CASE(CI, CO_)                                                            \
+  if (c == CI && co == CO_) {                                                              \
+    if (dtype == 1)                                                                        \
+      return launch_wgmma<CI, CO_>(state, tgt, w, scale, shift, mask, resid, out, t1p,    \
+                                   relu, s);                                               \
+    using F = FmaShape<CI, CO_>;                                                           \
+    return launch<float>(plane_subm_fma<CI, CO_>, t1p / F::kPlanes, kThreads, F::kSmem,    \
+                         state, tgt, w, scale, shift, mask, resid, out, t1p, relu, s);     \
   }
   S2D_PLANE_CASE(16, 16)
   S2D_PLANE_CASE(32, 32)

@@ -35,7 +35,8 @@ from . import cuda_build
 
 SOURCE = os.path.join(cuda_build.CSRC, "gather_probes.cu")
 LIBRARY = os.path.join(cuda_build.BUILD_DIR, "libgather_probes.so")
-SLOTS = 16                 # run_gather: copies in flight per block
+LANES = 32                 # run_gather: issuing lanes a block, one slot each
+BARRIER_BYTES = 256        # run_gather: a block's mbarriers
 SMEM_LIMIT = 232448        # dynamic shared memory a Hopper block may use
 
 # kernel launches since the caller last reset them
@@ -163,12 +164,12 @@ def window_take_cuda(feat: torch.Tensor, local: torch.Tensor, blk: int, w: int) 
 
 
 def run_gather_cuda(feat: torch.Tensor, idx: torch.Tensor, run_len: int) -> torch.Tensor:
-    """Launch the run-gather kernel (B4c): one bulk copy per run, SLOTS in
-    flight per block, persistent blocks over every SM."""
+    """Launch the run-gather kernel (B4c): one bulk copy per run, issued by
+    every lane of one-warp blocks over every SM."""
     dev = _check_cuda_args("run_gather_cuda", feat, idx)
     v, c = feat.shape
-    if run_len < 1 or run_len > v or SLOTS * run_len * c * 4 > SMEM_LIMIT - 1024:
-        raise ValueError(f"run_len {run_len}: {SLOTS} runs of {run_len} x {c} float32 must fit "
+    if run_len < 1 or run_len > v or LANES * run_len * c * 4 > SMEM_LIMIT - BARRIER_BYTES - 1024:
+        raise ValueError(f"run_len {run_len}: {LANES} runs of {run_len} x {c} float32 must fit "
                          f"shared memory, and a run the table")
     out = torch.empty((idx.shape[0] * run_len, c), dtype=torch.float32, device=dev)
     _launch("run_gather", _library().s2d_run_gather, dev, feat.data_ptr(), idx.data_ptr(),

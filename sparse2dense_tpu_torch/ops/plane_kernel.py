@@ -47,6 +47,16 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
+def wgmma_weights(w: torch.Tensor) -> torch.Tensor:
+    """(27, C, Co) weights -> the B operand layout of the bf16 kernel's
+    ``wgmma`` (no swizzle, K-major): per tap, (C / 8, Co / 8) core matrices
+    of 8 output x 8 input channels, 128 contiguous bytes each, in a tensor
+    (27, C / 8, Co / 8, 8, 8). Weight (k, ci, co) lies at
+    [k, ci // 8, co // 8, co % 8, ci % 8]."""
+    k, c, co = w.shape
+    return w.reshape(k, c // 8, 8, co // 8, 8).permute(0, 1, 3, 4, 2).contiguous()
+
+
 def plane_subm_cuda(state: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor,
                     scale16: torch.Tensor, shift16: torch.Tensor, mask16: torch.Tensor,
                     residual: Optional[torch.Tensor] = None, relu: bool = True) -> torch.Tensor:
@@ -71,8 +81,8 @@ def plane_subm_cuda(state: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor,
     if t1p % BLK:
         raise ValueError(f"T1p must be a multiple of {BLK}, got {t1p}")
     dt = state.dtype
-    # the bf16 (tensor-core) kernel reads the weights as (27, Co, C)
-    wt = (w.to(dt).transpose(1, 2) if dt == torch.bfloat16 else w.to(dt)).contiguous()
+    # the bf16 (tensor-core) kernel reads the weights in wgmma's B layout
+    wt = wgmma_weights(w.to(dt)) if dt == torch.bfloat16 else w.to(dt).contiguous()
     cuda_build.check_tensor("state", state, dt, (t1p, 16 * c), dev)
     cuda_build.check_tensor("tgt", tgt, torch.int32, (t1p // BLK, 32, BLK), dev)
     cuda_build.check_tensor("scale16", scale16, torch.float32, (1, 16 * co), dev)

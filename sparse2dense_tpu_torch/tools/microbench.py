@@ -366,7 +366,7 @@ def bench_pallas_onehot(device, v=1 << 17, c=16, shapes=((256, 512), (512, 1024)
 
 
 def bench_pallas_dma(device, run_len=1, v=1 << 17, c=16):
-    """B4c: one bulk copy per run of ``run_len`` rows, 16 in flight a block."""
+    """B4c: one bulk copy per run of ``run_len`` rows, issued by every lane."""
     return [run_probe(run_gather_probe(device, run_len, v, c), device)]
 
 
