@@ -16,12 +16,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      (32), conv3 (64) and conv4 (128) of the same frame on the plane
      engine, in bfloat16 within one bf16 rounding step,
      2^-7*|p| + 1e-3*max|p| (the output is rounded to bf16 after float32
-     sums taken in another order), and in float32 within 1e-4 + 1e-4*|p|,
-     with the 16-row tiles the kernel multiplies when it skips a tap per
-     group of 4 planes against per plane; then, for each of the four
-     (C, Co) pairs built, in both types, on targets set to SENTINEL,
-     fully masked planes (whole groups of 4 and 8), a T1p whose last plan
-     block is mostly padding, and no residual with no ReLU;
+     sums taken in another order), and in float32 within 1e-4 + 1e-4*|p|;
+     then, for each of the four (C, Co) pairs built, in both types, on
+     targets set to SENTINEL, fully masked planes (whole groups of 4 and
+     8), a T1p whose last plan block is mostly padding, and no residual
+     with no ReLU;
    - the tile subm conv on the tile states, masks and plans of conv1 (16,
      tz 8), conv2 (32, tz 4), conv3 (64, tz 2) and conv4 (128, tz 6) of the
      same frame on the tile engine with every stage on tiles, at
@@ -241,26 +240,6 @@ def _window_rows(batch, grid, gen):
     return rows
 
 
-def _plane_stage_data(batch, model):
-    """(state, mask, sets, grid, plan) of conv2..conv4 of the plane flagship
-    frame: the stage outputs of one backbone forward, with their plans."""
-    import torch
-
-    from sparse2dense_tpu_torch.ops import plane_conv as PK
-
-    bb = model.backbone
-    with torch.inference_mode():
-        feats = model.reader(batch["voxels"], batch["num_points"])
-        _, multi_scale, _ = bb(feats, batch["coordinates"])
-    out = []
-    for k, (name, _) in enumerate(PLANE_STAGES):
-        (state, mask, sets), grid = multi_scale[name]
-        plan = PK.make_plane_plan_batched(sets, PK.t1p_of(bb.plane_budgets[k]),
-                                          *bb.plane_wins[k])
-        out.append((state.clone(), mask.clone(), sets, grid, plan))
-    return out
-
-
 def _densify_planes(state, ts, grid):
     """(T1p, 16C) plane rows -> dense (1, C, D, H, W) for the library call."""
     import torch
@@ -293,8 +272,9 @@ def _compare(got, want):
     return err, want, int((err > tol).sum())
 
 
-def _plane_rows(stages, gen):
-    """Plane subm kernel against its plain version at conv2..conv4."""
+def _plane_rows(stages, state16, gen):
+    """Plane subm kernel against its plain version at conv2..conv4, and at
+    C = 16 on conv2's plan with state16."""
     import torch
     import torch.nn.functional as F
 
@@ -302,11 +282,6 @@ def _plane_rows(stages, gen):
     from sparse2dense_tpu_torch.ops import plane_kernel as PKK
 
     rows = []
-    # the three flagship shapes, and C = 16 (built, not on the main path) on
-    # conv2's plan with a random masked state
-    state2, mask2 = stages[0][:2]
-    state16 = (torch.randn((state2.shape[0], 16, 16), device="cuda", generator=gen)
-               * mask2[..., None]).reshape(-1, 256).to(state2.dtype)
     cases = [(name, c, st, True) for (name, c), st in zip(PLANE_STAGES, stages)]
     cases.append(("conv2 plan", 16, (state16,) + stages[0][1:], False))
     for name, c, (state, mask, sets, grid, plan), timed in cases:
@@ -338,7 +313,7 @@ def _plane_rows(stages, gen):
                     torch.zeros((1, 16), device="cuda"), mask.float(), relu=False).sum())
                 flops = 2.0 * hits * c * c
                 row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
-                row.update(hits=hits, bytes=nbytes, flops=flops, **_tap_tiles(mask, plan.tgt))
+                row.update(hits=hits, bytes=nbytes, flops=flops)
                 row["ms"] = cuda_ms(lambda: PKK.plane_subm_cuda(*args, residual=st), reps=10)
                 row["plain_ms"] = cuda_ms(lambda: PK.plane_subm_plain(*args, residual=st),
                                           reps=2, warmup=1)
@@ -354,30 +329,7 @@ def _plane_rows(stages, gen):
     return rows
 
 
-def _tap_tiles(mask, tgt):
-    """(plane, tap) tiles of 16 rows a kernel multiplies, on this frame's
-    mask and plan: skipping a tap per plane (16 rows, mma.sync) or per group
-    of 4 planes (64 rows, wgmma), against all 27 taps of every live plane.
-    A tap is live where one of its 16 source cells lies in a present plane;
-    a plane (group) is live where one of its cells (of its 64) is unmasked."""
-    import torch
-
-    from sparse2dense_tpu_torch.ops import plane_conv as PK
-
-    t1p = mask.shape[0]
-    tg = tgt.permute(1, 0, 2).reshape(32, t1p)
-    present = torch.cat([(tg[:27] >= 0) & (tg[:27] < t1p),
-                         torch.ones((1, t1p), dtype=torch.bool, device=tg.device)])
-    rows = torch.tensor(PK.TAP_ROWS, device=tg.device)                  # (27, 16)
-    tap = present[rows].any(1)                                          # (27, T1p)
-    plane = (mask != 0).any(1)
-    group = plane.view(-1, 4).any(1)
-    return dict(tap_tiles_full=27 * int(plane.sum()),
-                tap_tiles_plane=int((tap & plane).sum()),
-                tap_tiles_group=4 * int((tap.view(27, -1, 4).any(2) & group).sum()))
-
-
-def _plane_edge_rows(stages, gen):
+def _plane_edge_rows(stages, state16, gen):
     """The plane subm kernel against its plain version, for every (C, Co)
     pair built and in bfloat16 and float32, on the inputs where skipping
     dead groups and taps could go wrong: targets set to SENTINEL (a seeded
@@ -390,9 +342,7 @@ def _plane_edge_rows(stages, gen):
     from sparse2dense_tpu_torch.ops import plane_conv as PK
     from sparse2dense_tpu_torch.ops import plane_kernel as PKK
 
-    state2, mask2, _, _, plan2 = stages[0]
-    state16 = (torch.randn((state2.shape[0], 16, 16), device="cuda", generator=gen)
-               * mask2[..., None]).reshape(-1, 256).to(state2.dtype)
+    _, mask2, _, _, plan2 = stages[0]
     bases = [(16, state16, mask2, plan2.tgt)] + [
         (c, st[0], st[1], st[4].tgt) for (_, c), st in zip(PLANE_STAGES, stages)]
     rows = []
@@ -538,6 +488,7 @@ def phase_kernels():
     from sparse2dense_tpu_torch.ops import plane_kernel as PKK
     from sparse2dense_tpu_torch.ops import tile_block_kernel as TBK
     from sparse2dense_tpu_torch.ops import window_kernel as WK
+    from sparse2dense_tpu_torch.tools.bench_plane_subm import plane_stage_data
     from sparse2dense_tpu_torch.utils.config import FRAME_BUDGETS, TILE_FRAME_BUDGETS
 
     t0 = time.perf_counter()
@@ -548,11 +499,16 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(1)
     cfg, batch, model = _flagship("plane", FRAME_BUDGETS)
     rows = _window_rows(batch, sparse_shape_from_voxel_cfg(cfg["voxel_generator"]), gen)
-    stages = _plane_stage_data(batch, model)
+    stages = plane_stage_data(batch, model)
     del model
-    rows += _plane_rows(stages, gen)
+    # C = 16 (built, not on the main path): conv2's plan with a random
+    # masked state
+    state2, mask2 = stages[0][:2]
+    state16 = (torch.randn((state2.shape[0], 16, 16), device="cuda", generator=gen)
+               * mask2[..., None]).reshape(-1, 256).to(state2.dtype)
+    rows += _plane_rows(stages, state16, gen)
     torch.cuda.empty_cache()
-    rows += _plane_edge_rows(stages, gen)
+    rows += _plane_edge_rows(stages, state16, gen)
     del stages
     torch.cuda.empty_cache()
     _, _, model = _flagship("tile", TILE_FRAME_BUDGETS, dense_from_stage=99)

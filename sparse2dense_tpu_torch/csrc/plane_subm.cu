@@ -44,7 +44,8 @@
 //   Weights, by width (L2 reads a conv on the flagship frame):
 //   * C <= 32: all 27 taps stay in shared memory for the block's life (14 /
 //     55 KB, one bulk copy): ~7 MB a conv. Four warpgroups a block each walk
-//     their own groups; the targets and mask of a warpgroup's next group and
+//     their own groups with a halo of their own, so one gathers while the
+//     others multiply; the targets and mask of a warpgroup's next group and
 //     its epilogue operands load while it multiplies.
 //   * C = 64 and 128 (221 / 885 KB): taps stream through a ring of shared
 //     slots (8 of 8 KB, 3 of 32 KB), filled by a producer warp with bulk
@@ -52,10 +53,27 @@
 //     wgmma is done. Two teams share each tap (two groups at C = 64; at
 //     C = 128 one group, each warpgroup with half of the output channels),
 //     so a conv reads 221 KB per 8 planes at C = 64 (~0.93 GB over the live
-//     passes) and 885 KB per 4 planes at C = 128 (~1.74 GB). Variants
-//     tried on the H100 on copies of this source and dropped: halos of 32
-//     input channels with four teams (half those reads) were slower at both
-//     widths; a deeper ring was no faster.
+//     passes) and 885 KB per 4 planes at C = 128 (~1.74 GB). At C = 64 the
+//     two teams, a halo each, drift apart by up to the ring's depth, so one
+//     multiplies while the other gathers. At C = 128 the block (one a SM:
+//     a 117 KB halo beside the 96 KB ring) has one team and one halo, so it
+//     gathers with its tensor cores idle: a second halo does not fit.
+//   Variants measured on the H100 on copies of this source
+//   (tools/bench_plane_subm.py; times in PERF.md) and left out:
+//   * a double-buffered halo: each team gathers the next chunk of half its
+//     input channels (all 16 at C = 16) into a second buffer while it
+//     multiplies the current one, the ring carrying half-tap slices. It
+//     fits every width and was slower at each: every tap becomes two wgmma
+//     groups and two ring steps, each waited on, and that costs more than
+//     the gather it hides. Two warpgroups with two whole halos each at
+//     C = 32 were slower still: independent warpgroups hide the gather
+//     better than a second buffer.
+//   * an mma.sync core (A and B by ldmatrix, a tap skip per plane) at
+//     C <= 32: no faster; halos of 32 input channels with four teams at
+//     C >= 64 (half the weight reads): slower; a deeper ring, a fifth
+//     warpgroup at C = 32: no faster.
+//   The B layout has no swizzle: every 8 x 8 core matrix is 128 contiguous
+//   bytes, so the rows a wgmma reads at once span all banks.
 // - float32 state (the tiny agreement runs): CUDA-core FMAs, a thread per
 //   (plane, cell) row and 16 output channels, blocks of P planes.
 // Halo rows are padded by 16 B so the lanes of an ldmatrix spread over the
@@ -75,6 +93,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "async_copy.cuh"
 
 namespace {
 
@@ -104,55 +124,9 @@ __device__ __forceinline__ int halo_of(int cell, int kz, int ky, int kx) {
 }
 
 // ---------------------------------------------------------------------------
-// asynchronous copies, barriers and wgmma
+// 16-byte asynchronous copies, named barriers and wgmma (bulk copies and
+// mbarriers: async_copy.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// Make the barriers' initialisation visible to the async proxy and to the
-// other threads (a __syncthreads follows).
-__device__ __forceinline__ void fence_barrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// Bulk copy global -> shared of `bytes` (a multiple of 16), completed on `bar`.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-      "[%3];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
-      : "memory");
-}
 
 // 16 bytes global -> shared; src_bytes 0 writes zeros (an absent source).
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
@@ -548,10 +522,12 @@ plane_subm_wgmma(const __nv_bfloat16* __restrict__ state, const int* __restrict_
     // channels); every pass runs the 27 taps in order through a ring of
     // kRing slots. The producer warp loads tap after tap into the ring
     // (full[s]: the copy has landed); each consumer warp releases a slot
-    // once its wgmma on it is done (empty[s]: 4 kWG arrivals). Teams drift
-    // apart by up to the ring's depth, so one multiplies while another
-    // gathers or waits. A pass whose groups are all dead is skipped by
-    // everyone alike (the same mask test), so it streams no weights.
+    // once its wgmma on it is done (empty[s]: 4 kWG arrivals). At C = 64
+    // the two teams drift apart by up to the ring's depth, so one
+    // multiplies while the other gathers or waits; at C = 128 the block's
+    // one team gathers with the tensor cores idle. A pass whose groups are
+    // all dead is skipped by everyone alike (the same mask test), so it
+    // streams no weights.
     const int n_pass = (n_groups + S::kTeams - 1) / S::kTeams;
     const uint32_t full0 = bar0, empty0 = bar0 + 8 * S::kRing;
     auto pass_live = [&](int q) {
@@ -713,13 +689,18 @@ plane_subm_fma(const float* __restrict__ state, const int* __restrict__ tgt,
   }
 }
 
+// allow `smem` bytes of dynamic shared memory to the kernel
+template <typename K>
+int opt_in_smem(K kernel, size_t smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+}
+
+// the kernel's shared memory allowed (opt_in_smem) first
 template <typename T, typename K>
 int launch(K kernel, int grid, int threads, size_t smem, const void* state, const void* tgt,
            const void* w, const void* scale, const void* shift, const void* mask,
            const void* resid, void* out, int t1p, int relu, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
   if (grid > 0)
     kernel<<<grid, threads, smem, stream>>>(
         static_cast<const T*>(state), static_cast<const int*>(tgt), static_cast<const T*>(w),
@@ -729,18 +710,18 @@ int launch(K kernel, int grid, int threads, size_t smem, const void* state, cons
   return static_cast<int>(cudaGetLastError());
 }
 
-// persistent blocks: as many as fit the SMs at once, at most one a unit of work
+// persistent blocks: as many as fit the SMs at once, at most one a unit of
+// work (the occupancy query needs the kernel's shared memory allowed first)
 template <int C, int CO>
 int launch_wgmma(const void* state, const void* tgt, const void* w, const void* scale,
                  const void* shift, const void* mask, const void* resid, void* out, int t1p,
                  int relu, cudaStream_t stream) {
   using S = WgShape<C, CO>;
   auto kernel = plane_subm_wgmma<C, CO>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(S::kSmem));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (int e = opt_in_smem(kernel, S::kSmem)) return e;
   int per_sm = 0, dev = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, S::kThreads, S::kSmem);
+  cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, S::kThreads, S::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaGetDevice(&dev);
@@ -770,6 +751,7 @@ extern "C" int s2d_plane_subm(const void* state, const void* tgt, const void* w,
       return launch_wgmma<CI, CO_>(state, tgt, w, scale, shift, mask, resid, out, t1p,    \
                                    relu, s);                                               \
     using F = FmaShape<CI, CO_>;                                                           \
+    if (int e = opt_in_smem(plane_subm_fma<CI, CO_>, F::kSmem)) return e;                  \
     return launch<float>(plane_subm_fma<CI, CO_>, t1p / F::kPlanes, kThreads, F::kSmem,    \
                          state, tgt, w, scale, shift, mask, resid, out, t1p, relu, s);     \
   }

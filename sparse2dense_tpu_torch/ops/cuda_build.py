@@ -1,9 +1,11 @@
 """Build of the port's CUDA kernels: each ``csrc/*.cu`` source becomes one
 shared library with a plain C interface, compiled by ``nvcc`` for ``sm_90a``
-into ``_build/`` (git-ignored) at first use and rebuilt when the source is
-newer. The libraries are loaded with ctypes by their wrappers."""
+into ``_build/`` (git-ignored) at first use and rebuilt when the source, or
+a header of ``csrc/`` it may include, is newer. The libraries are loaded
+with ctypes by their wrappers."""
 from __future__ import annotations
 
+import glob
 import os
 import shutil
 import subprocess
@@ -23,7 +25,10 @@ def _nvcc() -> str:
 
 
 def _stale(source: str, library: str) -> bool:
-    return not (os.path.exists(library) and os.path.getmtime(library) >= os.path.getmtime(source))
+    if not os.path.exists(library):
+        return True
+    newest = max(os.path.getmtime(f) for f in [source] + glob.glob(os.path.join(CSRC, "*.cuh")))
+    return os.path.getmtime(library) < newest
 
 
 def build_all(pairs: Sequence[Tuple[str, str]]) -> Dict[str, str]:
@@ -37,7 +42,7 @@ def build_all(pairs: Sequence[Tuple[str, str]]) -> Dict[str, str]:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{library}.{os.getpid()}.tmp"
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, source]
+               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-I", CSRC, "-o", tmp, source]
         jobs.append((library, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                     stderr=subprocess.PIPE, text=True)))
     logs, errors = {}, []

@@ -35,15 +35,19 @@ def build() -> str:
     return cuda_build.build(SOURCE, LIBRARY)
 
 
+def load(library: str) -> ctypes.CDLL:
+    """A built kernel library, with the C interface's types declared."""
+    lib = ctypes.CDLL(library)
+    lib.s2d_plane_subm.restype = ctypes.c_int
+    lib.s2d_plane_subm.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         build()
-        lib = ctypes.CDLL(LIBRARY)
-        lib.s2d_plane_subm.restype = ctypes.c_int
-        lib.s2d_plane_subm.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-        _lib = lib
+        _lib = load(LIBRARY)
     return _lib
 
 
