@@ -11,7 +11,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    synthetic Waymo frame (150k voxels on the 41x1504x1504 grid):
    - the window pass on the window plans of conv_input 5->16, conv1 16->16,
      the strided conv2_down 16->32 (V_out=320000) and a (3,1,1) z-only
-     strided conv, within 1e-4 + 1e-4*|p| (summation order only);
+     strided conv, within 1e-4 + 1e-4*|p| (summation order only); then, on
+     the frame's first 30,037 rows, a plan with dy groups left to the
+     residual pass (GATE), windows clipped at the end of V_in, all-padding
+     blocks, the z-only plan and Cin 5;
    - the plane subm conv on the plane states, masks and plans of conv2
      (32), conv3 (64) and conv4 (128) of the same frame on the plane
      engine, in bfloat16 within one bf16 rounding step,
@@ -27,9 +30,14 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      ``utils.config.TILE_FRAME_BUDGETS``, with the same tolerances, and on
      conv1's plan at the reference's default window of 256 tiles, which
      misses targets: the kernel leaves out exactly the taps the plan drops;
-   and times kernel, plain version and, for the plane and tile convs, the
-   bf16 cuDNN ``F.conv3d`` on the densified grid (a yardstick the port never
-   calls);
+     then, for each of the four (C, Co) pairs at tz 8, 4, 2 and 6, in both
+     types, on targets set to SENTINEL, masked planes (groups of 4, single
+     planes, columns whose only live plane is z = 0 or z = tz - 1), a padded
+     last plan block, and no residual with no ReLU;
+   and times kernel (L2-warm: back to back, queued behind a sleep kernel;
+   L2-cold: a 256 MB buffer written before each call), plain version and
+   the layer's bf16 cuDNN ``F.conv3d`` on the densified grid (a yardstick
+   the port never calls);
 3. gather probes: with the launch counts set to 0, the B4 suites of
    ``tools/microbench.py`` through their functions (``pallas_take``,
    ``pallas_onehot``, ``pallas_dma``, ``pallas_run``) at the reference's
@@ -83,11 +91,13 @@ TOL_ABS, TOL_REL = 1e-4, 1e-4  # float32: summation order only
 BF16_STEP = 2.0 ** -7          # one bf16 rounding step, relative
 BF16_FLOOR = 1e-3              # times max|p|: outputs near zero
 PLANE_STAGES = (("conv2", 32), ("conv3", 64), ("conv4", 128))
-# (stage, channels, launches a frame on the tile main path, dense_from_stage 2)
+# (stage, channels, launches a frame on the tile main path, dense_from_stage 2):
+# sparse2dense_tpu_torch/tools/bench_tile_subm.py TILE_STAGES
 TILE_STAGES = (("conv1", 16, 5), ("conv2", 32, 4), ("conv3", 64, 0), ("conv4", 128, 0))
 # launches a frame of (window_pass, plane_subm, tile_subm) per engine
 EXPECTED_LAUNCHES = {"window": (6, 0, 0), "plane": (6, 12, 0), "tile": (0, 0, 9)}
 WARMUP_FRAMES, TIMED_FRAMES = 3, 8   # a frame's time still falls over its first ~3
+HOLD_CYCLES = 20_000_000             # ~10 ms of sleep kernel while the host queues the calls
 
 
 @contextlib.contextmanager
@@ -105,12 +115,15 @@ def no_tf32():
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Device ms per call of ``fn``, L2-warm: ``reps`` calls back to back,
+    queued behind a sleep kernel so that the host's issue is not timed."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -182,34 +195,16 @@ def _hits(plan, ksize):
 def _window_rows(batch, grid, gen):
     """Window pass against its plain version at the flagship plans."""
     import torch
+    import torch.nn.functional as F
 
     from sparse2dense_tpu_torch.ops import window_conv as WC
     from sparse2dense_tpu_torch.ops import window_kernel as WK
-    from sparse2dense_tpu_torch.ops.sparse_conv import conv_out_grid
+    from sparse2dense_tpu_torch.tools.bench_window_pass import window_cases
+    from sparse2dense_tpu_torch.tools.microbench import timed_cold
 
-    vfe = (batch["voxels"].sum(-2) / batch["num_points"].clamp(min=1)[..., None])[0]
-    feats5, coords, lin = WC.sort_rows(vfe, batch["coordinates"][0], grid)
-    subm = WC.make_subm_plan_presorted(lin, coords, grid, window=384)
-    valid = (lin < WC.MISS)[:, None]
-    feats16 = torch.randn(lin.shape[0], 16, device="cuda", generator=gen) * valid
-
-    def strided(stride, pad, ksize, budget):
-        g_out = conv_out_grid(grid, stride, pad, ksize)
-        oc, ol = WC.downsample_active_set_yxz(coords, coords[:, 0] >= 0, grid, g_out,
-                                              stride, pad, ksize, budget)
-        return WC.make_strided_plan(lin, ol, oc, grid, g_out, stride, pad, ksize,
-                                    window=384, resid_budget=16384)
-
-    cases = [  # (name, plan, features, cin, cout, ksize, launches per frame)
-        ("conv_input 5->16", subm, feats5, 5, 16, (3, 3, 3), 1),
-        ("conv1 16->16", subm, feats16, 16, 16, (3, 3, 3), 4),
-        ("conv2_down 16->32", strided((2, 2, 2), (1, 1, 1), (3, 3, 3), 320000),
-         feats16, 16, 32, (3, 3, 3), 1),
-        ("z-only (3,1,1) 16->16", strided((2, 1, 1), (0, 0, 0), (3, 1, 1), 300000),
-         feats16, 16, 16, (3, 1, 1), 0),
-    ]
+    cases, feats5, feats16, coords, lin = window_cases(batch, grid, gen)
     rows = []
-    for name, plan, f, cin, cout, ksize, per_frame in cases:
+    for name, plan, f, cin, cout, ksize, per_frame, stride, pad in cases:
         w = torch.randn((cout, cin) + ksize, device="cuda", generator=gen) * 0.2
         wd = WC.taps_zyx_to_dyx(w).to(torch.bfloat16)
         fb = f.to(torch.bfloat16).contiguous()
@@ -219,6 +214,8 @@ def _window_rows(batch, grid, gen):
         err = (got - want).abs()
         bad = int((err > TOL_ABS + TOL_REL * want.abs()).sum())
         ms = cuda_ms(lambda: WK.window_pass_cuda(fb, plan, wd, ksize), reps=20)
+        cold_ms = timed_cold(lambda i: WK.window_pass_cuda(fb, plan, wd, ksize),
+                             torch.device("cuda")) * 1e3
         plain_ms = cuda_ms(lambda: WC.window_pass_plain(fb.float(), plan, wd.float()),
                            reps=3, warmup=1)
         v_in, vo, nb = plan.lin.shape[0], plan.out_lin.shape[0], plan.ws.shape[0]
@@ -227,15 +224,110 @@ def _window_rows(batch, grid, gen):
         hits = _hits(plan, ksize)
         flops = 2.0 * hits * cin * cout
         bound_ms, bound_by = bound(nbytes, flops)
+        # the layer as one dense bf16 conv3d on the densified grid (a
+        # yardstick the port never calls)
+        dense = _densify_rows(fb, coords, grid)
+        w5 = w.to(torch.bfloat16)
+        library_ms = cuda_ms(lambda: F.conv3d(dense, w5, stride=stride, padding=pad), reps=5)
+        del dense
         row = dict(kernel="window_pass", case=name, v_in=v_in, v_out=vo,
                    n_resid=int(plan.n_resid), hits=hits, max_abs_err=float(err.max()),
-                   n_bad=bad, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bytes=nbytes,
-                   flops=flops, bound_by=bound_by, library_ms=None, per_frame=per_frame)
+                   n_bad=bad, ms=ms, cold_ms=cold_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bytes=nbytes, flops=flops, bound_by=bound_by, library_ms=library_ms,
+                   per_frame=per_frame)
         print("[kernels] " + json.dumps(row), flush=True)
         if bad:
             raise AssertionError(f"{name}: {bad} outputs beyond {TOL_ABS} + {TOL_REL}*|p|")
         if int(plan.n_resid) > plan.resid_rows.shape[0]:
             raise AssertionError(f"{name}: residual rows over budget")
+        rows.append(row)
+    torch.cuda.empty_cache()
+    return rows + _window_edge_rows(feats5, feats16, coords, lin, grid, gen)
+
+
+def _densify_rows(feats, coords, grid):
+    """(V, C) rows at zyx coords (-1: padding) -> dense (1, C, D, H, W)."""
+    import torch
+
+    d, h, w = grid
+    z, y, x = coords.long().unbind(-1)
+    ok = (z >= 0)[:, None]
+    lin = torch.where(ok[:, 0], (z * h + y) * w + x, d * h * w)
+    flat = feats.new_zeros((d * h * w + 1, feats.shape[1]))
+    flat[lin] = feats * ok
+    return flat[:-1].reshape(d, h, w, -1).permute(3, 0, 1, 2)[None].contiguous()
+
+
+def _window_edge_rows(feats5, feats16, coords, lin, grid, gen):
+    """The window pass against its plain version where its unit skipping,
+    window staging and search could go wrong, on the first 30,037 sorted
+    rows of the frame (V_in not a whole number of plan blocks): a subm plan
+    with a window of 128 (dy groups left to the residual pass: GATE rows
+    in the kernel's blocks), a subm plan whose last windows are clipped at
+    the end of V_in, a strided plan with three times the output budget it
+    needs (all-padding blocks), the z-only (3,1,1) plan, and Cin 5 on the
+    strided and z-only plans."""
+    import torch
+
+    from sparse2dense_tpu_torch.ops import window_conv as WC
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+    from sparse2dense_tpu_torch.ops.sparse_conv import conv_out_grid
+
+    n = 30037
+    f5, f16, cc, ll = feats5[:n], feats16[:n], coords[:n], lin[:n]
+    active = int((ll < WC.MISS).sum())
+
+    def strided(stride, pad, ksize, budget):
+        g_out = conv_out_grid(grid, stride, pad, ksize)
+        oc, ol = WC.downsample_active_set_yxz(cc, cc[:, 0] >= 0, grid, g_out, stride, pad,
+                                              ksize, budget)
+        return WC.make_strided_plan(ll, ol, oc, grid, g_out, stride, pad, ksize, window=384,
+                                    resid_budget=n)
+
+    down = ((2, 2, 2), (1, 1, 1), (3, 3, 3))
+    n_down = int((WC.downsample_active_set_yxz(
+        cc, cc[:, 0] >= 0, grid, conv_out_grid(grid, *down), *down, 3 * n)[1] < WC.MISS).sum())
+    cases = [  # (name, plan, features, cout, ksize)
+        ("residual rows (window 128) 16->16",
+         WC.make_subm_plan_presorted(ll, cc, grid, window=128, resid_budget=n), f16, 16,
+         (3, 3, 3)),
+        ("window clipped at the end of V_in 5->16",
+         WC.make_subm_plan_presorted(ll, cc, grid, window=384, resid_budget=n), f5, 16,
+         (3, 3, 3)),
+        ("all-padding blocks (budget 3x) 16->32", strided(*down, 3 * n_down), f16, 32, (3, 3, 3)),
+        ("z-only (3,1,1) 16->16", strided((2, 1, 1), (0, 0, 0), (3, 1, 1), n), f16, 16,
+         (3, 1, 1)),
+        ("Cin 5 strided 5->32", strided(*down, n_down + 200), f5, 32, (3, 3, 3)),
+        ("Cin 5 z-only (3,1,1) 5->16", strided((2, 1, 1), (0, 0, 0), (3, 1, 1), n), f5, 16,
+         (3, 1, 1)),
+    ]
+    rows = []
+    for name, plan, f, cout, ksize in cases:
+        cin = f.shape[1]
+        w = torch.randn((cout, cin) + ksize, device="cuda", generator=gen) * 0.2
+        wd = WC.taps_zyx_to_dyx(w).to(torch.bfloat16)
+        fb = f.to(torch.bfloat16).contiguous()
+        got = WK.window_pass_cuda(fb, plan, wd, ksize)
+        want = WC.window_pass_plain(fb.float(), plan, wd.float())
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        bad = int((err > TOL_ABS + TOL_REL * want.abs()).sum())
+        kb = plan.kbase.view(-1, 128, 3)
+        gate = kb == WC.GATE
+        v_in, window = plan.lin.shape[0], plan.window
+        start = torch.minimum(plan.ws // 128, torch.full_like(plan.ws, (v_in - window) // 128))
+        row = dict(kernel="window_pass", case=f"edge {name}", v_in=v_in, active_in=active,
+                   v_out=plan.out_lin.shape[0], window=window, n_resid=int(plan.n_resid),
+                   gate_groups=int((gate.all(1) & ~gate.all(1).all(1, keepdim=True)).sum()),
+                   blocks_all_gate=int(gate.all(1).all(1).sum()),
+                   windows_at_the_end=int(((start == (v_in - window) // 128)
+                                           & ~gate.all(1)).sum()),
+                   max_abs_err=float(err.max()), max_abs_ref=float(want.abs().max()), n_bad=bad,
+                   per_frame=0)
+        print("[kernels] " + json.dumps(row), flush=True)
+        if bad:
+            raise AssertionError(f"window {row['case']}: {bad} outputs beyond {TOL_ABS} + "
+                                 f"{TOL_REL}*|p|")
         rows.append(row)
     return rows
 
@@ -280,6 +372,7 @@ def _plane_rows(stages, state16, gen):
 
     from sparse2dense_tpu_torch.ops import plane_conv as PK
     from sparse2dense_tpu_torch.ops import plane_kernel as PKK
+    from sparse2dense_tpu_torch.tools.microbench import timed_cold
 
     rows = []
     cases = [(name, c, st, True) for (name, c), st in zip(PLANE_STAGES, stages)]
@@ -315,6 +408,8 @@ def _plane_rows(stages, state16, gen):
                 row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
                 row.update(hits=hits, bytes=nbytes, flops=flops)
                 row["ms"] = cuda_ms(lambda: PKK.plane_subm_cuda(*args, residual=st), reps=10)
+                row["cold_ms"] = timed_cold(lambda i: PKK.plane_subm_cuda(*args, residual=st),
+                                            torch.device("cuda")) * 1e3
                 row["plain_ms"] = cuda_ms(lambda: PK.plane_subm_plain(*args, residual=st),
                                           reps=2, warmup=1)
                 dense = _densify_planes(st, sets[0], grid)
@@ -383,30 +478,6 @@ def _plane_edge_rows(stages, state16, gen):
     return rows
 
 
-def _tile_stage_data(batch, model):
-    """(state, mask, sets, grid, plan) of conv1..conv4 of the tile flagship
-    frame with every stage on tiles: the stage outputs of one backbone
-    forward, in the tile state layout, with their plans. conv1 and conv2 are
-    the same computation as on the main path (dense_from_stage 2)."""
-    import torch
-
-    from sparse2dense_tpu_torch.ops import tile_kernel as TKK
-
-    bb = model.backbone
-    with torch.inference_mode():
-        feats = model.reader(batch["voxels"], batch["num_points"])
-        _, multi_scale, _ = bb(feats, batch["coordinates"])
-    out = []
-    for k, (name, _, _) in enumerate(TILE_STAGES):
-        (p, mk, sets), grid = multi_scale[name]
-        t1p = TKK.t1p_of(bb.tile_budgets[k])
-        state = TKK.planes_to_state_batched(p, bb.tile_tz[k], t1p)
-        mask = TKK.planes_to_state_batched(mk, bb.tile_tz[k], t1p)
-        plan = TKK.make_block_plan_batched(sets, t1p, *bb.tile_wins[k])
-        out.append((state, mask, sets, grid, plan))
-    return out
-
-
 def _tile_rows(stages, gen):
     """Tile subm kernel against its plain version at conv1..conv4, and on
     conv1's plan at the reference's default window (misses)."""
@@ -416,6 +487,7 @@ def _tile_rows(stages, gen):
     from sparse2dense_tpu_torch.ops import tile_block_kernel as TBK
     from sparse2dense_tpu_torch.ops import tile_kernel as TKK
     from sparse2dense_tpu_torch.ops import tile_planes as TP
+    from sparse2dense_tpu_torch.tools.microbench import timed_cold
 
     rows = []
     state1, mask1, sets1, grid1, _ = stages[0]
@@ -459,6 +531,8 @@ def _tile_rows(stages, gen):
                 row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
                 row.update(hits=hits, bytes=nbytes, flops=flops)
                 row["ms"] = cuda_ms(lambda: TBK.tile_subm_cuda(*args, **kw), reps=10)
+                row["cold_ms"] = timed_cold(lambda i: TBK.tile_subm_cuda(*args, **kw),
+                                            torch.device("cuda")) * 1e3
                 row["plain_ms"] = cuda_ms(lambda: TKK.tile_subm_plain(*args, **kw),
                                           reps=2, warmup=1)
                 b = len(sets)
@@ -477,6 +551,68 @@ def _tile_rows(stages, gen):
     return rows
 
 
+def _tile_edge_rows(stages, gen):
+    """The tile subm kernel against its plain version, for every (C, Co)
+    pair built at each of the tile stages' depths tz = 8, 4, 2 and 6, in
+    bfloat16 and float32, where grouping live planes and skipping taps
+    could go wrong. Base data: the first 1,024 tile rows of the plan of the
+    stage of that width (targets past them read zero) with a seeded state
+    and mask (a plane live with probability 0.35, a live plane's cells with
+    0.5); cases: a third of the targets set to SENTINEL; planes masked in
+    groups of 4 (z-major) and singly, and columns whose only live plane is
+    z = 0 or z = tz - 1; a last plan block holding 10 tiles; no residual
+    and no ReLU."""
+    import torch
+
+    from sparse2dense_tpu_torch.ops import tile_block_kernel as TBK
+    from sparse2dense_tpu_torch.ops import tile_kernel as TKK
+
+    t1p = 1024
+    rows = []
+    for (_, c, _), (_, _, _, _, plan) in zip(TILE_STAGES, stages):
+        tgt = plan.tgt[:t1p // 128].contiguous()
+        w = torch.randn((27, c, c), device="cuda", generator=gen) * (27 * c) ** -0.5
+        scale = 1 + 0.1 * torch.randn((1, 16 * c), device="cuda", generator=gen)
+        shift = 0.1 * torch.randn((1, 16 * c), device="cuda", generator=gen)
+        for tz in (8, 4, 2, 6):
+            live = torch.rand((tz, t1p, 1), device="cuda", generator=gen) < 0.35
+            mask = ((torch.rand((tz, t1p, 16), device="cuda", generator=gen) < 0.5) & live).float()
+            state = (torch.randn((tz, t1p, 16, c), device="cuda", generator=gen)
+                     * mask[..., None]).reshape(tz, t1p, 16 * c)
+            q = torch.arange(tz * t1p, device="cuda").view(tz, t1p)
+            t = torch.arange(t1p, device="cuda")
+            zs = torch.arange(tz, device="cuda")[:, None]
+            dead = (((q // 4) % 3 == 0) | (torch.rand((tz, t1p), device="cuda", generator=gen) < 0.1)
+                    | ((t % 5 == 1) & (zs != 0)) | ((t % 5 == 2) & (zs != tz - 1)))
+            keep = (t < t1p - 118)[None, :, None]
+            sentinel = torch.rand(tgt.shape, device="cuda", generator=gen) < 1 / 3
+            cases = {  # name: (state, tgt, mask, residual?, relu)
+                "sentinel targets": (state, torch.where(sentinel, TKK.SENTINEL, tgt), mask,
+                                     True, True),
+                "masked planes": (state, tgt, mask * ~dead[..., None], True, True),
+                "padded last block": (state * keep, tgt, mask * keep, True, True),
+                "no residual, no relu": (state, tgt, mask, False, False),
+            }
+            for name, (st0, tg, mk, res, relu) in cases.items():
+                for dt in (torch.bfloat16, torch.float32):
+                    st = st0.to(dt)
+                    args = (st, tg.contiguous(), w.to(dt), scale, shift,
+                            TKK.expand_mask(mk, c).to(dt))
+                    kw = dict(residual=st if res else None, relu=relu)
+                    err, want, bad = _compare(TBK.tile_subm_cuda(*args, **kw),
+                                              TKK.tile_subm_plain(*args, **kw))
+                    row = dict(kernel="tile_subm", case=f"edge {name} {c}->{c} tz {tz} "
+                               f"{str(dt)[6:]}", tz=tz, t1p=t1p,
+                               live_planes=int((mk > 0).any(-1).sum()),
+                               max_abs_err=float(err.max()), max_abs_ref=float(want.abs().max()),
+                               n_bad=bad, per_frame=0)
+                    print("[kernels] " + json.dumps(row), flush=True)
+                    if bad:
+                        raise AssertionError(f"tile {row['case']}: {bad} outputs out of tolerance")
+                    rows.append(row)
+    return rows
+
+
 def phase_kernels():
     """The sparse-conv kernels against their plain versions at the flagship's
     data (after building all four sources); returns per-case rows."""
@@ -489,6 +625,7 @@ def phase_kernels():
     from sparse2dense_tpu_torch.ops import tile_block_kernel as TBK
     from sparse2dense_tpu_torch.ops import window_kernel as WK
     from sparse2dense_tpu_torch.tools.bench_plane_subm import plane_stage_data
+    from sparse2dense_tpu_torch.tools.bench_tile_subm import tile_stage_data
     from sparse2dense_tpu_torch.utils.config import FRAME_BUDGETS, TILE_FRAME_BUDGETS
 
     t0 = time.perf_counter()
@@ -512,9 +649,10 @@ def phase_kernels():
     del stages
     torch.cuda.empty_cache()
     _, _, model = _flagship("tile", TILE_FRAME_BUDGETS, dense_from_stage=99)
-    stages = _tile_stage_data(batch, model)
+    stages = tile_stage_data(batch, model)
     del model
     rows += _tile_rows(stages, gen)
+    rows += _tile_edge_rows(stages, gen)
     return rows
 
 
@@ -722,6 +860,11 @@ def main() -> int:
                 "sparse2dense_tpu/ops/pallas/tile_block_kernel.py:156",
                 tile["launches"]["tile_subm"], trows),
     ] + [_probe_record(row) for row in probe_rows]}
+    for name, krows in zip(("window_pass", "plane_subm", "tile_subm"), (wrows, prows, trows)):
+        frame = [r for r in krows if r["per_frame"]]
+        print(f"[kernels] {name} per frame: L2-warm "
+              f"{sum(r['ms'] * r['per_frame'] for r in frame):.4f} ms, L2-cold "
+              f"{sum(r['cold_ms'] * r['per_frame'] for r in frame):.4f} ms", flush=True)
     for rec, res in zip(record["kernels"][:3], (window, plane, tile)):
         print(f"[main] {rec['name']} share of the {res['engine']} frame: {rec['ms']:.3f} ms "
               f"of {res['frame_ms_median']:.1f} ms = {rec['ms'] / res['frame_ms_median']:.2%}",

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from . import cuda_build
+from .plane_kernel import wgmma_weights
 from .tile_kernel import BLK, tile_subm_plain
 
 SOURCE = os.path.join(cuda_build.CSRC, "tile_subm.cu")
@@ -36,15 +37,19 @@ def build() -> str:
     return cuda_build.build(SOURCE, LIBRARY)
 
 
+def load(library: str) -> ctypes.CDLL:
+    """A built kernel library, with the C interface's types declared."""
+    lib = ctypes.CDLL(library)
+    lib.s2d_tile_subm.restype = ctypes.c_int
+    lib.s2d_tile_subm.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         build()
-        lib = ctypes.CDLL(LIBRARY)
-        lib.s2d_tile_subm.restype = ctypes.c_int
-        lib.s2d_tile_subm.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p]
-        _lib = lib
+        _lib = load(LIBRARY)
     return _lib
 
 
@@ -72,8 +77,8 @@ def tile_subm_cuda(state: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor,
     if t1p % BLK:
         raise ValueError(f"T1p must be a multiple of {BLK}, got {t1p}")
     dt = state.dtype
-    # the bf16 (tensor-core) kernel reads the weights as (27, Co, C)
-    wt = (w.to(dt).transpose(1, 2) if dt == torch.bfloat16 else w.to(dt)).contiguous()
+    # the bf16 (tensor-core) kernel reads the weights in wgmma's B layout
+    wt = wgmma_weights(w.to(dt)) if dt == torch.bfloat16 else w.to(dt).contiguous()
     cuda_build.check_tensor("state", state, dt, (tz, t1p, 16 * c), dev)
     cuda_build.check_tensor("tgt", tgt, torch.int32, (t1p // BLK, 32, BLK), dev)
     cuda_build.check_tensor("scale16", scale16, torch.float32, (1, 16 * co), dev)

@@ -17,6 +17,7 @@ import os
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import cuda_build
 from .window_conv import ConvPlan, window_pass_plain
@@ -37,15 +38,19 @@ def build() -> str:
     return cuda_build.build(SOURCE, LIBRARY)
 
 
+def load(library: str) -> ctypes.CDLL:
+    """A built kernel library, with the C interface's types declared."""
+    lib = ctypes.CDLL(library)
+    lib.s2d_window_pass.restype = ctypes.c_int
+    lib.s2d_window_pass.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         build()
-        lib = ctypes.CDLL(LIBRARY)
-        lib.s2d_window_pass.restype = ctypes.c_int
-        lib.s2d_window_pass.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
-            + [ctypes.c_void_p]
-        _lib = lib
+        _lib = load(LIBRARY)
     return _lib
 
 
@@ -61,6 +66,28 @@ def live_taps(ksize: Tuple[int, int, int]) -> Tuple[int, int]:
     return dy_mask, j_mask
 
 
+def cin_pad(cin: int) -> int:
+    """Input width the kernel's tensor cores see: 16 for Cin <= 16, else Cin."""
+    return max(16, cin)
+
+
+def window_weights(w: torch.Tensor) -> torch.Tensor:
+    """(27, Cin, Cout) weights -> the kernel's layout (27, Cout, cin_pad + 8):
+    per tap and output channel a row of the input channels (the K-contiguous
+    B rows of ``ldmatrix``), zero past Cin; the 8 extra values a row spread
+    the rows over the shared-memory banks."""
+    cin = w.shape[1]
+    return F.pad(w.transpose(1, 2), (0, cin_pad(cin) + 8 - cin)).contiguous()
+
+
+def smem_bytes(cin: int, cout: int, window: int) -> int:
+    """Dynamic shared memory of a kernel block, without its table of a byte
+    a plan block: head (barriers, offsets, zero row, hit table), weights,
+    and two window buffers (keys, the block's kbase rows, features)."""
+    head = 256 + BLOCK * 9 * 4
+    return head + 27 * cout * (cin_pad(cin) + 8) * 2 + 2 * (window * (4 + 2 * cin) + BLOCK * 12)
+
+
 def unsupported(block: int, cin: int, cout: int, window: int) -> Optional[str]:
     """Why the kernel does not take a plan of this block and window at these
     widths, or None if it does."""
@@ -68,10 +95,18 @@ def unsupported(block: int, cin: int, cout: int, window: int) -> Optional[str]:
         return f"plan block {block} (the kernel takes {BLOCK})"
     if cout not in COUTS:
         return f"Cout {cout} (the kernel is built for Cout {COUTS})"
-    smem = window * 4 + window * cin * 2 + 9 * cin * cout * 2
-    if window % 128 or smem > SMEM_LIMIT:
+    if not (0 < cin <= 16 or cin == 32):
+        return f"Cin {cin} (the kernel is built for Cin <= 16 and 32)"
+    # 4 KB kept for the block's table of a byte a plan block it takes
+    if window % 128 or smem_bytes(cin, cout, window) + 4096 > SMEM_LIMIT:
         return f"window {window} x Cin {cin} (a multiple of 128 within shared memory)"
     return None
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it that starts on a 16-byte boundary (the kernel's
+    bulk copies read whole windows of it)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def window_pass_cuda(features: torch.Tensor, plan: ConvPlan, weights: torch.Tensor,
@@ -93,20 +128,21 @@ def window_pass_cuda(features: torch.Tensor, plan: ConvPlan, weights: torch.Tens
         raise ValueError(f"not supported by the window-pass kernel: {why}")
     if window > v_in:
         raise ValueError(f"the kernel needs a window of at most V_in={v_in}, got {window}")
-    feat = features.to(torch.bfloat16).contiguous()
-    w = weights.to(torch.bfloat16).contiguous()
-    cuda_build.check_tensor("plan.lin", plan.lin, torch.int32, (v_in,), dev)
-    cuda_build.check_tensor("plan.kbase", plan.kbase, torch.int32, (nb * BLOCK, 3), dev)
+    feat = _aligned(features.to(torch.bfloat16).contiguous())
+    w = window_weights(weights.to(torch.bfloat16))
+    lin, kbase = _aligned(plan.lin), _aligned(plan.kbase)
+    cuda_build.check_tensor("plan.lin", lin, torch.int32, (v_in,), dev)
+    cuda_build.check_tensor("plan.kbase", kbase, torch.int32, (nb * BLOCK, 3), dev)
     cuda_build.check_tensor("plan.ws", plan.ws, torch.int32, (nb, 3), dev)
     cuda_build.check_tensor("plan.offsets", plan.offsets, torch.int32, (3, 9), dev)
-    cuda_build.check_tensor("weights", w, torch.bfloat16, (27, cin, cout), dev)
+    cuda_build.check_tensor("weights", w, torch.bfloat16, (27, cout, cin_pad(cin) + 8), dev)
     out = torch.empty((nb * BLOCK, cout), dtype=torch.float32, device=dev)
     dy_mask, j_mask = live_taps(ksize)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.s2d_window_pass(
-            feat.data_ptr(), plan.lin.data_ptr(), plan.kbase.data_ptr(),
+            feat.data_ptr(), lin.data_ptr(), kbase.data_ptr(),
             plan.ws.data_ptr(), plan.offsets.data_ptr(), w.data_ptr(), out.data_ptr(),
             v_in, nb, cin, cout, window, dy_mask, j_mask, stream)
     if err != 0:

@@ -1,12 +1,13 @@
-"""Host side of the bfloat16 plane subm kernel (csrc/plane_subm.cu): the
-weights in the B-operand layout of its wgmma (plane_kernel.wgmma_weights)
-hold every weight once, where the kernel's shared-memory descriptors read
-it, and go back to (27, C, Co) bit for bit."""
+"""Host side of the bfloat16 plane and tile subm kernels (csrc/plane_subm.cu,
+csrc/tile_subm.cu): the weights in the B-operand layout of their wgmma
+(plane_kernel.wgmma_weights) hold every weight once, where the kernels'
+shared-memory descriptors read it, and go back to (27, C, Co) bit for bit."""
 import numpy as np
 import pytest
 import torch
 
 from sparse2dense_tpu_torch.ops import plane_kernel as TPKK
+from sparse2dense_tpu_torch.ops import tile_block_kernel as TBK
 
 
 @pytest.mark.parametrize("c,co", TPKK.CHANNELS)
@@ -24,3 +25,11 @@ def test_wgmma_weights_round_trip_and_layout(c, co):
     at = k * c * co + ((ci // 8) * (co // 8) + n // 8) * 64 + (n % 8) * 8 + ci % 8
     flat = wb.reshape(-1)
     assert torch.equal(flat[torch.from_numpy(at.reshape(-1))], w.reshape(-1))
+
+
+@pytest.mark.parametrize("c,co", TBK.CHANNELS)
+def test_tile_kernel_weights_round_trip(c, co):
+    """The bf16 tile kernel (csrc/tile_subm.cu, B2's wgmma core) reads its
+    weights in the same host-built layout, at every (C, Co) it is built for."""
+    assert TBK.wgmma_weights is TPKK.wgmma_weights
+    test_wgmma_weights_round_trip_and_layout(c, co)
