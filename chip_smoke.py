@@ -90,14 +90,9 @@ BF16_FLOPS = 989e12         # dense bf16 tensor-core peak
 TOL_ABS, TOL_REL = 1e-4, 1e-4  # float32: summation order only
 BF16_STEP = 2.0 ** -7          # one bf16 rounding step, relative
 BF16_FLOOR = 1e-3              # times max|p|: outputs near zero
-PLANE_STAGES = (("conv2", 32), ("conv3", 64), ("conv4", 128))
-# (stage, channels, launches a frame on the tile main path, dense_from_stage 2):
-# sparse2dense_tpu_torch/tools/bench_tile_subm.py TILE_STAGES
-TILE_STAGES = (("conv1", 16, 5), ("conv2", 32, 4), ("conv3", 64, 0), ("conv4", 128, 0))
 # launches a frame of (window_pass, plane_subm, tile_subm) per engine
 EXPECTED_LAUNCHES = {"window": (6, 0, 0), "plane": (6, 12, 0), "tile": (0, 0, 9)}
 WARMUP_FRAMES, TIMED_FRAMES = 3, 8   # a frame's time still falls over its first ~3
-HOLD_CYCLES = 20_000_000             # ~10 ms of sleep kernel while the host queues the calls
 
 
 @contextlib.contextmanager
@@ -116,20 +111,13 @@ def no_tf32():
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     """Device ms per call of ``fn``, L2-warm: ``reps`` calls back to back,
-    queued behind a sleep kernel so that the host's issue is not timed."""
+    queued behind a sleep kernel so that the host's issue is not timed
+    (``microbench.timed``)."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(HOLD_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    from sparse2dense_tpu_torch.tools.microbench import timed
+
+    return timed(lambda i: fn(), torch.device("cuda"), reps=reps, warmup=warmup, hold=True) * 1e3
 
 
 def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
@@ -372,6 +360,7 @@ def _plane_rows(stages, state16, gen):
 
     from sparse2dense_tpu_torch.ops import plane_conv as PK
     from sparse2dense_tpu_torch.ops import plane_kernel as PKK
+    from sparse2dense_tpu_torch.tools.bench_plane_subm import PLANE_STAGES
     from sparse2dense_tpu_torch.tools.microbench import timed_cold
 
     rows = []
@@ -436,6 +425,7 @@ def _plane_edge_rows(stages, state16, gen):
 
     from sparse2dense_tpu_torch.ops import plane_conv as PK
     from sparse2dense_tpu_torch.ops import plane_kernel as PKK
+    from sparse2dense_tpu_torch.tools.bench_plane_subm import PLANE_STAGES
 
     _, mask2, _, _, plan2 = stages[0]
     bases = [(16, state16, mask2, plan2.tgt)] + [
@@ -487,6 +477,7 @@ def _tile_rows(stages, gen):
     from sparse2dense_tpu_torch.ops import tile_block_kernel as TBK
     from sparse2dense_tpu_torch.ops import tile_kernel as TKK
     from sparse2dense_tpu_torch.ops import tile_planes as TP
+    from sparse2dense_tpu_torch.tools.bench_tile_subm import TILE_STAGES
     from sparse2dense_tpu_torch.tools.microbench import timed_cold
 
     rows = []
@@ -566,6 +557,7 @@ def _tile_edge_rows(stages, gen):
 
     from sparse2dense_tpu_torch.ops import tile_block_kernel as TBK
     from sparse2dense_tpu_torch.ops import tile_kernel as TKK
+    from sparse2dense_tpu_torch.tools.bench_tile_subm import TILE_STAGES
 
     t1p = 1024
     rows = []

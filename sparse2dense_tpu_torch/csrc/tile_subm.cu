@@ -46,9 +46,10 @@
 //   many as fit the SMs. Weights, by width (as in B2):
 //   * C <= 32 (conv1, conv2): all 27 taps stay in shared memory for the
 //     block's life (14 / 55 KB, one bulk copy). Four warpgroups a block each
-//     claim chunks of 256 planes from a counter, read their masks (a
-//     half-warp a plane, so a warp's loads cover whole rows), zero the dead
-//     rows, list the live ones in shared memory and walk them in groups of 4
+//     claim chunks of 256 planes from a counter, scan them (scan_chunk, as
+//     the compaction kernel does: a half-warp reads a plane's mask, so a
+//     warp's loads cover whole rows, and the dead rows are zeroed), list the
+//     live ones in shared memory and walk them in groups of 4
 //     with a halo of their own: one warpgroup streams a chunk's mask and
 //     zeros while another gathers or multiplies, and the next group's
 //     sources and epilogue operands load while a warpgroup multiplies.
@@ -120,58 +121,101 @@ __device__ __forceinline__ int halo_of(int cell, int kz, int ky, int kx) {
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// Compaction: list[count++] = q = z * T1p + t for every live plane of the
-// n = tz * T1p planes, a block 256 planes of the column order (i = t * tz +
-// z); the output rows of the other planes are set to zero here. The mask is
-// read a half-warp a plane, a lane a cell, so each load of a warp covers two
-// whole rows.
+// One chunk of kChunk planes of the column order (i = t * tz + z, plane q =
+// z * t1p + t, n = tz * t1p planes in all) from i0, scanned by the NT
+// threads tid = 0 .. NT - 1 that `sync` holds together: the live planes go
+// into live[] in order and the output rows of the others are written as
+// zeros. The mask is read a half-warp a plane, a lane a cell, so each load of
+// a warp covers two whole rows. Scratch: dead[kChunk], wcount[2 * NT / 32],
+// flag[kChunk]. Returns the number of live planes.
+constexpr int kChunk = 256;
+template <typename T, int CO, int NT, typename Sync>
+__device__ __forceinline__ int scan_chunk(const T* __restrict__ mask, T* __restrict__ out,
+                                          int t1p, int tz, int i0, int tid, int* live,
+                                          int* dead, int* wcount, unsigned char* flag,
+                                          Sync sync) {
+  constexpr int kW = NT / 32, kP = kChunk / NT;   // warps, planes a thread places
+  const int lane = tid % 32, warp = tid / 32, n = tz * t1p;
+  auto plane_of = [&](int i) { return i < n ? (i % tz) * t1p + i / tz : -1; };
+  bool cell_on[16 * kP];
+#pragma unroll
+  for (int it = 0; it < 16 * kP; ++it) {   // planes it * NT / 16 + tid / 16
+    const int q = plane_of(i0 + it * (NT / 16) + tid / 16);
+    cell_on[it] = q >= 0 && to_float(mask[(static_cast<size_t>(q) * 16 + tid % 16) * CO]) != 0.f;
+  }
+#pragma unroll
+  for (int it = 0; it < 16 * kP; ++it) {
+    const unsigned b = __ballot_sync(0xffffffffu, cell_on[it]);
+    if (lane == 0) {
+      flag[it * (NT / 16) + 2 * warp] = (b & 0xffffu) != 0;
+      flag[it * (NT / 16) + 2 * warp + 1] = (b >> 16) != 0;
+    }
+  }
+  sync();
+  // thread tid places planes kP tid .. kP tid + kP - 1, in order
+  int q[kP];
+  bool on[kP], off[kP];
+  int nl = 0, nd = 0;
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    q[p] = plane_of(i0 + kP * tid + p);
+    on[p] = flag[kP * tid + p];
+    off[p] = q[p] >= 0 && !on[p];
+    nl += on[p];
+    nd += off[p];
+  }
+  int bl = -nl, bd = -nd;   // exclusive of this thread's planes
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {   // inclusive warp scans
+    const int l = __shfl_up_sync(0xffffffffu, nl, d), e = __shfl_up_sync(0xffffffffu, nd, d);
+    if (lane >= d) {
+      nl += l;
+      nd += e;
+    }
+  }
+  if (lane == 31) {
+    wcount[warp] = nl;
+    wcount[kW + warp] = nd;
+  }
+  sync();
+  int total = 0, total_dead = 0;
+  bl += nl;
+  bd += nd;
+#pragma unroll
+  for (int w = 0; w < kW; ++w) {
+    bl += w < warp ? wcount[w] : 0;
+    bd += w < warp ? wcount[kW + w] : 0;
+    total += wcount[w];
+    total_dead += wcount[kW + w];
+  }
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    if (on[p]) live[bl++] = q[p];
+    if (off[p]) dead[bd++] = q[p];
+  }
+  sync();
+  constexpr int kVec = 16 * CO * static_cast<int>(sizeof(T)) / 16;   // 16-byte pieces a row
+  uint4* o = reinterpret_cast<uint4*>(out);
+  for (int j = tid; j < total_dead * kVec; j += NT)
+    o[static_cast<size_t>(dead[j / kVec]) * kVec + j % kVec] = make_uint4(0, 0, 0, 0);
+  return total;
+}
+
+// Compaction: list[count++] = q for every live plane, a block a chunk of the
+// column order; the output rows of the other planes are set to zero here.
 template <typename T, int CO>
 __global__ void __launch_bounds__(kThreads)
 tile_live(const T* __restrict__ mask, T* __restrict__ out, int t1p, int tz,
           int* __restrict__ count, int* __restrict__ list) {
-  __shared__ int warp_base[kWarps];
+  __shared__ int live[kChunk], dead[kChunk], wcount[2 * kWarps];
+  __shared__ unsigned char flag[kChunk];
   __shared__ int block_base;
-  __shared__ unsigned char on_of[kThreads];
-  __shared__ int dead[kThreads];   // plane of a dead thread, else -1
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int n = tz * t1p, i0 = blockIdx.x * kThreads;
-  auto plane_of = [&](int i) { return i < n ? (i % tz) * t1p + i / tz : -1; };
-  bool cell_on[kThreads / 16];
-#pragma unroll
-  for (int it = 0; it < kThreads / 16; ++it) {   // planes it * 16 + tid / 16
-    const int q = plane_of(i0 + it * 16 + tid / 16);
-    cell_on[it] = q >= 0 && to_float(mask[(static_cast<size_t>(q) * 16 + tid % 16) * CO]) != 0.f;
-  }
-#pragma unroll
-  for (int it = 0; it < kThreads / 16; ++it) {
-    const unsigned b = __ballot_sync(0xffffffffu, cell_on[it]);
-    if (lane == 0) on_of[it * 16 + warp * 2] = (b & 0xffffu) != 0;
-    if (lane == 0) on_of[it * 16 + warp * 2 + 1] = (b >> 16) != 0;
-  }
+  const int tid = threadIdx.x;
+  const int nl = scan_chunk<T, CO, kThreads>(mask, out, t1p, tz, blockIdx.x * kChunk, tid, live,
+                                             dead, wcount, flag, [] { __syncthreads(); });
+  if (tid == 0) block_base = nl > 0 ? atomicAdd(count, nl) : 0;
   __syncthreads();
-  const int q = plane_of(i0 + tid);
-  const bool on = on_of[tid];
-  const unsigned ballot = __ballot_sync(0xffffffffu, on);
-  if (lane == 0) warp_base[warp] = __popc(ballot);
-  dead[tid] = q >= 0 && !on ? q : -1;
-  __syncthreads();
-  if (tid == 0) {
-    int total = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const int c = warp_base[w];
-      warp_base[w] = total;
-      total += c;
-    }
-    block_base = total > 0 ? atomicAdd(count, total) : 0;
-  }
-  __syncthreads();
-  if (on) list[block_base + warp_base[warp] + __popc(ballot & ((1u << lane) - 1u))] = q;
-  constexpr int kVec = 16 * CO * static_cast<int>(sizeof(T)) / 16;   // 16-byte pieces a row
-  uint4* o = reinterpret_cast<uint4*>(out);
-  for (int j = tid; j < kThreads * kVec; j += kThreads) {
-    const int p = dead[j / kVec];
-    if (p >= 0) o[static_cast<size_t>(p) * kVec + j % kVec] = make_uint4(0, 0, 0, 0);
-  }
+  if (tid < nl) list[block_base + tid] = live[tid];
 }
 
 // qs[i] = list[i0 + i] for the P planes of the block's next turn, or -1 past
@@ -201,7 +245,6 @@ __device__ __forceinline__ void halo_sources(const int* __restrict__ tgt, int t1
 constexpr int kGroup = 4;             // planes a group: the 64 rows of a wgmma
 constexpr int kLayer = 36;            // 6 x 6 halo cells of one z layer
 constexpr int kLayers = 3 * kGroup;   // z layers a group reads, at most
-constexpr int kChunk = 256;           // planes a warpgroup scans at a time (resident weights)
 // a warpgroup's scan area: live and dead lists, counts a warp, flags, claim
 constexpr int kScanInts = 2 * kChunk + 8 + kChunk / 4 + 8;
 
@@ -411,74 +454,17 @@ tile_subm_wgmma(const __nv_bfloat16* __restrict__ state, const int* __restrict__
     int* wcount = dead + kChunk;                 // [0, 4) live, [4, 8) dead a warp
     unsigned char* flag = reinterpret_cast<unsigned char*>(wcount + 8);
     int* claim = wcount + 8 + kChunk / 4;
-    const int n_planes = tz * t1p, n_chunks = (n_planes + kChunk - 1) / kChunk;
-    auto plane_of = [&](int i) { return i < n_planes ? (i % tz) * t1p + i / tz : -1; };
-    // the live planes of chunk c in order into live[], the others' rows
-    // zeroed; returns how many are live
-    auto scan = [&](int c) {
-      const int i0 = c * kChunk;
-      bool cell_on[kChunk / 8];
-#pragma unroll
-      for (int it = 0; it < kChunk / 8; ++it) {   // planes 8 it + wtid / 16
-        const int q = plane_of(i0 + 8 * it + wtid / 16);
-        cell_on[it] = q >= 0 &&
-            __bfloat162float(mask[(static_cast<size_t>(q) * 16 + wtid % 16) * CO]) != 0.f;
-      }
-#pragma unroll
-      for (int it = 0; it < kChunk / 8; ++it) {
-        const unsigned b = __ballot_sync(0xffffffffu, cell_on[it]);
-        if (lane == 0) {
-          flag[8 * it + 2 * warp] = (b & 0xffffu) != 0;
-          flag[8 * it + 2 * warp + 1] = (b >> 16) != 0;
-        }
-      }
-      wg_sync(wg);
-      // thread wtid places planes 2 wtid and 2 wtid + 1, in order
-      const int q0 = plane_of(i0 + 2 * wtid), q1 = plane_of(i0 + 2 * wtid + 1);
-      const bool on0 = flag[2 * wtid], on1 = flag[2 * wtid + 1];
-      const bool off0 = q0 >= 0 && !on0, off1 = q1 >= 0 && !on1;
-      int nl = on0 + on1, nd = off0 + off1;
-#pragma unroll
-      for (int d = 1; d < 32; d *= 2) {   // inclusive warp scans
-        const int l = __shfl_up_sync(0xffffffffu, nl, d), e = __shfl_up_sync(0xffffffffu, nd, d);
-        if (lane >= d) {
-          nl += l;
-          nd += e;
-        }
-      }
-      if (lane == 31) {
-        wcount[warp] = nl;
-        wcount[4 + warp] = nd;
-      }
-      wg_sync(wg);
-      int bl = 0, bd = 0, total = 0, total_dead = 0;
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        bl += w < warp ? wcount[w] : 0;
-        bd += w < warp ? wcount[4 + w] : 0;
-        total += wcount[w];
-        total_dead += wcount[4 + w];
-      }
-      bl += nl - on0 - on1;
-      bd += nd - off0 - off1;
-      if (on0) live[bl++] = q0;
-      if (on1) live[bl] = q1;
-      if (off0) dead[bd++] = q0;
-      if (off1) dead[bd] = q1;
-      wg_sync(wg);
-      constexpr int kVec = 16 * CO * 2 / 16;   // 16-byte pieces a row
-      uint4* o = reinterpret_cast<uint4*>(out);
-      for (int j = wtid; j < total_dead * kVec; j += 128)
-        o[static_cast<size_t>(dead[j / kVec]) * kVec + j % kVec] = make_uint4(0, 0, 0, 0);
-      return total;
-    };
+    const int n_chunks = (tz * t1p + kChunk - 1) / kChunk;
     mbar_wait(bar0, 0);  // the weights have landed
     for (;;) {
       if (wtid == 0) *claim = atomicAdd(count, 1);
       wg_sync(wg);
       const int c = *claim;
       if (c >= n_chunks) break;
-      const int nl = scan(c), ng = (nl + kGroup - 1) / kGroup;
+      const int nl = scan_chunk<__nv_bfloat16, CO, 128>(mask, out, t1p, tz, c * kChunk, wtid,
+                                                        live, dead, wcount, flag,
+                                                        [&] { wg_sync(wg); });
+      const int ng = (nl + kGroup - 1) / kGroup;
       GroupHalo gh, gn;
       int src[S::kRows], bits = 0;
       if (ng > 0) {
@@ -701,7 +687,7 @@ int launch(K kernel, bool compact, int threads, int unit, size_t smem, const voi
   const int units = (n + unit - 1) / unit;
   const int blocks = units < sms * per_sm ? units : sms * per_sm;
   if (compact)
-    tile_live<T, CO><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+    tile_live<T, CO><<<(n + kChunk - 1) / kChunk, kThreads, 0, stream>>>(
         static_cast<const T*>(mask), static_cast<T*>(out), t1p, tz, count, list);
   kernel<<<blocks, threads, smem, stream>>>(
       static_cast<const T*>(state), static_cast<const int*>(tgt), static_cast<const T*>(w),

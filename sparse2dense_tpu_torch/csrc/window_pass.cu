@@ -42,7 +42,10 @@
 //   with the row inside a block (GATE rows aside; tests/
 //   test_torch_window_layout.py holds this on subm, strided and z-only
 //   plans), but the searches of a block run in parallel, one thread a
-//   (row, dx), so that order is not used to shorten them.
+//   (row, dx), so that order is not used to shorten them. Measured and left
+//   out: a merge along the rows. A copy with no searches at all, the most a
+//   merge could save, was at most 11% faster (tools/bench_window_pass.py,
+//   PERF.md).
 // - Contraction: warp w owns rows 16 w .. 16 w + 15 of the block. Per live
 //   tap with a hit among its rows it loads A (the 16 hit rows of the window,
 //   a zero row on a miss) by ldmatrix from the staged window (Cin < 16: by

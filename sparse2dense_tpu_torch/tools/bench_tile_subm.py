@@ -3,39 +3,32 @@ conv1..conv4 tile states of a flagship frame, for this tree's source and for
 variants of it, on one NVIDIA GPU, and counts what each unit of work would
 gather and multiply there.
 
-    python3 -m sparse2dense_tpu_torch.tools.bench_tile_subm [--rounds 2] [name=path.cu ...]
+    python3 -m sparse2dense_tpu_torch.tools.bench_tile_subm [--rounds 2] [name=path ...]
 
 The frame is ``profile_flagship``'s on the tile engine with every stage on
 tiles (``TILE_FRAME_BUDGETS``, ``dense_from_stage`` 99, as ``chip_smoke.py``
-checks it). Each variant source is compiled as the repo's is
-(``cuda_build.build_all``, the headers of ``csrc/`` on the include path) into
-``_build/bench/tile/`` and called through the same wrapper. Every round
-times each source on each conv (CUDA events over 10 launches L2-warm,
-queued behind a sleep kernel, and the median of 10 launches L2-cold, with
-the residual and ReLU of the blocks) and counts its outputs beyond one bf16
-step of ``tile_subm_plain``; the sources take turns within a round, so drift
-over the call falls on all alike.
+checks it). A variant is a copy of the source (``name=path.cu``) or another
+checkout of the repo (``name=dir``); ``bench_variants`` builds, times
+(L2-warm and cold, with the residual and ReLU of the blocks) and checks each
+against one bf16 step of ``tile_subm_plain``.
 
-Before the times, a JSON line per conv gives :func:`unit_counts`: the halo
+Before each conv's times, a JSON line gives :func:`unit_counts`: the halo
 rows gathered and the 16-row tiles multiplied under each unit of work.
 """
 from __future__ import annotations
 
-import argparse
 import json
-import os
 
 import torch
 
-from ..ops import cuda_build
 from ..ops import tile_block_kernel as TBK
 from ..ops import tile_kernel as TKK
 from ..ops.tile_kernel import dir_row
-from .microbench import BF16_FLOOR, BF16_STEP, timed, timed_cold
+from . import bench_variants as BV
+from .microbench import BF16_FLOOR, BF16_STEP
 
 # (stage, channels, launches a frame on the tile main path, dense_from_stage 2)
 TILE_STAGES = (("conv1", 16, 5), ("conv2", 32, 4), ("conv3", 64, 0), ("conv4", 128, 0))
-BENCH_DIR = os.path.join(cuda_build.BUILD_DIR, "bench", "tile")
 GROUP = 4      # planes a group: the 64 rows of a wgmma
 LAYER = 36     # 6 x 6 halo cells of one z layer
 
@@ -156,43 +149,13 @@ def unit_counts(mask: torch.Tensor, tgt: torch.Tensor) -> dict:
                tiles=GROUP * int((block_tap & cols).sum())))
 
 
-def main() -> None:
-    from ..models import build_detector
-    from ..training.synthetic import make_batch
-    from ..utils.config import TILE_FRAME_BUDGETS, flagship
-
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("variants", nargs="*", help="name=path.cu: a variant source of the kernel")
-    ap.add_argument("--rounds", type=int, default=2)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("bench_tile_subm needs a CUDA GPU")
-    os.makedirs(BENCH_DIR, exist_ok=True)
-    pairs = [(TBK.SOURCE, TBK.LIBRARY)]
-    names = ["this tree"]
-    for v in args.variants:
-        name, path = v.split("=", 1)
-        pairs.append((os.path.abspath(path), os.path.join(BENCH_DIR, f"lib{name}.so")))
-        names.append(name)
-    logs = cuda_build.build_all(pairs)
-    for library, log in logs.items():
-        print(json.dumps({"built": library, "ptxas": [line for line in log.splitlines()
-                                                      if "registers" in line or "spill" in line]}))
-    libs = {name: TBK.load(library) for name, (_, library) in zip(names, pairs)}
-
-    cfg = flagship("tile", TILE_FRAME_BUDGETS)
-    cfg["S_model"]["backbone"]["dense_from_stage"] = 99
-    model = build_detector(cfg["S_model"], test_cfg=cfg["test_cfg"],
-                           voxel_generator=cfg["voxel_generator"], device="cuda",
-                           generator=torch.Generator().manual_seed(0))
-    batch = make_batch(cfg, 1, max_voxels=150000, n_points=170000, n_obj=32, device="cuda")
-    stages = tile_stage_data(batch, model)
-    del model
-    gen = torch.Generator(device="cuda").manual_seed(1)
+def cases(stages, gen):
+    """The bench's cases (``bench_variants.Case``) on the conv1..conv4 tile
+    states, with the residual and ReLU of the blocks; prints each conv's
+    :func:`unit_counts` first."""
     dev = torch.device("cuda")
-    times = {}
-    for (conv, c, _), (state, mask, _, _, plan) in zip(TILE_STAGES, stages):
-        print(json.dumps(dict(conv=conv, **unit_counts(mask, plan.tgt))), flush=True)
+    for (conv, c, per_frame), (state, mask, _, _, plan) in zip(TILE_STAGES, stages):
+        print(json.dumps(dict(case=conv, **unit_counts(mask, plan.tgt))), flush=True)
         w = torch.randn((27, c, c), device=dev, generator=gen) * (27 * c) ** -0.5
         scale = 1 + 0.1 * torch.randn((1, 16 * c), device=dev, generator=gen)
         shift = 0.1 * torch.randn((1, 16 * c), device=dev, generator=gen)
@@ -201,22 +164,26 @@ def main() -> None:
                 TKK.expand_mask(mask, c).to(torch.bfloat16))
         want = TKK.tile_subm_plain(*call, residual=st).float()
         tol = BF16_STEP * want.abs() + BF16_FLOOR * want.abs().max()
-        for _ in range(args.rounds):
-            for name, lib in libs.items():
-                TBK._lib = lib
-                got = TBK.tile_subm_cuda(*call, residual=st).float()
-                bad = int(((got - want).abs() > tol).sum())
-                ms = timed(lambda i: TBK.tile_subm_cuda(*call, residual=st), dev, hold=True) * 1e3
-                cold = timed_cold(lambda i: TBK.tile_subm_cuda(*call, residual=st), dev) * 1e3
-                rec = times.setdefault((conv, name), dict(conv=conv, source=name, ms=[],
-                                                          cold_ms=[], n_bad=0))
-                rec["ms"].append(ms)
-                rec["cold_ms"].append(cold)
-                rec["n_bad"] = max(rec["n_bad"], bad)
+        yield conv, per_frame, lambda m: m.tile_subm_cuda(*call, residual=st), want, tol
         del want, tol, call
-        for name in names:
-            print(json.dumps(times[(conv, name)]), flush=True)
-    TBK._lib = None
+
+
+def main() -> None:
+    from ..models import build_detector
+    from ..training.synthetic import make_batch
+    from ..utils.config import TILE_FRAME_BUDGETS, flagship
+
+    args = BV.parser(__doc__).parse_args()
+    srcs = BV.sources(TBK, args.variants, "tile")
+    cfg = flagship("tile", TILE_FRAME_BUDGETS)
+    cfg["S_model"]["backbone"]["dense_from_stage"] = 99
+    model = build_detector(cfg["S_model"], test_cfg=cfg["test_cfg"],
+                           voxel_generator=cfg["voxel_generator"], device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    batch = make_batch(cfg, 1, max_voxels=150000, n_points=170000, n_obj=32, device="cuda")
+    stages = tile_stage_data(batch, model)
+    del model
+    BV.run(srcs, cases(stages, torch.Generator(device="cuda").manual_seed(1)), args.rounds)
 
 
 if __name__ == "__main__":

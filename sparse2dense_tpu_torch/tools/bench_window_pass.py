@@ -2,35 +2,29 @@
 plans of a flagship frame, for this tree's source and for variants of it, on
 one NVIDIA GPU.
 
-    python3 -m sparse2dense_tpu_torch.tools.bench_window_pass [--rounds 2] [name=path.cu ...]
+    python3 -m sparse2dense_tpu_torch.tools.bench_window_pass [--rounds 2] [name=path ...]
 
 The frame is ``chip_smoke.py``'s (150k voxels, seed 0); the cases are the
 window engine's: conv_input 5->16 and conv1 16->16 on the subm plan,
 conv2_down 16->32 on the strided plan (V_out 320,000), and the z-only
-(3,1,1) conv (window 384). Each variant source is compiled as the repo's is
-(``cuda_build.build_all``) into ``_build/bench/window/`` and called through
-the same wrapper. Every round times each source on each case (CUDA events
-over 20 launches L2-warm, queued behind a sleep kernel, and the median of
-10 launches L2-cold) and counts its
-outputs beyond 1e-4 + 1e-4*|p| of ``window_pass_plain``; the sources take
-turns within a round. Prints a JSON line per (case, source), and one per case
-with its plan's blocks, live units and all-GATE blocks.
+(3,1,1) conv (window 384). A variant is a copy of the source
+(``name=path.cu``) or another checkout of the repo (``name=dir``);
+``bench_variants`` builds, times (L2-warm over 20 launches, and cold) and
+checks each against 1e-4 + 1e-4*|p| of ``window_pass_plain``. Before each
+case's times a JSON line gives its plan's blocks, live units and all-GATE
+blocks.
 """
 from __future__ import annotations
 
-import argparse
 import json
-import os
 
 import torch
 
-from ..ops import cuda_build
 from ..ops import window_conv as WC
 from ..ops import window_kernel as WK
 from ..ops.sparse_conv import conv_out_grid
-from .microbench import timed, timed_cold
+from . import bench_variants as BV
 
-BENCH_DIR = os.path.join(cuda_build.BUILD_DIR, "bench", "window")
 TOL_ABS, TOL_REL = 1e-4, 1e-4
 
 
@@ -74,60 +68,32 @@ def plan_units(plan, ksize) -> dict:
                 blocks_without_units=int((~live.any(1)).sum()))
 
 
-def main() -> None:
-    from ..models.builder import sparse_shape_from_voxel_cfg
-    from ..training.synthetic import make_batch
-    from ..utils.config import flagship
-
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("variants", nargs="*", help="name=path.cu: a variant source of the kernel")
-    ap.add_argument("--rounds", type=int, default=2)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("bench_window_pass needs a CUDA GPU")
-    os.makedirs(BENCH_DIR, exist_ok=True)
-    pairs = [(WK.SOURCE, WK.LIBRARY)]
-    names = ["this tree"]
-    for v in args.variants:
-        name, path = v.split("=", 1)
-        pairs.append((os.path.abspath(path), os.path.join(BENCH_DIR, f"lib{name}.so")))
-        names.append(name)
-    logs = cuda_build.build_all(pairs)
-    for library, log in logs.items():
-        print(json.dumps({"built": library, "ptxas": [line for line in log.splitlines()
-                                                      if "registers" in line or "spill" in line]}))
-    libs = {name: WK.load(library) for name, (_, library) in zip(names, pairs)}
-
-    cfg = flagship()
-    batch = make_batch(cfg, 1, max_voxels=150000, n_points=170000, n_obj=32, device="cuda")
-    grid = sparse_shape_from_voxel_cfg(cfg["voxel_generator"])
-    gen = torch.Generator(device="cuda").manual_seed(1)
+def cases(window_cases_, gen):
+    """The bench's cases (``bench_variants.Case``) on the window plans;
+    prints each plan's :func:`plan_units` first."""
     dev = torch.device("cuda")
-    cases = window_cases(batch, grid, gen)[0]
-    times = {}
-    for name, plan, f, cin, cout, ksize, *_ in cases:
+    for name, plan, f, cin, cout, ksize, per_frame, *_ in window_cases_:
         print(json.dumps(dict(case=name, **plan_units(plan, ksize))), flush=True)
         w = torch.randn((cout, cin) + ksize, device=dev, generator=gen) * 0.2
         wd = WC.taps_zyx_to_dyx(w).to(torch.bfloat16)
         fb = f.to(torch.bfloat16).contiguous()
         want = WC.window_pass_plain(fb.float(), plan, wd.float())
-        tol = TOL_ABS + TOL_REL * want.abs()
-        for _ in range(args.rounds):
-            for src, lib in libs.items():
-                WK._lib = lib
-                got = WK.window_pass_cuda(fb, plan, wd, ksize)
-                bad = int(((got - want).abs() > tol).sum())
-                ms = timed(lambda i: WK.window_pass_cuda(fb, plan, wd, ksize), dev, reps=20,
-                           hold=True) * 1e3
-                cold = timed_cold(lambda i: WK.window_pass_cuda(fb, plan, wd, ksize), dev) * 1e3
-                rec = times.setdefault((name, src), dict(case=name, source=src, ms=[],
-                                                         cold_ms=[], n_bad=0))
-                rec["ms"].append(ms)
-                rec["cold_ms"].append(cold)
-                rec["n_bad"] = max(rec["n_bad"], bad)
-        for src in names:
-            print(json.dumps(times[(name, src)]), flush=True)
-    WK._lib = None
+        yield (name, per_frame, lambda m: m.window_pass_cuda(fb, plan, wd, ksize), want,
+               TOL_ABS + TOL_REL * want.abs())
+
+
+def main() -> None:
+    from ..models.builder import sparse_shape_from_voxel_cfg
+    from ..training.synthetic import make_batch
+    from ..utils.config import flagship
+
+    args = BV.parser(__doc__).parse_args()
+    srcs = BV.sources(WK, args.variants, "window")
+    cfg = flagship()
+    batch = make_batch(cfg, 1, max_voxels=150000, n_points=170000, n_obj=32, device="cuda")
+    grid = sparse_shape_from_voxel_cfg(cfg["voxel_generator"])
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    BV.run(srcs, cases(window_cases(batch, grid, gen)[0], gen), args.rounds, reps=20)
 
 
 if __name__ == "__main__":

@@ -27,9 +27,9 @@ def test_wgmma_weights_round_trip_and_layout(c, co):
     assert torch.equal(flat[torch.from_numpy(at.reshape(-1))], w.reshape(-1))
 
 
-@pytest.mark.parametrize("c,co", TBK.CHANNELS)
-def test_tile_kernel_weights_round_trip(c, co):
+def test_tile_kernel_weights_round_trip():
     """The bf16 tile kernel (csrc/tile_subm.cu, B2's wgmma core) reads its
-    weights in the same host-built layout, at every (C, Co) it is built for."""
+    weights in the same host-built layout, and every (C, Co) it is built for
+    is a case of the plane test above."""
     assert TBK.wgmma_weights is TPKK.wgmma_weights
-    test_wgmma_weights_round_trip_and_layout(c, co)
+    assert set(TBK.CHANNELS) <= set(TPKK.CHANNELS)

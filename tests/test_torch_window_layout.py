@@ -1,9 +1,11 @@
 """Host side of the window-pass kernel (csrc/window_pass.cu): its weight
 layout (window_kernel.window_weights) goes back to (27, Cin, Cout) bit for
 bit and is zero past Cin, and the plans of ops/window_conv.py have the order
-its search relies on: window keys sorted and unique, the three dz taps of a
-(dy, dx) run on consecutive keys, and each tap's targets rising with the
-row inside a block, GATE rows aside."""
+its search relies on: window keys sorted and unique, and the three dz taps
+of a (dy, dx) run on consecutive keys. The test also records that each tap's
+targets rise with the row inside a block, GATE rows aside: the kernel does
+not use this (it searches each row), but a merge of its searches along the
+rows would."""
 import numpy as np
 import pytest
 import torch
