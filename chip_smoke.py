@@ -35,9 +35,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      planes, columns whose only live plane is z = 0 or z = tz - 1), a padded
      last plan block, and no residual with no ReLU;
    and times kernel (L2-warm: back to back, queued behind a sleep kernel;
-   L2-cold: a 256 MB buffer written before each call), plain version and
-   the layer's bf16 cuDNN ``F.conv3d`` on the densified grid (a yardstick
-   the port never calls);
+   L2-cold: a 256 MB buffer written and read back before each call), plain
+   version and the layer's bf16 cuDNN ``F.conv3d`` on the densified grid (a
+   yardstick the port never calls);
 3. gather probes: with the launch counts set to 0, the B4 suites of
    ``tools/microbench.py`` through their functions (``pallas_take``,
    ``pallas_onehot``, ``pallas_dma``, ``pallas_run``) at the reference's
@@ -45,10 +45,15 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    (BLK, W) = (256, 512) and (512, 1024)) and run-gather (B4c, R = 1, 8,
    64) kernels of ``ops/gather_probes.py``, each held bit-equal to its plain
    version and to one ``index_select``, then the three timed L2-warm (back
-   to back) and L2-cold (a 256 MB buffer written before each call); every
-   kernel must have launched there. Bound: the distinct table rows the
-   indices name, the output written and the indices read, once each, over
-   3.35 TB/s. Each case is a record of its own in the kernels line;
+   to back) and L2-cold (a 256 MB buffer written and read back before each
+   call, ``microbench.flush_l2``); every kernel must have launched there.
+   Bound: the distinct table rows the indices name, the output written and
+   the indices read, once each, over 3.35 TB/s. Each case is a record of
+   its own in the kernels line. Then the timers' floors (an empty kernel,
+   and ``Tensor.copy_`` of the 8.39 MB table) warm and cold, and the edge
+   cases of the take and window-take kernels (other widths, ragged
+   batches, extreme indices, n < V, w = V, clamped tail blocks), each
+   bit-equal to its plain version;
 4. main path, window engine: the flagship KD_VoxelNet + S2D_RPN at full
    width, random weights from a seeded generator, through ``build_detector
    -> forward -> predict`` on 3 warm-up and 8 timed frames (median, min and
@@ -655,12 +660,57 @@ PROBES = {"take": ("gather_take", "sparse2dense_tpu/tools/microbench.py:203"),
 PROBE_SUITES = ("pallas_take", "pallas_onehot", "pallas_dma", "pallas_run")
 
 
+def _probe_edge_cases(dev):
+    """(kernel, case, call, plain call) of the redesigned probes' edge cases
+    (B4a at other widths, ragged batches and extreme indices; B4b at other
+    widths, n < V, n > V with many clamped tail blocks at an unaligned
+    V - w, w = V, w < blk, and more blocks than the SMs hold at once)."""
+    import numpy as np
+    import torch
+
+    from sparse2dense_tpu_torch.ops import gather_probes as GP
+
+    rng = np.random.RandomState(7)
+
+    def table(v, c):
+        return torch.from_numpy(rng.randn(v, c).astype(np.float32)).to(dev)
+
+    def ints(hi, n):
+        return torch.from_numpy(rng.randint(0, hi, size=(n,)).astype(np.int32)).to(dev)
+
+    out = []
+    for c in (4, 20, 64, 128):
+        feat, idx = table(4099, c), ints(4099, 5000)
+        out.append(("take", f"C={c} V=4099 N=5000", feat, (idx,)))
+    feat = table(4099, 16)
+    ends = torch.where(ints(2, 3000) > 0, 4098, 0).to(torch.int32)
+    for case, idx in (("N=32*37+13", ints(4099, 32 * 37 + 13)), ("N=5", ints(4099, 5)),
+                      ("all 0", torch.zeros(3000, dtype=torch.int32, device=dev)),
+                      ("all V-1", torch.full((3000,), 4098, dtype=torch.int32, device=dev)),
+                      ("0 or V-1", ends)):
+        out.append(("take", case, feat, (idx,)))
+    for v, c, n, blk, w, case in (
+            (1 << 17, 16, 1 << 16, 256, 512, "n=V/2"),
+            (1024, 16, 1024, 128, 1024, "w=V"),
+            (100003, 16, 128000, 64, 640, "n>V: clamped tail, unaligned V-w"),
+            (1 << 20, 4, 1 << 20, 64, 128, "16,384 blocks"),
+            (1 << 17, 64, 1 << 17, 256, 512, "C=64"),
+            (1 << 17, 4, 1 << 17, 256, 512, "C=4"),
+            (1 << 15, 16, 1 << 15, 256, 128, "w<blk")):
+        out.append(("window_take", f"{case} V={v} C={c} N={n} BLK={blk} W={w}", table(v, c),
+                    (ints(w, n), blk, w)))
+    return [(k, case, lambda f=f, a=a, k=k: getattr(GP, k + "_cuda")(f, *a),
+             lambda f=f, a=a, k=k: getattr(GP, k + "_plain")(f, *a)) for k, case, f, a in out]
+
+
 def phase_probes():
     """The microbench's B4 suites at the reference's sizes, with every launch
     count set to 0 just before and read just after: each case holds its
     kernel bit-equal to its plain version and to ``index_select`` (or
-    raises), then times the three. Returns the suites' rows (times in ms,
-    each with its bound and launches)."""
+    raises), then times the three. Then the timers' floors and the
+    redesigned kernels' edge cases, each bit-equal to its plain version.
+    Returns the suites' rows (times in ms, each with its bound and
+    launches)."""
     import torch
 
     from sparse2dense_tpu_torch.ops import gather_probes as GP
@@ -674,11 +724,26 @@ def phase_probes():
     for k, n in launches.items():
         if not n:
             raise AssertionError(f"the microbench's B4 suites launched no {k} kernel")
+    floors = MB.bench_timer_floor(dev)
+    for row in floors:
+        row["bound_ms"] = bound(row["nbytes"], 0.0)[0]
+        print(f"[probes] {row['case']}: " + json.dumps(row), flush=True)
     for row in rows:
         row["bound_ms"], row["bound_by"] = bound(row["nbytes"], 0.0)
+        # the floors beside each case: an empty call, and a copy of the table
+        row["timer_floor_cold_ms"], row["copy_floor_cold_ms"] = (f["cold_ms"] for f in floors)
         print(f"[probes] {row['case']}: bit-equal to its plain version and index_select; "
               + json.dumps(row), flush=True)
     print(f"[probes] launches in the B4 suites: {launches}", flush=True)
+    edges = _probe_edge_cases(dev)
+    for kernel, case, run, plain in edges:
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{kernel} {case}: the kernel's output differs from its plain "
+                                 f"version's")
+    print(f"[probes] {len(edges)} edge cases bit-equal to their plain versions: "
+          + "; ".join(f"{k} {c}" for k, c, _, _ in edges), flush=True)
     return rows
 
 

@@ -19,9 +19,11 @@ The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use
 (``ops/cuda_build.py``) and called through ctypes on PyTorch's current
 stream. Each dispatching function takes the plain version for CPU tensors
 and launches the kernel for CUDA tensors or raises: there is no fallback.
-``launches`` counts each kernel's launches. The plain versions refuse an
-index out of range: on the CPU with a ValueError, on the card with an
-asynchronous device assert (no host sync); the kernels stop with a trap.
+``launches`` counts each kernel's launches; :func:`empty` launches an empty
+kernel, the fixed cost of one timed call, which no path runs and no count
+counts. The plain versions refuse an index out of range: on the CPU with a
+ValueError, on the card with an asynchronous device assert (no host sync);
+the kernels stop with a trap.
 """
 from __future__ import annotations
 
@@ -50,18 +52,24 @@ def build() -> str:
     return cuda_build.build(SOURCE, LIBRARY)
 
 
+def load(library: str) -> ctypes.CDLL:
+    """A built kernel library, with the C interface's types declared."""
+    lib = ctypes.CDLL(library)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.s2d_take.argtypes = [p, p, p, i, i, i, p]
+    lib.s2d_window_take.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.s2d_run_gather.argtypes = [p, p, p, i, i, i, i, p]
+    lib.s2d_empty.argtypes = [p]
+    for fn in (lib.s2d_take, lib.s2d_window_take, lib.s2d_run_gather, lib.s2d_empty):
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         build()
-        lib = ctypes.CDLL(LIBRARY)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.s2d_take.argtypes = [p, p, p, i, i, i, p]
-        lib.s2d_window_take.argtypes = [p, p, p, i, i, i, i, i, p]
-        lib.s2d_run_gather.argtypes = [p, p, p, i, i, i, i, p]
-        for fn in (lib.s2d_take, lib.s2d_window_take, lib.s2d_run_gather):
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = load(LIBRARY)
     return _lib
 
 
@@ -85,12 +93,17 @@ def _check_window(v: int, n: int, blk: int, w: int) -> None:
         raise ValueError(f"need rows ({n}) a multiple of blk ({blk}) and 0 < w ({w}) <= V ({v})")
 
 
+def window_starts(v: int, n: int, blk: int, w: int) -> torch.Tensor:
+    """First table row of each output block's window, as the window-take
+    kernel computes it: ``min(b*blk, v - w)`` (clamped at the tail)."""
+    _check_window(v, n, blk, w)
+    return (torch.arange(n // blk) * blk).clamp(max=v - w)
+
+
 def window_index(v: int, local: torch.Tensor, blk: int, w: int) -> torch.Tensor:
     """Absolute row of every output row of :func:`window_take`:
     ``min(b*blk, v - w) + local[b*blk + r]``."""
-    n = local.shape[0]
-    _check_window(v, n, blk, w)
-    start = (torch.arange(n // blk, device=local.device) * blk).clamp(max=v - w)
+    start = window_starts(v, local.shape[0], blk, w).to(local.device)
     return (start[:, None] + local.view(-1, blk).long()).reshape(-1)
 
 
@@ -139,7 +152,9 @@ def _launch(name: str, fn, dev: torch.device, *args) -> None:
 
 
 def take_cuda(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Launch the take kernel (B4a)."""
+    """Launch the take kernel (B4a): warps over batches of 32 rows, each
+    gathered into shared memory and stored by one bulk copy; one wave of
+    blocks."""
     dev = _check_cuda_args("take_cuda", feat, idx)
     v, c = feat.shape
     out = torch.empty((idx.shape[0], c), dtype=torch.float32, device=dev)
@@ -149,14 +164,18 @@ def take_cuda(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def window_take_cuda(feat: torch.Tensor, local: torch.Tensor, blk: int, w: int) -> torch.Tensor:
-    """Launch the window-take kernel (B4b): one block per output block, its
-    w x C window staged in shared memory by one bulk copy."""
+    """Launch the window-take kernel (B4b): one block an output block, its
+    window and its local indices bulk-copied into shared memory."""
     dev = _check_cuda_args("window_take_cuda", feat, local)
     v, c = feat.shape
     n = local.shape[0]
     _check_window(v, n, blk, w)
-    if w * c * 4 > SMEM_LIMIT - 1024:
-        raise ValueError(f"a window of {w} x {c} float32 does not fit shared memory")
+    if blk % 4 or local.data_ptr() % 16:
+        raise ValueError(f"window_take: blk ({blk}) must be a multiple of 4 and local 16-byte "
+                         f"aligned (bulk copies)")
+    if w * c * 4 + blk * 4 > SMEM_LIMIT - 1024:
+        raise ValueError(f"a window of {w} x {c} float32 and {blk} indices do not fit shared "
+                         f"memory")
     out = torch.empty((n, c), dtype=torch.float32, device=dev)
     _launch("window_take", _library().s2d_window_take, dev, feat.data_ptr(), local.data_ptr(),
             out.data_ptr(), v, n, c, blk, w)
@@ -175,6 +194,15 @@ def run_gather_cuda(feat: torch.Tensor, idx: torch.Tensor, run_len: int) -> torc
     _launch("run_gather", _library().s2d_run_gather, dev, feat.data_ptr(), idx.data_ptr(),
             out.data_ptr(), v, idx.shape[0], c, run_len)
     return out
+
+
+def empty(like: torch.Tensor) -> None:
+    """Launch the empty kernel on ``like``'s card (nothing on the CPU)."""
+    if like.device.type == "cuda":
+        with torch.cuda.device(like.device):
+            err = _library().s2d_empty(torch.cuda.current_stream(like.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
 
 
 def take(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
