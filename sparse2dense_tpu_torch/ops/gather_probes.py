@@ -9,7 +9,10 @@ feat is (V, C) float32 with C a multiple of 4; indices are int32.
   window start clamped at the tail, ``s_b = min(b*blk, V - w)``, and
   ``local`` in [0, w). (The reference's own check wraps the window modulo V
   and so compares only rows ``[:V - w]``; these versions follow the kernel on
-  every row.)
+  every row.) The kernel bulk-copies each block's indices, so on the card
+  ``blk`` must be a multiple of 4 and ``local`` 16-byte aligned (a fresh
+  tensor is); the plain version takes any ``blk``. Loading the indices
+  with ordinary loads instead, which takes any, was 5-10% slower warm.
 - :func:`run_gather` (B4c, ``bench_pallas_dma``): R = ``run_len`` rows per
   copy, ``out[i*R:(i+1)*R] = feat[idx[i]:idx[i] + R]``, with every
   ``idx[i]`` a multiple of R and ``idx[i] + R <= V``, as the TPU kernel
@@ -93,17 +96,17 @@ def _check_window(v: int, n: int, blk: int, w: int) -> None:
         raise ValueError(f"need rows ({n}) a multiple of blk ({blk}) and 0 < w ({w}) <= V ({v})")
 
 
-def window_starts(v: int, n: int, blk: int, w: int) -> torch.Tensor:
+def window_starts(v: int, n: int, blk: int, w: int, device=None) -> torch.Tensor:
     """First table row of each output block's window, as the window-take
     kernel computes it: ``min(b*blk, v - w)`` (clamped at the tail)."""
     _check_window(v, n, blk, w)
-    return (torch.arange(n // blk) * blk).clamp(max=v - w)
+    return (torch.arange(n // blk, device=device) * blk).clamp(max=v - w)
 
 
 def window_index(v: int, local: torch.Tensor, blk: int, w: int) -> torch.Tensor:
     """Absolute row of every output row of :func:`window_take`:
     ``min(b*blk, v - w) + local[b*blk + r]``."""
-    start = window_starts(v, local.shape[0], blk, w).to(local.device)
+    start = window_starts(v, local.shape[0], blk, w, local.device)
     return (start[:, None] + local.view(-1, blk).long()).reshape(-1)
 
 

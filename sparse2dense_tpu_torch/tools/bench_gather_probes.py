@@ -4,26 +4,18 @@ and for variants of it, beside the timers' floors, on one NVIDIA GPU.
 
     python3 -m sparse2dense_tpu_torch.tools.bench_gather_probes [--rounds 2] [name=path ...]
 
-First the flush check: the empty kernel, the copy of the table and each
-source's take, L2-cold under the cold timer's flush (``microbench.flush_l2``:
-the L2 left clean) and under its write alone (``flush_l2_dirty``: the L2
-left full of dirty lines), in turns. Then the table rows B4b stages in
-shared memory (:func:`staged_rows`). Then the cases, each bit-equal to its
-plain version and launched 0 times a frame: B4a at V = 2^17, C = 16; B4b
-at (blk, w) = (256, 512) and (512, 1024), and at (256, 512) on V = 2^20
-rows, where the output blocks outnumber the blocks the SMs hold at once
-(the workload of a design that slides each block's window over several);
-B4c at R = 1, 8 and 64; and the two floors (``microbench.floor_cases``). A variant is a copy of the source
-(``name=path.cu``: ablations live in such copies) or another checkout of
-the repo (``name=dir``, e.g. the parent commit unpacked by ``git archive``);
-``bench_variants`` builds, times (L2-warm over 20 launches, and cold) and
+The cases, each bit-equal to its plain version and launched 0 times a
+frame: B4a at V = 2^17, C = 16; B4b at (blk, w) = (256, 512) and
+(512, 1024); B4c at R = 1, 8 and 64; and the timers' two floors
+(``microbench.floor_cases``: an empty kernel, a copy of the table). A
+variant is a copy of the source (``name=path.cu``: ablations live in such
+copies) or another checkout of the repo (``name=dir``, e.g. the parent
+commit unpacked by ``git archive``); ``bench_variants`` builds, times
+(L2-warm over 20 launches, and L2-cold after ``microbench.flush_l2``) and
 checks each.
 """
 from __future__ import annotations
 
-import json
-
-import numpy as np
 import torch
 
 from ..ops import gather_probes as GP
@@ -32,21 +24,7 @@ from . import microbench as MB
 
 V, C = 1 << 17, 16
 WINDOW_SHAPES = ((256, 512), (512, 1024))
-LARGE_V = 1 << 20          # B4b rows: 4,096 output blocks, ~5 waves of blocks
 RUN_LENS = (1, 8, 64)
-
-
-def staged_rows(v: int, n: int, blk: int, w: int, blocks: int) -> int:
-    """Table rows a window take with ``blocks`` blocks stages in shared
-    memory when block p slides its window over the contiguous output blocks
-    ``[p*nb // blocks, (p+1)*nb // blocks)``, each row once: the union of
-    its windows. With a block an output block (the kernel), every window
-    whole: ``nb * w``."""
-    starts = GP.window_starts(v, n, blk, w).tolist()
-    nb = len(starts)
-    edges = [p * nb // blocks for p in range(blocks + 1)]
-    return sum(min(starts[b1 - 1] + w - starts[b0], (b1 - b0) * w)
-               for b0, b1 in zip(edges, edges[1:]) if b1 > b0)
 
 
 def cases(dev, v=V, c=C):
@@ -61,11 +39,6 @@ def cases(dev, v=V, c=C):
         yield (f"window_take BLK={blk} W={w}", 0,
                lambda m, local=local, blk=blk, w=w: m.window_take_cuda(feat, local, blk, w),
                GP.window_take_plain(feat, local, blk, w), 0.0)
-    big_v = min(LARGE_V, 8 * v)
-    bfeat, [(blk, w, (blocal, _))] = MB.window_take_data(dev, big_v, c, WINDOW_SHAPES[:1])
-    yield (f"window_take BLK={blk} W={w} V={big_v}", 0,
-           lambda m: m.window_take_cuda(bfeat, blocal, blk, w),
-           GP.window_take_plain(bfeat, blocal, blk, w), 0.0)
     for run_len in RUN_LENS:
         rfeat, var = MB.run_gather_data(dev, run_len, v, c)
         yield (f"run_gather R={run_len}", 0,
@@ -77,43 +50,11 @@ def cases(dev, v=V, c=C):
     yield copy_case, 0, lambda m: copy(0), copy(0), 0.0
 
 
-def flush_check(srcs, dev, rounds: int, reps: int = 20, v=V, c=C) -> None:
-    """Cold ms of the floors and of each source's take under both flushes,
-    in turns within each round; one JSON line per (case, flush)."""
-    feat, (idx, _) = MB.take_data(dev, v, c)
-    calls = {case: fn for case, fn, _ in MB.floor_cases(dev, v, c)}
-    for src, (mod, lib) in srcs.items():
-        def take(i, mod=mod, lib=lib):
-            if lib is not None:
-                mod._lib = lib
-            return mod.take_cuda(feat, idx)
-        calls[f"take V={v} C={c} [{src}]"] = take
-    flushes = {"clean (write, read back)": MB.flush_l2, "dirty (write)": MB.flush_l2_dirty}
-    recs = {(case, f): [] for case in calls for f in flushes}
-    for _ in range(rounds):
-        for f, flush in flushes.items():
-            for case, fn in calls.items():
-                recs[case, f].append(MB.timed_cold(fn, dev, reps=reps, flush=flush) * 1e3)
-    for (case, f), ms in recs.items():
-        print(json.dumps(dict(flush_check=case, flush=f, cold_ms=ms,
-                              median_ms=float(np.median(ms)))), flush=True)
-    for mod, lib in srcs.values():
-        if lib is not None:
-            mod._lib = None
-
-
 def main() -> None:
     args = BV.parser(__doc__).parse_args()
     srcs = BV.sources(GP, args.variants, "gather")
     dev = torch.device("cuda")
     print(MB.device_line(dev), flush=True)
-    flush_check(srcs, dev, args.rounds)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for blk, w in WINDOW_SHAPES:
-        nb = V // blk
-        print(json.dumps(dict(staged_mb=dict(
-            shape=[blk, w], kernel=staged_rows(V, V, blk, w, nb) * C * 4e-6,
-            sliding_one_block_an_sm=staged_rows(V, V, blk, w, sms) * C * 4e-6))), flush=True)
     BV.run(srcs, cases(dev), args.rounds, reps=20)
 
 

@@ -1,10 +1,9 @@
 """Host side of the redesigned gather probes (sparse2dense_tpu_torch/ops/gather_probes.py,
 csrc/gather_probes.cu) and of their bench tool (tools/bench_gather_probes.py):
-the window each block of the window-take kernel stages; the bench's cases
-and the timers' floors on the CPU; the wrapper's ``load``. No JAX here: the
+the window each block of the window-take kernel stages and the rows it
+picks; the bench's cases and the timers' floors on the CPU; the cold
+timer's flush; the wrapper's ``load``. No JAX here: the
 probes' parity with the Pallas kernels is tests/test_torch_microbench.py's."""
-import inspect
-
 import numpy as np
 import pytest
 import torch
@@ -44,16 +43,19 @@ def test_window_schedule_covers_each_output_block_from_its_window(v, n, blk, w):
         assert clamped.numel() > 0                          # the tail is exercised
 
 
-def test_staged_rows_whole_windows_and_sliding():
-    """The bench's count of the rows B4b stages: every window whole with a
-    block an output block (16.8 MB at the reference sizes), each row once a
-    block when 132 blocks slide their windows (10.5 / 12.7 MB)."""
-    for (blk, w), sliding_mb in zip(BG.WINDOW_SHAPES, (10.53, 12.68)):
-        nb = BG.V // blk
-        assert BG.staged_rows(BG.V, BG.V, blk, w, nb) == nb * w == 262144
-        assert round(BG.staged_rows(BG.V, BG.V, blk, w, 132) * BG.C * 4e-6, 2) == sliding_mb
-    # w < blk: windows do not overlap, so sliding saves nothing
-    assert BG.staged_rows(4096, 4096, 256, 128, 4) == BG.staged_rows(4096, 4096, 256, 128, 16)
+@pytest.mark.parametrize("blk,offset", [(100, 0), (256, 1), (6, 3)])
+def test_window_take_rows_are_the_windows_rows_at_any_blk_and_offset(blk, offset):
+    """window_take on the CPU picks row ``min(b*blk, V - w) +
+    local[b*blk + r]`` for any blk and for indices that start anywhere in
+    their buffer (the card's kernel asks blk a multiple of 4 and aligned
+    indices; its rows are chip_smoke.py's to check)."""
+    v, c, w, n = 1000, 8, 3 * blk, 1200 if blk == 100 else 16 * blk
+    rng = np.random.RandomState(blk)
+    feat = torch.from_numpy(rng.randn(v, c).astype(np.float32))
+    local = torch.from_numpy(rng.randint(0, w, size=(n + offset,)).astype(np.int32))[offset:]
+    got = GP.window_take(feat, local, blk, w)
+    want = torch.stack([feat[min(k // blk * blk, v - w) + int(local[k])] for k in range(n)])
+    assert torch.equal(got, want)
 
 
 def test_window_starts_and_the_cuda_wrapper_refuse_what_the_kernel_does_not_take():
@@ -78,7 +80,7 @@ def test_bench_cases_and_floors_build_on_the_cpu(capsys):
         assert got.shape == want.shape and torch.equal(got, want), name
         names.append(name)
     assert names == ["take V=4096 C=16", "window_take BLK=256 W=512", "window_take BLK=512 W=1024",
-                     "window_take BLK=256 W=512 V=32768", "run_gather R=1", "run_gather R=8",
+                     "run_gather R=1", "run_gather R=8",
                      "run_gather R=64", "timer floor: empty kernel",
                      "copy floor: copy_ V=4096 C=16"]
     rows = MB.bench_timer_floor(CPU, v=1024, c=16, reps=2)
@@ -89,8 +91,33 @@ def test_bench_cases_and_floors_build_on_the_cpu(capsys):
 
 
 def test_cold_timer_flushes_clean_and_the_wrapper_loads_a_library(monkeypatch):
-    assert inspect.signature(MB.timed_cold).parameters["flush"].default is MB.flush_l2
-    assert callable(GP.load)
+    """timed_cold runs :func:`microbench.flush_l2` (write the buffer, read it
+    back) before every call it times, warm-up calls excepted; the wrapper's
+    ``_library`` loads through ``load``."""
+    order = []
+
+    class Event:
+        def __init__(self, enable_timing):
+            pass
+
+        def record(self):
+            order.append("event")
+
+        def elapsed_time(self, end):
+            return 2.0
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: order.append("sleep"))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setattr(MB, "FLUSH_BYTES", 4096)
+    monkeypatch.setattr(MB, "_flush", None)
+    real_flush = MB.flush_l2
+    monkeypatch.setattr(MB, "flush_l2", lambda dev: order.append("flush") or real_flush(dev))
+    assert MB.timed_cold(lambda i: order.append(f"step {i}"), CPU, reps=2, warmup=1) == 2e-3
+    assert order == ["step 0", "flush", "sleep", "event", "step 1", "event",
+                     "flush", "sleep", "event", "step 2", "event"]
+    assert MB._flush.numel() == 1024 and not bool(MB._flush.any())   # written by the flush
+
     loaded = []
     monkeypatch.setattr(GP, "_lib", None)
     monkeypatch.setattr(GP, "build", lambda: "")
