@@ -14,7 +14,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      strided conv, within 1e-4 + 1e-4*|p| (summation order only); then, on
      the frame's first 30,037 rows, a plan with dy groups left to the
      residual pass (GATE), windows clipped at the end of V_in, all-padding
-     blocks, the z-only plan and Cin 5;
+     blocks, the z-only plan and Cin 5; and B1 under autograd
+     (``window_kernel.WindowPass``, the training step's window pass): on
+     those rows and conv1's subm and conv2_down's strided plans, its d
+     features and d weights against autograd through ``window_pass_plain``
+     + ``residual_conv`` within 1e-4 + 1e-4*|p| (the gradient of a linear
+     map does not depend on the bf16 forward), then its backward and reader
+     table timed on the frame's plans (the window backward's ms a step);
    - the plane subm conv on the plane states, masks and plans of conv2
      (32), conv3 (64) and conv4 (128) of the same frame on the plane
      engine, in bfloat16 within one bf16 rounding step,
@@ -69,11 +75,29 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ``engine="tile", tile_backend="pallas"`` (``dense_from_stage`` 2) at
    ``TILE_FRAME_BUDGETS``: 9 tile launches a frame and none of the other
    kernels, zero ``conv1_tile_drop``, ``tilek_miss`` and ``down_drop``;
-7. agreement: the tiny distillation model on the card against the same model
-   on the CPU (plain versions only), window, plane and tile engines.
+7. train: the flagship teacher-student training step at full width
+   (``tools/profile_train_step.py``: VoxelNet teacher and KD_VoxelNet +
+   S2D_RPN student on the window engine with bf16 dense stages, seeded
+   random weights, batch 1 of the bench's frame with its CenterHead targets
+   and distillation streams) through ``TS_Trainer.step``, 2 warm-up and 4
+   timed steps: the median step and its stages (teacher forward, student
+   forward + losses, backward, optimizer; synchronised at the boundaries),
+   18 window-pass launches a step (the teacher's two streams and the
+   student, 6 each), the peak memory, every loss, ``grad_norm``, and the
+   residual rows of the teacher's two backbone streams and the student's
+   against their budgets; it fails on a loss that is not finite, a
+   ``grad_norm`` <= 0, or a window-engine conv weight (``conv_input``,
+   ``conv1_*``, ``conv2_down``) whose gradient is None or all zero;
+8. agreement: the tiny distillation model on the card against the same model
+   on the CPU (plain versions only), window, plane and tile engines; and one
+   teacher-student step of the tiny pair (window engine) on the card against
+   the same step on the CPU with its window pass on bf16-rounded inputs (as
+   the kernel multiplies): every metric, the student gradient as a whole and
+   each window-engine conv weight's gradient within 2e-2 (the tiny step is
+   ill-conditioned: ``_ts_step_agreement`` says how much).
 
-TF32 is switched off for cuDNN and matmuls in phases 2 and 7, which compare
-against float32 plain versions; phases 3 to 6 run at PyTorch's defaults
+TF32 is switched off for cuDNN and matmuls in phases 2 and 8, which compare
+against float32 plain versions; phases 3 to 7 run at PyTorch's defaults
 (TF32 on in cuDNN convs, off in matmuls). With TF32 off cuDNN picks an FFT
 algorithm for the neck's 3x3 convs that costs ~200 ms a frame on an H100
 (``sparse2dense_tpu_torch/tools/profile_flagship.py``). The second-to-last
@@ -235,7 +259,85 @@ def _window_rows(batch, grid, gen):
             raise AssertionError(f"{name}: residual rows over budget")
         rows.append(row)
     torch.cuda.empty_cache()
-    return rows + _window_edge_rows(feats5, feats16, coords, lin, grid, gen)
+    rows += _window_edge_rows(feats5, feats16, coords, lin, grid, gen)
+    return rows + _window_backward_rows(cases, feats16, coords, lin, grid, gen)
+
+
+# window-pass backwards of a training step by plan: the student's conv_input
+# (no d features: its input is the reader's), conv1 (4 convs) and
+# conv2_down, and one reader table for the subm plan and one for the strided
+WINDOW_BACKWARDS = {"conv_input 5->16": 1, "conv1 16->16": 4, "conv2_down 16->32": 1}
+
+
+def _window_backward_rows(cases, feats16, coords, lin, grid, gen):
+    """B1 under autograd: the Function's gradients against autograd through
+    the plain formula on the first 30,037 rows (conv1's subm plan and
+    conv2_down's strided plan), then the backward and the reader table
+    timed at the frame's plans."""
+    import torch
+
+    from sparse2dense_tpu_torch.ops import window_conv as WC
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+    from sparse2dense_tpu_torch.ops.sparse_conv import conv_out_grid
+
+    n = 30037
+    f, cc, ll = feats16[:n], coords[:n], lin[:n]
+    down = ((2, 2, 2), (1, 1, 1), (3, 3, 3))
+    g_out = conv_out_grid(grid, *down)
+    oc, ol = WC.downsample_active_set_yxz(cc, cc[:, 0] >= 0, grid, g_out, *down, n)
+    checks = [("conv1 16->16", WC.make_subm_plan_presorted(ll, cc, grid, window=384), 16),
+              ("conv2_down 16->32", WC.make_strided_plan(ll, ol, oc, grid, g_out, *down,
+                                                         window=384, resid_budget=16384), 32)]
+    rows = []
+    for name, plan, cout in checks:
+        w = torch.randn((cout, 16, 3, 3, 3), device="cuda", generator=gen) * 0.2
+        cot = torch.randn((plan.out_lin.shape[0], cout), device="cuda", generator=gen)
+        grads = []
+        for function in (True, False):
+            x, w5 = f.clone().requires_grad_(True), w.clone().requires_grad_(True)
+            wd = WC.taps_zyx_to_dyx(w5)
+            main = (WK.WindowPass.apply(x, wd, WC.with_readers(plan), (3, 3, 3)) if function
+                    else WC.window_pass_plain(x, plan, wd))
+            ((main + WC.residual_conv(x, plan, wd)) * cot).sum().backward()
+            grads.append((x.grad, w5.grad))
+        torch.cuda.synchronize()
+        row = dict(kernel="window_pass", case=f"backward {name} (30,037 rows)",
+                   v_out=plan.out_lin.shape[0], n_resid=int(plan.n_resid),
+                   hits=int((WC.hit_table(plan) >= 0).sum()), per_frame=0)
+        for key, got, want in zip(("d_features", "d_weights"), *grads):
+            err = (got - want).abs()
+            row[f"{key}_max_abs_err"] = float(err.max())
+            row[f"{key}_n_bad"] = int((err > TOL_ABS + TOL_REL * want.abs()).sum())
+        row["max_abs_err"] = max(row["d_features_max_abs_err"], row["d_weights_max_abs_err"])
+        print("[kernels] " + json.dumps(row), flush=True)
+        if row["d_features_n_bad"] or row["d_weights_n_bad"]:
+            raise AssertionError(f"window backward {name}: gradients beyond {TOL_ABS} + "
+                                 f"{TOL_REL}*|p| of autograd through the plain formula")
+        rows.append(row)
+    step_ms = 0.0
+    for name, plan, f_case, cin, cout, ksize, *_ in cases:
+        if name not in WINDOW_BACKWARDS:
+            continue
+        wd = WC.taps_zyx_to_dyx(torch.randn((cout, cin) + ksize, device="cuda", generator=gen))
+        g = torch.randn((plan.out_lin.shape[0], cout), device="cuda", generator=gen)
+        readers = WC.reader_table(plan)
+        need = name != "conv_input 5->16"
+        ms = cuda_ms(lambda: WC.window_pass_grad(f_case, wd, readers, g, need_features=need),
+                     reps=5)
+        table_ms = cuda_ms(lambda: WC.reader_table(plan), reps=5)
+        per_step = WINDOW_BACKWARDS[name]
+        step_ms += ms * per_step + (table_ms if name != "conv1 16->16" else 0.0)
+        row = dict(kernel="window_pass", case=f"backward time {name}", v_out=plan.out_lin.shape[0],
+                   hits=int((readers >= 0).sum()), backward_ms=ms, reader_table_ms=table_ms,
+                   per_step=per_step, per_frame=0, max_abs_err=0.0)
+        print("[kernels] " + json.dumps(row), flush=True)
+        rows.append(row)
+    print(f"[kernels] window backward a training step (the student's 6 window convs and 2 "
+          f"reader tables): {step_ms:.3f} ms", flush=True)
+    rows.append(dict(kernel="window_pass", case="backward a step", window_backward_ms=step_ms,
+                     per_frame=0, max_abs_err=0.0))
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _densify_rows(feats, coords, grid):
@@ -816,6 +918,68 @@ def phase_main_path(engine: str, budgets=None):
     return res
 
 
+TRAIN_WARMUP, TRAIN_STEPS = 2, 4
+TRAIN_LAUNCHES = 18   # window passes a step: the teacher's two streams, the student
+# the student's window-engine conv weights: the custom autograd Function's
+WINDOW_WEIGHTS = ("backbone.conv_input.conv_0_weight", "backbone.conv1_0.conv1_weight",
+                  "backbone.conv1_0.conv2_weight", "backbone.conv1_1.conv1_weight",
+                  "backbone.conv1_1.conv2_weight", "backbone.conv2_down.conv_weight")
+
+
+def phase_train():
+    """The flagship teacher-student training step on the card, with the
+    window-pass launch count set to 0 just before the steps and read just
+    after (``tools/profile_train_step.py``)."""
+    import math
+
+    import torch
+
+    from sparse2dense_tpu_torch.tools import profile_train_step as PT
+
+    batch, trainer = PT.train_setup(1, TRAIN_WARMUP + TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    rows, metrics = PT.run_steps(trainer, batch, TRAIN_WARMUP + TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+
+    launches = WK.launches
+    per_step = [r["window_pass_launches"] for r in rows]
+    if per_step != [TRAIN_LAUNCHES] * len(rows):
+        raise AssertionError(f"train: window-pass launches a step {per_step}, expected "
+                             f"{TRAIN_LAUNCHES}")
+    metrics = {k: float(v) for k, v in metrics.items()}
+    bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"train: metrics not finite: {bad}")
+    if not metrics["grad_norm"] > 0:
+        raise AssertionError(f"train: grad_norm {metrics['grad_norm']}")
+    params = dict(trainer.model.named_parameters())
+    for name in WINDOW_WEIGHTS:
+        g = params[name].grad
+        if g is None or not bool(g.abs().max() > 0):
+            raise AssertionError(f"train: the window-engine weight {name} got no gradient")
+    # residual rows of every backbone run of the step against their budgets
+    resid = {}
+    with torch.inference_mode():
+        for tag, model, prefix in (("teacher dense", trainer.teacher, "dense_"),
+                                   ("teacher reconstruction", trainer.teacher, "reconstruction_"),
+                                   ("student", trainer.model, "")):
+            feats = model.reader(batch[prefix + "voxels"], batch[prefix + "num_points"])
+            _, _, tele = model.backbone(feats, batch[prefix + "coordinates"])
+            for name, (count, budget) in tele.items():
+                resid[f"{tag} {name}"] = [int(count.max()), budget]
+    over = {k: v for k, v in resid.items() if v[0] > v[1]}
+    if over:
+        raise AssertionError(f"train: residual rows over budget: {over}")
+    res = dict(PT.summary(rows[TRAIN_WARMUP:]), peak_mem_gb=peak, launches=launches,
+               launches_per_step=per_step, metrics=metrics, residual_rows_vs_budget=resid,
+               steps=rows)
+    print("[train] " + json.dumps(res), flush=True)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return res
+
+
 # tiny-model engine settings: every key of every stage fits and the plan
 # windows cover every neighbour (as in the CPU tests)
 TINY_ENGINES = {
@@ -864,7 +1028,87 @@ def phase_agreement():
             raise AssertionError(f"tiny {engine} model disagrees with its CPU run: {worst}")
         if not n_det["cuda"] or not bool(torch.isfinite(dets["cuda"]["box3d_lidar"]).all()):
             raise AssertionError(f"predict on the card gave no finite detections ({engine})")
+    worst["ts_step"] = _ts_step_agreement()
     return worst
+
+
+@contextlib.contextmanager
+def _window_pass_in_bf16():
+    """The CPU's window pass on the inputs rounded to bf16, as the kernel
+    multiplies them (bf16 products, float32 sums), while the block runs."""
+    import torch
+
+    from sparse2dense_tpu_torch.ops import window_conv as WC
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+
+    def plain_bf16(features, plan, weights, ksize=(3, 3, 3)):
+        if features.device.type != "cpu":
+            raise ValueError("the bf16 plain window pass is the CPU side of a comparison")
+        return WC.window_pass_plain(features.to(torch.bfloat16).float(), plan,
+                                    weights.to(torch.bfloat16).float())
+
+    old, WK.window_pass = WK.window_pass, plain_bf16
+    try:
+        yield
+    finally:
+        WK.window_pass = old
+
+
+def _ts_step_agreement():
+    """One teacher-student step of the tiny pair (window engine) on the card
+    against the same step on the CPU, whose window pass takes the inputs
+    rounded to bf16 as the kernel does. The tiny step is ill-conditioned
+    (train-mode BatchNorm over 16 BEV cells and over single cells amplifies
+    small changes of the window pass's output, most in single modules'
+    gradients, such as a conv bias before BatchNorm whose true gradient is
+    zero), so the gates are:
+    every metric within ``TINY_TOL`` of its CPU value (relative), the whole
+    student gradient within ``TINY_TOL`` of its largest CPU value, and each
+    window-engine conv weight's gradient within ``TINY_TOL`` of its own
+    largest CPU value."""
+    import torch
+
+    from sparse2dense_tpu_torch.models import build_detector
+    from sparse2dense_tpu_torch.solver.optim import OneCycleAdam
+    from sparse2dense_tpu_torch.training.synthetic import make_batch
+    from sparse2dense_tpu_torch.training.trainer import TS_Trainer
+    from sparse2dense_tpu_torch.utils.config import ConfigDict
+
+    cfg = ConfigDict.fromfile(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                           "configs", "tests", "distill_tiny.py"))
+    for key in ("model", "S_model"):
+        cfg[key]["backbone"].update(TINY_ENGINES["window"])
+    metrics, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        kw = dict(test_cfg=cfg["test_cfg"], voxel_generator=cfg["voxel_generator"], device=dev)
+        teacher = build_detector(cfg["model"], generator=torch.Generator().manual_seed(4), **kw)
+        student = build_detector(cfg["S_model"], generator=torch.Generator().manual_seed(5), **kw)
+        batch = make_batch(cfg, 1, max_voxels=512, n_points=3000, n_obj=6, device=dev,
+                           with_targets=True, distillation=True)
+        opt = OneCycleAdam(student.parameters(), cfg["optimizer"], cfg["lr_config"], 10,
+                           cfg["optimizer_config"]["grad_clip"])
+        with _window_pass_in_bf16() if dev == "cpu" else contextlib.nullcontext():
+            step = TS_Trainer(teacher, student, opt, cfg["model"]).step(batch)
+        metrics[dev] = {k: float(v) for k, v in step.items()}
+        grads[dev] = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+                      for n, p in student.named_parameters()}
+    ref = grads["cpu"]
+    diff = {n: float((grads["cuda"][n] - g).abs().max()) for n, g in ref.items()}
+    errs = dict(
+        metrics=max(abs(v - metrics["cpu"][k]) / max(abs(metrics["cpu"][k]), 1e-6)
+                    for k, v in metrics["cuda"].items()),
+        gradients=max(diff.values()) / max(float(g.abs().max()) for g in ref.values()),
+        window_weights=max(diff[n] / float(ref[n].abs().max()) for n in WINDOW_WEIGHTS))
+    worst = max(diff, key=lambda n: diff[n] / max(float(ref[n].abs().max()), 1e-12))
+    print(f"[agreement] tiny teacher-student step, window engine, cuda vs cpu (window pass "
+          f"on bf16-rounded inputs): max rel diff {json.dumps(errs)}; not gated: the worst "
+          f"tensor relative to itself {worst} {diff[worst] / float(ref[worst].abs().max()):.3e}; "
+          f"metrics cuda {json.dumps(metrics['cuda'])} cpu {json.dumps(metrics['cpu'])}",
+          flush=True)
+    if max(errs.values()) > TINY_TOL["window"]:
+        raise AssertionError(f"tiny teacher-student step disagrees with its CPU run: {errs} "
+                             f"> {TINY_TOL['window']}")
+    return max(errs.values())
 
 
 def _record(name, source, replaces, launches, rows):
@@ -901,15 +1145,18 @@ def main() -> int:
     window = phase_main_path("window")
     plane = phase_main_path("plane", budgets=FRAME_BUDGETS)
     tile = phase_main_path("tile", budgets=TILE_FRAME_BUDGETS)
+    train = phase_train()
     with no_tf32():
         phase_agreement()
 
     wrows, prows, trows = ([r for r in rows if r["kernel"] == k]
                            for k in ("window_pass", "plane_subm", "tile_subm"))
+    b1_paths = {"window": window["launches"]["window_pass"],
+                "plane": plane["launches"]["window_pass"], "train": train["launches"]}
     record = {"kernels": [
-        _record("window_pass", "sparse2dense_tpu_torch/csrc/window_pass.cu",
-                "sparse2dense_tpu/ops/pallas/window_kernel.py:69",
-                window["launches"]["window_pass"], wrows),
+        dict(_record("window_pass", "sparse2dense_tpu_torch/csrc/window_pass.cu",
+                     "sparse2dense_tpu/ops/pallas/window_kernel.py:69",
+                     sum(b1_paths.values()), wrows), launches_by_path=b1_paths),
         _record("plane_subm", "sparse2dense_tpu_torch/csrc/plane_subm.cu",
                 "sparse2dense_tpu/ops/pallas/plane_block_kernel.py:131",
                 plane["launches"]["plane_subm"], prows),
@@ -930,6 +1177,11 @@ def main() -> int:
         print(f"[main] {res['engine']} engine frame: median {res['frame_ms_median']:.1f} ms, "
               f"min {res['frame_ms_min']:.1f}, max {res['frame_ms_max']:.1f} over "
               f"{len(res['frame_ms'])} frames", flush=True)
+    b1_bwd = [r for r in wrows if "window_backward_ms" in r][0]["window_backward_ms"]
+    print(f"[train] teacher-student step: median {train['step_ms']:.1f} ms over {TRAIN_STEPS} "
+          f"steps ({', '.join(f'{k} {v:.1f}' for k, v in train['stages_ms'].items())}); "
+          f"window backward {b1_bwd:.3f} ms a step ({b1_bwd / train['step_ms']:.2%}); peak "
+          f"{train['peak_mem_gb']:.2f} GiB; {TRAIN_LAUNCHES} window passes a step", flush=True)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

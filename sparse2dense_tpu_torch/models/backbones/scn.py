@@ -54,6 +54,12 @@ def _taps(w: torch.Tensor) -> torch.Tensor:
     return w.permute(2, 3, 4, 1, 0).reshape(-1, cin, cout)
 
 
+def _for_autograd(plans: List[WC.ConvPlan]) -> List[WC.ConvPlan]:
+    """Plans with their reader tables when gradients will flow (one table a
+    plan for every conv that shares it), else as they are."""
+    return [WC.with_readers(p) for p in plans] if torch.is_grad_enabled() else plans
+
+
 def _win_conv(feats, plans, w, b=None, ksize=(3, 3, 3)):
     wd = WC.taps_zyx_to_dyx(w)
     return torch.stack([WC.window_conv(f, p, wd, b, ksize=ksize)
@@ -128,7 +134,7 @@ class WinDownsample(nn.Module):
                 self.ksize, window=self.window, resid_budget=self.resid_budget))
             ocs.append(oc)
             ols.append(ol)
-        oc, ol = torch.stack(ocs), torch.stack(ols)
+        oc, ol, plans = torch.stack(ocs), torch.stack(ols), _for_autograd(plans)
         out = _win_conv(feats, plans, self.conv_weight, ksize=self.ksize)
         ovalid = (oc >= 0).all(-1)
         out = F.relu(self.norm(out, mask=ovalid[..., None])) * ovalid[..., None].to(out.dtype)
@@ -481,9 +487,8 @@ class SpMiddleResNetFHD(nn.Module):
         rows = [WC.sort_rows(f, c, grid) for f, c in zip(feats, coords)]
         feats, coords, lin = (torch.stack(t) for t in zip(*rows))
         valid = lin < WC.MISS
-        plans: List[WC.ConvPlan] = [
-            WC.make_subm_plan_presorted(l, c, grid, window=self.win_window)
-            for l, c in zip(lin, coords)]
+        plans = _for_autograd([WC.make_subm_plan_presorted(l, c, grid, window=self.win_window)
+                               for l, c in zip(lin, coords)])
         telemetry["conv1"] = (torch.stack([p.n_resid for p in plans]),
                               plans[0].resid_rows.shape[0])
         feats = self.conv_input(feats, valid, plans)

@@ -13,6 +13,7 @@ from torch import nn
 from ..device import resolve_device
 from .backbones.scn import SpMiddleResNetFHD
 from .detectors.kd import KD_VoxelNet
+from .detectors.voxelnet import VoxelNet
 from .heads.center_head import CenterHead, SepHead
 from .necks.rpn import RPN
 from .necks.s2d_rpn import S2D_RPN
@@ -22,7 +23,7 @@ READERS = {"VoxelFeatureExtractorV3": VoxelFeatureExtractorV3}
 BACKBONES = {"SpMiddleResNetFHD": SpMiddleResNetFHD}
 NECKS = {"RPN": RPN, "S2D_RPN": S2D_RPN}
 HEADS = {"CenterHead": CenterHead}
-DETECTORS = {"KD_VoxelNet": KD_VoxelNet}
+DETECTORS = {"KD_VoxelNet": KD_VoxelNet, "VoxelNet": VoxelNet}
 
 
 def _plain(cfg):
@@ -61,8 +62,9 @@ def _trunc_normal_(t: torch.Tensor, fan_in: int, scale: float, gen: torch.Genera
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """The reference's initialisers, drawn from ``generator``: lecun-normal
-    2D convs (he-normal in the head), fan-in-uniform 3D conv kernels, zero
-    biases, the heatmap output bias at ``init_bias``, unit BN scales."""
+    2D convs (he-normal in the head), fan-in-uniform 3D conv kernels (the
+    PCR generators' too), zero biases, the heatmap output bias at
+    ``init_bias``, unit BN scales."""
     head_mods = {id(m) for h in model.modules() if isinstance(h, CenterHead)
                  for m in h.modules()}
     for mod in model.modules():
@@ -77,6 +79,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         if p.dim() == 5:  # 3D conv kernels (Cout, Cin, kz, ky, kx)
             limit = math.sqrt(3.0 / p[0].numel())
             p.uniform_(-limit, limit, generator=generator)
+    for mod in model.modules():
+        if isinstance(mod, (nn.Conv3d, nn.ConvTranspose3d)):
+            mod.bias.zero_()
     for mod in model.modules():
         if isinstance(mod, SepHead):
             mod.hm_out.bias.fill_(mod.init_bias)
@@ -98,6 +103,8 @@ def build_detector(cfg, test_cfg=None, voxel_generator=None, device=None,
                  backbone=_build(bb, BACKBONES, "backbone"),
                  neck=_build(cfg.pop("neck"), NECKS, "neck"),
                  bbox_head=_build(cfg.pop("bbox_head"), HEADS, "head"))
+    if cfg["type"] == "KD_VoxelNet" and voxel_generator is not None:
+        cfg.setdefault("pc_range_full", tuple(float(v) for v in voxel_generator["range"]))
     model = _build(cfg, DETECTORS, "detector", test_cfg=_plain(test_cfg), **parts)
     init_weights(model, generator if generator is not None
                  else torch.Generator().manual_seed(0))

@@ -12,6 +12,7 @@ from torch import nn
 
 from ...ops.nms import rotated_nms
 from ...ops.topk import top_k
+from ..losses.centernet import fast_focal_loss, reg_loss
 from ..norm import BatchNorm
 
 
@@ -71,6 +72,35 @@ class CenterHead(nn.Module):
         x = F.relu(self.shared_bn(self.shared_conv(x.permute(0, 3, 1, 2))))
         return [{k: v.permute(0, 2, 3, 1) for k, v in getattr(self, f"task_{t}")(x).items()}
                 for t in range(len(self.tasks))]
+
+
+def _clip_sigmoid(x):
+    return torch.sigmoid(x).clamp(1e-4, 1 - 1e-4)
+
+
+def center_head_loss(preds, example, *, weight, code_weights):
+    """Total CenterHead loss over the tasks and its per-task logs:
+    FastFocal on the heatmap plus ``weight`` times the code-weighted L1 of
+    the box maps at the centres. ``example`` holds per-task lists of hm
+    (B, H, W, C), anno_box (B, M, 10), ind / mask / cat (B, M)."""
+    total, logs = 0.0, {}
+    for task_id, pd in enumerate(preds):
+        ind, mask = example["ind"][task_id], example["mask"][task_id]
+        hm_loss = fast_focal_loss(_clip_sigmoid(pd["hm"]), example["hm"][task_id], ind, mask,
+                                  example["cat"][task_id])
+        target_box = example["anno_box"][task_id]
+        names = ("reg", "height", "dim", "vel", "rot") if "vel" in pd else \
+            ("reg", "height", "dim", "rot")
+        if "vel" not in pd:   # drop the velocity targets
+            target_box = target_box[..., [0, 1, 2, 3, 4, 5, 8, 9]]
+        box_loss = reg_loss(torch.cat([pd[k] for k in names], -1), mask, ind, target_box)
+        cw = torch.tensor(code_weights[:box_loss.shape[0]], dtype=box_loss.dtype,
+                          device=box_loss.device)
+        loc_loss = (box_loss * cw).sum()
+        total = total + (hm_loss + weight * loc_loss)
+        logs[f"hm_loss_{task_id}"] = hm_loss
+        logs[f"loc_loss_{task_id}"] = loc_loss
+    return total, logs
 
 
 def decode_preds(pd, test_cfg):

@@ -1,9 +1,12 @@
-"""S2D_RPN, eval half (counterpart of ``sparse2dense_tpu/models/necks/s2d_rpn.py``).
+"""S2D_RPN (counterpart of ``sparse2dense_tpu/models/necks/s2d_rpn.py``).
 
 The S2D module densifies the BEV map (encoders, three ConvNeXt blocks,
 decoders) and fuses it with the sparse input; the RPN trunk then runs on the
-fused map. The PCR generators run only in training and come with the
-training slice.
+fused map. In training the PCR generators also run: a 1x1 conv to 640
+channels read as a 5-deep (128, 5, H, W) volume, then 1x1x1 convs and 2x
+transposed 3D convs to occupancy logits and point offsets at 1/4 and 1/2 of
+the grid, in NCDHW. The reference keeps them z-folded, (B, H, W, D*C) with
+channel d*C + c, a TPU layout; this is the operator it computes.
 
 Flax's ``nn.gelu`` defaults to the tanh approximation, hence
 ``approximate="tanh"`` everywhere here.
@@ -59,9 +62,35 @@ class ConvNeXtBlock(nn.Module):
         return self.pw2(gelu(self.pw1(self.norm(self.dwconv(x)))))
 
 
+class Conv3dBNRelu(nn.Module):
+    """1x1x1 Conv3d + BN + ReLU (the reference's ``Conv3dBNAct``)."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        self.conv = nn.Conv3d(cin, features, 1)
+        self.norm = BatchNorm(features)
+
+    def forward(self, x):
+        return F.relu(self.norm(self.conv(x)))
+
+
+class ConvT3dBNRelu(nn.Module):
+    """2x upsampling ConvTranspose3d k4/s2/p1 (flax k4/s2 SAME) + BN + ReLU."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        self.conv = nn.ConvTranspose3d(cin, features, 4, 2, 1)
+        self.norm = BatchNorm(features)
+
+    def forward(self, x):
+        return F.relu(self.norm(self.conv(x)))
+
+
 class S2D_RPN(RPN):
     """forward(x NHWC) -> (rpn_out, gen_offset_2, gen_mask_2, gen_offset_4,
-    gen_mask_4, F_S_a, F_S_b), maps NHWC; the PCR outputs are None (eval)."""
+    gen_mask_4, F_S_a, F_S_b): rpn_out and F_S_* NHWC; the PCR outputs NCDHW
+    in training (offsets 3 channels, mask logits 1; depth 20 and 10 at 1/2
+    and 1/4 of the grid), None in eval."""
 
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
@@ -78,12 +107,27 @@ class S2D_RPN(RPN):
         self.decoder_2b = ConvTBNGelu(256, c_in)
         self.fusion_dense = ConvBNGelu(c_in, c_in, kernel=1, padding=0)
         self.fusion_sparse = ConvBNGelu(c_in, c_in, kernel=1, padding=0)
+        self.out_conv = ConvBNGelu(c_in, 640, kernel=1, padding=0)
+        self.generator_1a = Conv3dBNRelu(128, 32)
+        self.generator_1b = ConvT3dBNRelu(32, 32)
+        self.gen_out_4 = nn.Conv3d(32, 3, 1)
+        self.gen_mask_4 = nn.Conv3d(32, 1, 1)
+        self.generator_2a = Conv3dBNRelu(32, 16)
+        self.generator_2b = ConvT3dBNRelu(16, 3)
+        self.gen_out_2 = nn.Conv3d(3, 3, 1)
+        self.gen_mask_2 = nn.Conv3d(3, 1, 1)
+
+    def _pcr(self, f_s_b):
+        """PCR generators on F_S_b (NCHW) -> (gen_offset_2, gen_mask_2,
+        gen_offset_4, gen_mask_4), NCDHW."""
+        gen = self.out_conv(f_s_b)
+        n, _, h, w = gen.shape
+        gen = self.generator_1b(self.generator_1a(gen.view(n, 128, 5, h, w)))
+        offset_4, mask_4 = self.gen_out_4(gen), self.gen_mask_4(gen)
+        gen = self.generator_2b(self.generator_2a(gen))
+        return self.gen_out_2(gen), self.gen_mask_2(gen), offset_4, mask_4
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "S2D_RPN training runs the PCR generators, which come with the "
-                "distillation-training slice")
         x = x.permute(0, 3, 1, 2)
         y1 = self.encoder_1b(self.encoder_1a(x))
         y2 = self.encoder_2b(self.encoder_2a(y1))
@@ -93,9 +137,10 @@ class S2D_RPN(RPN):
         y3 = torch.cat([self.decoder_1(att), y1], 1)
         f_s_b = self.decoder_2b(self.decoder_2a(y3))
         f_s_a = self.fusion_dense(f_s_b) + self.fusion_sparse(x)
+        gens = self._pcr(f_s_b) if self.training else (None,) * 4
         out, _ = self.trunk_and_ups(f_s_a)
 
         def nhwc(t):
             return t.permute(0, 2, 3, 1)
 
-        return nhwc(out), None, None, None, None, nhwc(f_s_a), nhwc(f_s_b)
+        return (nhwc(out),) + gens + (nhwc(f_s_a), nhwc(f_s_b))

@@ -15,9 +15,10 @@ a tap that steps off the grid lands on an empty guard key and never matches.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 MISS = 2 ** 30     # key of padded rows (never matches)
 GATE = -(2 ** 29)  # kbase of dy groups owned by the residual pass
@@ -76,6 +77,7 @@ class ConvPlan(NamedTuple):
     kbase: torch.Tensor       # (nb*block, 3) base where windowed, else GATE
     window: int
     block: int
+    readers: Optional[torch.Tensor] = None  # (V, 27) reader table, for the backward
 
 
 def make_subm_plan(features, coords, grid, block=128, window=512, resid_budget=1024):
@@ -239,21 +241,77 @@ def window_pass_plain(features: torch.Tensor, plan: ConvPlan,
     return out.view(pad_vo, -1)[:vo]
 
 
+def hit_table(plan: ConvPlan) -> torch.Tensor:
+    """(V_out, 27) int32: the input rank that the window pass reads for each
+    (output row, tap), -1 where it reads none. A tap is read where its dy
+    group is windowed (``kbase`` not ``GATE``), the tap is inside the grid
+    (``tap_ok``) and an input row has the target key ``kbase + offset``. A
+    windowed group's window holds every rank its targets can have (the plan
+    tests the group's whole column interval), so one search over all of
+    ``lin`` finds the same rows as a search inside the window."""
+    vo, v_in = plan.out_lin.shape[0], plan.lin.shape[0]
+    kb = plan.kbase[:vo]
+    tgt = (kb[:, :, None] + plan.offsets[None]).reshape(vo, 27)
+    live = (kb != GATE).repeat_interleave(9, dim=1) & plan.tap_ok
+    pos = torch.searchsorted(plan.lin, tgt).clamp(max=v_in - 1)
+    return torch.where(live & (plan.lin[pos] == tgt), pos, -1).to(_I32)
+
+
+def reader_table(plan: ConvPlan) -> torch.Tensor:
+    """(V_in, 27) int32: the hit table inverted, the output row that reads
+    each input row at each tap, -1 where none does. A tap's targets are
+    distinct keys (one output row, one target), so at most one row reads an
+    input row at a tap and the inversion is exact."""
+    hits = hit_table(plan)
+    vo, v_in = hits.shape[0], plan.lin.shape[0]
+    dev = hits.device
+    # misses go to one spare slot past the end, which is cut off
+    slot = torch.where(hits >= 0, hits.long() * 27 + torch.arange(27, device=dev), v_in * 27)
+    readers = torch.full((v_in * 27 + 1,), -1, dtype=_I32, device=dev)
+    readers[slot.view(-1)] = torch.arange(vo, dtype=_I32, device=dev).repeat_interleave(27)
+    return readers[:-1].view(v_in, 27)
+
+
+def with_readers(plan: ConvPlan) -> ConvPlan:
+    """The plan with its reader table, built once for every conv that shares
+    the plan and is differentiated."""
+    return plan._replace(readers=reader_table(plan))
+
+
+def window_pass_grad(features: torch.Tensor, weights: torch.Tensor, readers: torch.Tensor,
+                     grad: torch.Tensor, need_features: bool = True):
+    """(d features or None, d weights) of the window pass for the output
+    gradient ``grad`` (V_out, Cout), in float32 whatever the forward ran:
+    the VJP of the plain formula. With Gr[r, k] = G[readers[r, k]] (zero
+    where no row reads r): dW[k] = X^T Gr[:, k] and dX[r] = sum_k Gr[r, k]
+    W[k]^T, one gather and two GEMMs, no atomics."""
+    cout = grad.shape[1]
+    g = torch.cat([grad.float(), grad.new_zeros((1, cout), dtype=torch.float32)])
+    gr = g[torch.where(readers >= 0, readers, grad.shape[0]).long()]   # (V_in, 27, Cout)
+    dw = torch.einsum("ri,rko->kio", features.float(), gr).to(weights.dtype)
+    if not need_features:
+        return None, dw
+    return torch.einsum("rko,kio->ri", gr, weights.float()).to(features.dtype), dw
+
+
 def residual_conv(features: torch.Tensor, plan: ConvPlan,
                   weights: torch.Tensor) -> torch.Tensor:
     """Exact gather-GEMM for the residual rows, scattered into (V_out, Cout).
     Only the dy groups NOT owned by the window pass are computed, so the two
-    passes partition the taps."""
-    r = plan.resid_rows.shape[0]
+    passes partition the taps. All taps' rows are one gather, by
+    ``F.embedding`` with the dead taps on a zero padding row: its backward
+    sums duplicate rows in parallel and skips the padding row (an indexed
+    gather's backward adds duplicates one after another)."""
+    v_in = features.shape[0]
     vo = plan.out_lin.shape[0]
     rr = plan.resid_rows.clamp(min=0).long()
     dy_excluded = ~plan.windowed[rr]
     tap_live = (dy_excluded.repeat_interleave(9, dim=-1) & (plan.resid_nbr >= 0)
                 & (plan.resid_rows >= 0)[:, None])
-    contrib = features.new_zeros((r, weights.shape[-1]), dtype=torch.float32)
-    for k in range(27):
-        g = features[plan.resid_nbr[:, k].clamp(min=0).long()] * tap_live[:, k, None]
-        contrib = contrib + g.float() @ weights[k].float()
+    rows = torch.cat([features, features.new_zeros((1, features.shape[1]))])
+    g = F.embedding(torch.where(tap_live, plan.resid_nbr, v_in).long(), rows,
+                    padding_idx=v_in)                                 # (R, 27, Cin)
+    contrib = torch.einsum("rki,kio->ro", g.float(), weights.float())
     tgt = torch.where(plan.resid_rows >= 0, plan.resid_rows, vo).long()
     out = contrib.new_zeros((vo + 1, contrib.shape[-1]))
     out.index_add_(0, tgt, contrib)
@@ -266,10 +324,12 @@ def window_conv(features: torch.Tensor, plan: ConvPlan, weights: torch.Tensor,
 
     features (V_in, Cin) sorted; weights (27, Cin, Cout) in (dy, dx, dz) tap
     order (``taps_zyx_to_dyx``). On CUDA the window pass is the hand-written
-    kernel (bf16 products, f32 sums); on the CPU its plain version in f32."""
-    from .window_kernel import window_pass
+    kernel (bf16 products, f32 sums); on the CPU its plain version in f32.
+    Under autograd the window pass is ``window_kernel.WindowPass``; the
+    residual pass, the bias and the mask are plain autograd."""
+    from .window_kernel import WindowPass
 
-    out = window_pass(features, plan, weights, ksize=ksize).to(features.dtype)
+    out = WindowPass.apply(features, weights, plan, tuple(ksize)).to(features.dtype)
     out = out + residual_conv(features, plan, weights)
     if bias is not None:
         out = out + bias

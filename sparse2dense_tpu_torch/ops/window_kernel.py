@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
-from .window_conv import ConvPlan, window_pass_plain
+from .window_conv import ConvPlan, reader_table, window_pass_grad, window_pass_plain
 
 SOURCE = os.path.join(cuda_build.CSRC, "window_pass.cu")
 LIBRARY = os.path.join(cuda_build.BUILD_DIR, "libwindow_pass.so")
@@ -158,3 +158,28 @@ def window_pass(features: torch.Tensor, plan: ConvPlan, weights: torch.Tensor,
     if features.device.type == "cpu":
         return window_pass_plain(features, plan, weights)
     return window_pass_cuda(features, plan, weights, ksize)
+
+
+class WindowPass(torch.autograd.Function):
+    """:func:`window_pass` under autograd: ``apply(features (V_in, Cin),
+    weights (27, Cin, Cout) dyx taps, plan, ksize)`` -> (V_out, Cout)
+    float32. The forward keeps no one-hot or gathered rows; the backward is
+    the float32 VJP of the plain formula through the plan's reader table
+    (``plan.readers``, built here if the plan has none), whichever forward
+    ran, as the reference's custom VJP recomputes its reference formula. No
+    TPU kernel has a backward: the reference's is XLA too."""
+
+    @staticmethod
+    def forward(ctx, features, weights, plan: ConvPlan, ksize):
+        ctx.save_for_backward(features, weights)
+        ctx.plan = plan
+        return window_pass(features, plan, weights, ksize)
+
+    @staticmethod
+    def backward(ctx, grad):
+        features, weights = ctx.saved_tensors
+        plan = ctx.plan
+        readers = plan.readers if plan.readers is not None else reader_table(plan)
+        dx, dw = window_pass_grad(features, weights, readers, grad,
+                                  need_features=ctx.needs_input_grad[0])
+        return dx, dw, None, None

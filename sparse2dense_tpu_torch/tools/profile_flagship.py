@@ -108,13 +108,19 @@ _TRACER_OVERHEAD = {"Command Buffer Full", "Buffer Flush", "Activity Buffer Requ
 
 
 def device_profile(model, batch):
+    return device_trace(lambda: _frame(model, batch))
+
+
+def device_trace(fn):
+    """A torch.profiler trace of one call of ``fn``: device-busy ms, wall
+    ms, idle share, launches and the GPU kernels with the most time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _frame(model, batch)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # GPU kernels and copies only: not the CPU-side aten ops (their device

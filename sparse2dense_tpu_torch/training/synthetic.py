@@ -1,8 +1,9 @@
 """Synthetic LiDAR frames: a random point cloud with planted box objects,
-voxelized and padded to a static budget. A copy of the reference's
-``sparse2dense_tpu/training/synthetic.py`` (inference batches only); for the
-same seed it yields bit-identical voxels, coordinates and counts. Beside it,
-``synth_voxels``: a voxel scene with no point cloud, for the microbenchmarks."""
+voxelized and padded to a static budget, with the CenterHead targets and the
+distillation streams of a training batch. A copy of the reference's
+``sparse2dense_tpu/training/synthetic.py`` (CenterHead targets only); for the
+same seed it yields bit-identical arrays. Beside it, ``synth_voxels``: a
+voxel scene with no point cloud, for the microbenchmarks."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,6 +11,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..data.pipelines.assign_label import AssignLabel
 from ..device import resolve_device
 from ..ops.voxelize import VoxelGenerator
 
@@ -123,24 +125,71 @@ def synth_voxels(v: int, seed: int = 0):
 
 
 def make_batch(cfg, batch_size: int, max_voxels: int, seed: int = 0,
-               n_points: int = 4000, n_obj: int = 8, device=None):
-    """Static-shape inference batch {"voxels" (B, V, P, C), "coordinates"
-    (B, V, 3) zyx int32 with -1 padding, "num_points" (B, V) int32} from a
-    reference-schema config, on ``device`` (CUDA unless given)."""
+               n_points: int = 4000, n_obj: int = 8, device=None,
+               with_targets: bool = False, distillation: bool = False):
+    """Static-shape batch from a reference-schema config, on ``device``
+    (CUDA unless given): "voxels" (B, V, P, C), "coordinates" (B, V, 3) zyx
+    int32 with -1 padding, "num_points" (B, V) int32.
+
+    ``with_targets`` adds the CenterHead targets of ``AssignLabel`` as
+    per-task lists: "hm" (B, H, W, C), "anno_box" (B, M, 10), "ind" and
+    "cat" (B, M) int32, "mask" (B, M) uint8, and "gt_boxes_and_cls". With
+    ``distillation``, also the streams the reference's Voxelization stage
+    makes when ``cfg.distillation`` is set: "dense_*" (the same cloud with
+    extra in-box points) and "reconstruction_*{,_2,_4}" (the cloud
+    voxelized at 1x, 2x and 4x the voxel size)."""
     device = resolve_device(device)
     vg_cfg = cfg["voxel_generator"]
     pc_range = np.asarray(vg_cfg["range"], np.float32)
     gen = VoxelGenerator(vg_cfg["voxel_size"], pc_range,
                          vg_cfg["max_points_in_voxel"], max_voxels)
-    n_feats = cfg["S_model"]["reader"].get("num_input_features", 5)
+    model_cfg = cfg["S_model"]
+    n_feats = model_cfg["reader"].get("num_input_features", 5)
     names = tuple(cfg.get("class_names") or ("VEHICLE", "PEDESTRIAN", "CYCLIST"))
-    vox, coords, npts = [], [], []
+    # (key prefix, key suffix, voxel generator) of each stream
+    streams = [("", "", gen)]
+    if distillation:
+        streams += [("dense_", "", gen)] + [
+            ("reconstruction_", tag, VoxelGenerator([v * mult for v in vg_cfg["voxel_size"]],
+                                                    pc_range, vg_cfg["max_points_in_voxel"],
+                                                    max_voxels))
+            for tag, mult in (("", 1), ("_2", 2), ("_4", 4))]
+    if with_targets:
+        if model_cfg["bbox_head"]["type"] != "CenterHead":
+            raise NotImplementedError(
+                f"targets of {model_cfg['bbox_head']['type']} come with the other model "
+                "families, a later slice")
+        assigner = AssignLabel(cfg=cfg["train_cfg"]["assigner"])
+    arrays = {(pre, suf): ([], [], []) for pre, suf, _ in streams}
+    targets = []
     for i in range(batch_size):
         rng = np.random.RandomState(seed + i)
-        gt_boxes, _, _ = make_gt(rng, n_obj, pc_range, names)
-        v, c, n = gen.generate(make_points(rng, n_points, pc_range, gt_boxes, n_feats))
-        vox.append(pad_to(v, max_voxels))
-        coords.append(pad_to(c, max_voxels, fill=-1))
-        npts.append(pad_to(n, max_voxels))
-    return {k: torch.from_numpy(np.stack(x)).to(device)
-            for k, x in (("voxels", vox), ("coordinates", coords), ("num_points", npts))}
+        gt_boxes, gt_classes, gt_names = make_gt(rng, n_obj, pc_range, names)
+        pts = make_points(rng, n_points, pc_range, gt_boxes, n_feats)
+        dense_pts = (np.concatenate([pts, make_points(rng, n_points // 2, pc_range, gt_boxes,
+                                                      n_feats)], axis=0)
+                     if distillation else None)
+        for pre, suf, g in streams:
+            v, c, n = g.generate(dense_pts if pre == "dense_" else pts)
+            for lst, a, fill in zip(arrays[pre, suf], (v, c, n), (0, -1, 0)):
+                lst.append(pad_to(a, max_voxels, fill=fill))
+        if with_targets:
+            res = {"mode": "train", "type": "WaymoDataset",
+                   "lidar": {"voxels": {"shape": gen.grid_size, "range": pc_range,
+                                        "size": np.asarray(vg_cfg["voxel_size"], np.float32)},
+                             "annotations": {"gt_boxes": gt_boxes, "gt_classes": gt_classes,
+                                             "gt_names": gt_names}}}
+            targets.append(assigner(res, None)[0]["lidar"]["targets"])
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    batch = {f"{pre}{part}{suf}": put(np.stack(lst))
+             for (pre, suf), lists in arrays.items()
+             for part, lst in zip(("voxels", "coordinates", "num_points"), lists)}
+    if with_targets:
+        for key in ("hm", "anno_box", "ind", "mask", "cat"):
+            batch[key] = [put(np.stack([t[key][ti] for t in targets]))
+                          for ti in range(len(targets[0]["hm"]))]
+        batch["gt_boxes_and_cls"] = put(np.stack([t["gt_boxes_and_cls"] for t in targets]))
+    return batch

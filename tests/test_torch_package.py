@@ -22,6 +22,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert "sparse2dense_tpu_torch.ops.tile_block_kernel" in mods
     assert "sparse2dense_tpu_torch.ops.gather_probes" in mods
     assert "sparse2dense_tpu_torch.tools.microbench" in mods
+    for name in ("training.trainer", "training.distill", "training.train_state",
+                 "solver.optim", "solver.schedules", "models.detectors.voxelnet",
+                 "models.losses.centernet", "data.pipelines.assign_label", "core.center_utils"):
+        assert f"sparse2dense_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
