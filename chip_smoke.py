@@ -78,17 +78,36 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 7. train: the flagship teacher-student training step at full width
    (``tools/profile_train_step.py``: VoxelNet teacher and KD_VoxelNet +
    S2D_RPN student on the window engine with bf16 dense stages, seeded
-   random weights, batch 1 of the bench's frame with its CenterHead targets
-   and distillation streams) through ``TS_Trainer.step``, 2 warm-up and 4
-   timed steps: the median step and its stages (teacher forward, student
-   forward + losses, backward, optimizer; synchronised at the boundaries),
-   18 window-pass launches a step (the teacher's two streams and the
-   student, 6 each), the peak memory, every loss, ``grad_norm``, and the
-   residual rows of the teacher's two backbone streams and the student's
-   against their budgets; it fails on a loss that is not finite, a
-   ``grad_norm`` <= 0, or a window-engine conv weight (``conv_input``,
-   ``conv1_*``, ``conv2_down``) whose gradient is None or all zero;
-8. agreement: the tiny distillation model on the card against the same model
+   random weights, the bench's frame with its CenterHead targets and
+   distillation streams) through ``TS_Trainer.step``, the student's dense
+   backbone stages and PCR generators rematerialised as in the reference:
+   at batch 1, 2 warm-up and 4 timed steps: the median step and its stages
+   (teacher forward, student forward + losses, backward, optimizer;
+   synchronised at the boundaries), the peak memory of each stage, 18
+   window-pass launches a step (the teacher's two streams and the student,
+   6 each), every loss, ``grad_norm``, and the residual rows of the
+   teacher's two backbone streams and the student's against their budgets;
+   it fails on a loss that is not finite, a ``grad_norm`` <= 0, or a
+   window-engine conv weight (``conv_input``, ``conv1_*``, ``conv2_down``)
+   whose gradient is None or all zero. Then one step with the dense stages
+   rematerialised and one without (``remat_dense=False``) from the same
+   weights, optimizer state and batch: every gradient and ``grad_norm``
+   within ``REMAT_GRAD_TOL`` of its module's largest (cuDNN's bf16 convs
+   recomputed in the backward), BN running statistics and the other metrics
+   within ``REMAT_STAT_TOL`` (the forward is the same), both peaks printed;
+   4 more steps without. Then the recipe's batch of 3 (1 warm-up, 2 timed
+   steps), which must fit in the card's memory: step, stages, peaks and the
+   window-pass launches a step, read;
+8. cli: the recipe through its command line (``tools/train.py`` in this
+   process, in a temporary work directory): the dense-teacher config trains
+   1 epoch of 2 synthetic frames and writes ``epoch_1``; the distillation
+   config loads it as its teacher (``--load_from``; the teacher must equal
+   the checkpoint) and trains 1 epoch of 15 frames at the config's batch of
+   3, whose text log must write its line, and repoints ``latest``;
+   ``--resume_from latest --epochs 1`` must restore the model, BN buffers,
+   optimizer moments and step, epoch and iteration exactly; ``--epochs 2``
+   takes the second epoch's steps. Every loss finite, ``grad_norm`` > 0;
+9. agreement: the tiny distillation model on the card against the same model
    on the CPU (plain versions only), window, plane and tile engines; and one
    teacher-student step of the tiny pair (window engine) on the card against
    the same step on the CPU with its window pass on bf16-rounded inputs (as
@@ -96,8 +115,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    each window-engine conv weight's gradient within 2e-2 (the tiny step is
    ill-conditioned: ``_ts_step_agreement`` says how much).
 
-TF32 is switched off for cuDNN and matmuls in phases 2 and 8, which compare
-against float32 plain versions; phases 3 to 7 run at PyTorch's defaults
+TF32 is switched off for cuDNN and matmuls in phases 2 and 9, which compare
+against float32 plain versions; phases 3 to 8 run at PyTorch's defaults
 (TF32 on in cuDNN convs, off in matmuls). With TF32 off cuDNN picks an FFT
 algorithm for the neck's 3x3 convs that costs ~200 ms a frame on an H100
 (``sparse2dense_tpu_torch/tools/profile_flagship.py``). The second-to-last
@@ -919,64 +938,298 @@ def phase_main_path(engine: str, budgets=None):
 
 
 TRAIN_WARMUP, TRAIN_STEPS = 2, 4
-TRAIN_LAUNCHES = 18   # window passes a step: the teacher's two streams, the student
+TRAIN_LAUNCHES = 18   # window passes a step at batch 1: the teacher's two streams, the student
 # the student's window-engine conv weights: the custom autograd Function's
 WINDOW_WEIGHTS = ("backbone.conv_input.conv_0_weight", "backbone.conv1_0.conv1_weight",
                   "backbone.conv1_0.conv2_weight", "backbone.conv1_1.conv1_weight",
                   "backbone.conv1_1.conv2_weight", "backbone.conv2_down.conv_weight")
+# the recipe's samples_per_gpu, timed over BIG_STEPS steps after one
+BIG_BATCH, BIG_WARMUP, BIG_STEPS = 3, 1, 2
+# one step with the dense stages rematerialised and one without, from the
+# same weights, optimizer state and batch: the forward is the same, so the
+# metrics but grad_norm and the BN running statistics agree within 1e-5;
+# the backward recomputes the dense stages' bf16 convs, where cuDNN may
+# pick another algorithm and its weight-gradient sums have no fixed order,
+# so each gradient and grad_norm agree within 1e-2 of the largest gradient
+# of the module that holds it
+REMAT_GRAD_TOL, REMAT_STAT_TOL = 1e-2, 1e-5
 
 
-def phase_train():
-    """The flagship teacher-student training step on the card, with the
-    window-pass launch count set to 0 just before the steps and read just
-    after (``tools/profile_train_step.py``)."""
+def _check_metrics(tag, metrics):
+    """Every metric finite (floats, or lists of floats a step), grad_norm > 0."""
     import math
+
+    values = {k: v if isinstance(v, list) else [v] for k, v in metrics.items()}
+    bad = [k for k, vs in values.items() if not all(math.isfinite(v) for v in vs)]
+    if bad:
+        raise AssertionError(f"{tag}: metrics not finite: {bad}")
+    if not min(values["grad_norm"]) > 0:
+        raise AssertionError(f"{tag}: grad_norm {values['grad_norm']}")
+
+
+def _residual_rows(tag, trainer, batch):
+    """Residual rows of every backbone run of the step (the teacher's two
+    streams, the student) against their budgets."""
+    import torch
+
+    resid = {}
+    with torch.inference_mode():
+        for stream, model, prefix in (("teacher dense", trainer.teacher, "dense_"),
+                                      ("teacher reconstruction", trainer.teacher,
+                                       "reconstruction_"),
+                                      ("student", trainer.model, "")):
+            feats = model.reader(batch[prefix + "voxels"], batch[prefix + "num_points"])
+            _, _, tele = model.backbone(feats, batch[prefix + "coordinates"])
+            for name, (count, budget) in tele.items():
+                resid[f"{stream} {name}"] = [int(count.max()), budget]
+    over = {k: v for k, v in resid.items() if v[0] > v[1]}
+    if over:
+        raise AssertionError(f"{tag}: residual rows over budget: {over}")
+    return resid
+
+
+def _module_scaled_diff(got, want):
+    """max over tensors of max|got - want| / the largest |want| of the module
+    that holds the tensor."""
+    scale = {}
+    for name, w in want.items():
+        module = name.rsplit(".", 1)[0]
+        scale[module] = max(scale.get(module, 0.0), float(w.abs().max()))
+    return max(float((got[n] - w).abs().max()) / max(scale[n.rsplit(".", 1)[0]], 1e-30)
+               for n, w in want.items())
+
+
+def _remat_agreement(trainer, batch):
+    """One step with the student's dense stages rematerialised and one
+    without (``remat_dense``), from the same weights, optimizer state and
+    batch: gradients, BN running statistics and metrics against each other,
+    and each step's peak."""
+    import copy
 
     import torch
 
     from sparse2dense_tpu_torch.tools import profile_train_step as PT
 
-    batch, trainer = PT.train_setup(1, TRAIN_WARMUP + TRAIN_STEPS)
-    torch.cuda.reset_peak_memory_stats()
-    rows, metrics = PT.run_steps(trainer, batch, TRAIN_WARMUP + TRAIN_STEPS)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    from sparse2dense_tpu_torch.ops import window_kernel as WK
+    student, opt = trainer.model, trainer.optimizer
+    weights = {k: v.clone() for k, v in student.state_dict().items()}
+    opt_state = copy.deepcopy(opt.state_dict())
+    out = {}
+    for remat in (True, False):
+        student.load_state_dict(weights)
+        opt.load_state_dict(opt_state)
+        student.backbone.remat_dense = remat
+        rows, metrics = PT.run_steps(trainer, batch, 1)
+        out[remat] = dict(
+            row=rows[0], metrics={k: float(v) for k, v in metrics.items()},
+            grads={n: (p.grad if p.grad is not None else torch.zeros_like(p)).clone()
+                   for n, p in student.named_parameters()},
+            stats={k: v.clone() for k, v in student.state_dict().items() if "running" in k})
+    on, off = out[True], out[False]
+    err = dict(
+        gradients=_module_scaled_diff(on["grads"], off["grads"]),
+        bn_running_stats=max(float((on["stats"][k] - v).abs().max())
+                             for k, v in off["stats"].items()),
+        metrics=max(abs(v - off["metrics"][k]) / max(abs(off["metrics"][k]), 1e-6)
+                    for k, v in on["metrics"].items() if k != "grad_norm"),
+        grad_norm=abs(on["metrics"]["grad_norm"] - off["metrics"]["grad_norm"])
+        / off["metrics"]["grad_norm"])
+    res = dict(max_err=err, peak_gb={"remat": on["row"]["step_peak_gb"],
+                                     "no_remat": off["row"]["step_peak_gb"]},
+               stages_peak_gb={"remat": on["row"]["peak_gb"], "no_remat": off["row"]["peak_gb"]},
+               step_ms={"remat": on["row"]["step_ms"], "no_remat": off["row"]["step_ms"]})
+    print("[train] remat on vs off, one step from the same weights and batch: "
+          + json.dumps(res), flush=True)
+    if max(err["gradients"], err["grad_norm"]) > REMAT_GRAD_TOL:
+        raise AssertionError(f"train: gradients with and without remat differ: {err}")
+    if max(err["bn_running_stats"], err["metrics"]) > REMAT_STAT_TOL:
+        raise AssertionError(f"train: forward with and without remat differs: {err}")
+    _check_metrics("train (no remat)", off["metrics"])
+    return res
 
+
+def phase_train():
+    """The flagship teacher-student training step on the card
+    (``tools/profile_train_step.py``), with the window-pass launch count set
+    to 0 just before each run of steps and read just after: at batch 1 with
+    the dense stages rematerialised (the default), then one step with and
+    one without from the same weights (``_remat_agreement``), then
+    ``TRAIN_STEPS`` steps without; then at the recipe's batch of 3."""
+    import gc
+
+    import torch
+
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+    from sparse2dense_tpu_torch.tools import profile_train_step as PT
+
+    batch, trainer = PT.train_setup(1, 2 * (TRAIN_WARMUP + TRAIN_STEPS) + 2)
+    rows, metrics = PT.run_steps(trainer, batch, TRAIN_WARMUP + TRAIN_STEPS)
     launches = WK.launches
     per_step = [r["window_pass_launches"] for r in rows]
     if per_step != [TRAIN_LAUNCHES] * len(rows):
         raise AssertionError(f"train: window-pass launches a step {per_step}, expected "
                              f"{TRAIN_LAUNCHES}")
     metrics = {k: float(v) for k, v in metrics.items()}
-    bad = [k for k, v in metrics.items() if not math.isfinite(v)]
-    if bad:
-        raise AssertionError(f"train: metrics not finite: {bad}")
-    if not metrics["grad_norm"] > 0:
-        raise AssertionError(f"train: grad_norm {metrics['grad_norm']}")
+    _check_metrics("train", metrics)
     params = dict(trainer.model.named_parameters())
     for name in WINDOW_WEIGHTS:
         g = params[name].grad
         if g is None or not bool(g.abs().max() > 0):
             raise AssertionError(f"train: the window-engine weight {name} got no gradient")
-    # residual rows of every backbone run of the step against their budgets
-    resid = {}
-    with torch.inference_mode():
-        for tag, model, prefix in (("teacher dense", trainer.teacher, "dense_"),
-                                   ("teacher reconstruction", trainer.teacher, "reconstruction_"),
-                                   ("student", trainer.model, "")):
-            feats = model.reader(batch[prefix + "voxels"], batch[prefix + "num_points"])
-            _, _, tele = model.backbone(feats, batch[prefix + "coordinates"])
-            for name, (count, budget) in tele.items():
-                resid[f"{tag} {name}"] = [int(count.max()), budget]
-    over = {k: v for k, v in resid.items() if v[0] > v[1]}
-    if over:
-        raise AssertionError(f"train: residual rows over budget: {over}")
-    res = dict(PT.summary(rows[TRAIN_WARMUP:]), peak_mem_gb=peak, launches=launches,
-               launches_per_step=per_step, metrics=metrics, residual_rows_vs_budget=resid,
-               steps=rows)
+    resid = _residual_rows("train", trainer, batch)
+    agreement = _remat_agreement(trainer, batch)
+    off_rows, _ = PT.run_steps(trainer, batch, TRAIN_STEPS)   # remat off since the agreement
+    res = dict(PT.summary(rows[TRAIN_WARMUP:]), launches=launches, launches_per_step=per_step,
+               metrics=metrics, residual_rows_vs_budget=resid, steps=rows,
+               remat_agreement=agreement, no_remat=PT.summary(off_rows))
     print("[train] " + json.dumps(res), flush=True)
     del trainer, batch
+    gc.collect()
     torch.cuda.empty_cache()
+
+    batch, trainer = PT.train_setup(BIG_BATCH, BIG_WARMUP + BIG_STEPS)
+    rows, metrics = PT.run_steps(trainer, batch, BIG_WARMUP + BIG_STEPS)
+    big = dict(PT.summary(rows[BIG_WARMUP:]), batch=BIG_BATCH, launches=WK.launches,
+               launches_per_step=[r["window_pass_launches"] for r in rows],
+               metrics={k: float(v) for k, v in metrics.items()}, steps=rows,
+               card_gb=torch.cuda.get_device_properties(0).total_memory / 2 ** 30)
+    _check_metrics(f"train batch {BIG_BATCH}", big["metrics"])
+    if not (big["launches"] and len(set(big["launches_per_step"])) == 1):
+        raise AssertionError(f"train batch {BIG_BATCH}: window-pass launches a step "
+                             f"{big['launches_per_step']}")
+    big["residual_rows_vs_budget"] = _residual_rows(f"train batch {BIG_BATCH}", trainer, batch)
+    if not max(r["step_peak_gb"] for r in rows) < big["card_gb"]:
+        raise AssertionError(f"train batch {BIG_BATCH}: peak {big['peak_mem_gb']} GiB")
+    print("[train] batch " + json.dumps(big), flush=True)
+    res["big"] = big
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# frames of the CLI phase's distillation runs: 5 steps of the recipe's batch
+# of 3 an epoch, so the config's text log (every 5 steps) writes a line
+CLI_FRAMES = 15
+
+
+class _LogLines:
+    """Collects the messages of one logger while the block runs."""
+
+    def __init__(self, name):
+        import logging
+
+        self.logger, self.lines = logging.getLogger(name), []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        import logging
+
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self.lines
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+def _check_run(tag, trainer, epoch, steps):
+    history = trainer.log_buffer.val_history
+    if trainer.epoch != epoch or len(history.get("loss", [])) != steps:
+        raise AssertionError(f"cli {tag}: epoch {trainer.epoch}, "
+                             f"{len(history.get('loss', []))} steps; expected {epoch}, {steps}")
+    _check_metrics(f"cli {tag}", {k: v for k, v in history.items()
+                                  if k not in ("time", "data_time")})
+    times = sorted(history["time"])
+    return dict(steps=steps, step_s_median=times[len(times) // 2], step_s=history["time"])
+
+
+def _same_state(tag, model_state, opt_state, state):
+    import torch
+
+    bad = [k for k, v in state["model"].items() if not torch.equal(model_state[k].cpu(), v)]
+    moments = [(i, k) for i, m in state["optimizer"]["state"].items() for k, v in m.items()
+               if not torch.equal(opt_state["state"][i][k].cpu(), v)]
+    if bad or moments or opt_state["count"] != state["optimizer"]["count"]:
+        raise AssertionError(f"cli {tag}: differs from the checkpoint: {bad[:5]} {moments[:5]} "
+                             f"count {opt_state['count']} vs {state['optimizer']['count']}")
+
+
+def phase_cli():
+    """The recipe through its command line (``tools/train.py``, in this
+    process, on the card) in a temporary work directory, with the
+    window-pass launch count set to 0 just before and read just after: the
+    dense teacher (its config, 1 epoch of 2 synthetic frames at its batch of
+    1) writes ``epoch_1``; the distillation config loads it as its teacher
+    (``--load_from``) and trains 1 epoch of ``CLI_FRAMES`` frames at the
+    config's batch of 3; a run with ``--resume_from latest --epochs 1``
+    restores the model, BN buffers and optimizer exactly and takes no step;
+    ``--epochs 2`` takes the second epoch's steps."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+    from sparse2dense_tpu_torch.tools import train as cli
+    from sparse2dense_tpu_torch.training.checkpoint import load_checkpoint
+    from sparse2dense_tpu_torch.utils.config import DENSE_TEACHER, FLAGSHIP
+
+    def done(trainer):
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    res, t0 = {}, time.perf_counter()
+    WK.launches = 0
+    with tempfile.TemporaryDirectory() as tmp, _LogLines("sparse2dense_tpu_torch") as log:
+        dense, distil = os.path.join(tmp, "dense"), os.path.join(tmp, "distill")
+        trainer = cli.main([DENSE_TEACHER, "--work_dir", dense, "--synthetic", "2",
+                            "--epochs", "1"])
+        res["dense_teacher"] = _check_run("dense teacher", trainer, 1, 2)
+        done(trainer)
+        ckpt = os.path.join(dense, "epoch_1")
+        saved = load_checkpoint(ckpt)[0]["model"]
+        common = [FLAGSHIP, "--work_dir", distil, "--load_from", ckpt,
+                  "--synthetic", str(CLI_FRAMES)]
+        latest = os.path.join(distil, "latest")
+        torch.cuda.reset_peak_memory_stats()
+        trainer = cli.main(common + ["--epochs", "1"])
+        res["distill"] = _check_run("distill", trainer, 1, CLI_FRAMES // 3)
+        res["distill"]["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        teacher = trainer.teacher.state_dict()
+        bad = [k for k, v in saved.items() if not torch.equal(teacher[k].cpu(), v)]
+        if bad or sorted(teacher) != sorted(saved):
+            raise AssertionError(f"cli: the teacher is not the dense run's checkpoint: {bad[:5]}")
+        if os.readlink(latest) != "epoch_1":
+            raise AssertionError(f"cli: latest -> {os.readlink(latest)}")
+        done(trainer)
+        state, meta = load_checkpoint(latest)
+        trainer = cli.main(common + ["--resume_from", latest, "--epochs", "1"])
+        _same_state("resume", trainer.model.state_dict(), trainer.optimizer.state_dict(), state)
+        if (trainer.epoch, trainer.global_iter) != (meta["epoch"], meta["iter"]) or \
+                meta["iter"] != CLI_FRAMES // 3:
+            raise AssertionError(f"cli: resumed at {trainer.epoch}, {trainer.global_iter}; "
+                                 f"meta {meta['epoch']}, {meta['iter']}")
+        done(trainer)
+        trainer = cli.main(common + ["--resume_from", latest, "--epochs", "2"])
+        res["resumed"] = _check_run("resumed", trainer, 2, CLI_FRAMES // 3)
+        if (trainer.global_iter, trainer.optimizer.count) != (2 * (CLI_FRAMES // 3),) * 2 or \
+                os.readlink(latest) != "epoch_2":
+            raise AssertionError(f"cli: after the second epoch iter {trainer.global_iter}, "
+                                 f"optimizer step {trainer.optimizer.count}, latest -> "
+                                 f"{os.readlink(latest)}")
+        done(trainer)
+    steps = CLI_FRAMES // 3
+    for want in (f"epoch [1][{steps}/{steps}]", f"epoch [2][{steps}/{steps}]",
+                 "loaded teacher checkpoint", "resumed from"):
+        if not any(want in line for line in log):
+            raise AssertionError(f"cli: no log line with {want!r}")
+    res.update(launches=WK.launches, seconds=time.perf_counter() - t0,
+               text_log_lines=[line for line in log if line.startswith("epoch [")])
+    print("[cli] " + json.dumps(res), flush=True)
     return res
 
 
@@ -1146,13 +1399,15 @@ def main() -> int:
     plane = phase_main_path("plane", budgets=FRAME_BUDGETS)
     tile = phase_main_path("tile", budgets=TILE_FRAME_BUDGETS)
     train = phase_train()
+    cli = phase_cli()
     with no_tf32():
         phase_agreement()
 
     wrows, prows, trows = ([r for r in rows if r["kernel"] == k]
                            for k in ("window_pass", "plane_subm", "tile_subm"))
     b1_paths = {"window": window["launches"]["window_pass"],
-                "plane": plane["launches"]["window_pass"], "train": train["launches"]}
+                "plane": plane["launches"]["window_pass"], "train": train["launches"],
+                f"train_batch{BIG_BATCH}": train["big"]["launches"], "cli": cli["launches"]}
     record = {"kernels": [
         dict(_record("window_pass", "sparse2dense_tpu_torch/csrc/window_pass.cu",
                      "sparse2dense_tpu/ops/pallas/window_kernel.py:69",
@@ -1178,10 +1433,19 @@ def main() -> int:
               f"min {res['frame_ms_min']:.1f}, max {res['frame_ms_max']:.1f} over "
               f"{len(res['frame_ms'])} frames", flush=True)
     b1_bwd = [r for r in wrows if "window_backward_ms" in r][0]["window_backward_ms"]
-    print(f"[train] teacher-student step: median {train['step_ms']:.1f} ms over {TRAIN_STEPS} "
-          f"steps ({', '.join(f'{k} {v:.1f}' for k, v in train['stages_ms'].items())}); "
-          f"window backward {b1_bwd:.3f} ms a step ({b1_bwd / train['step_ms']:.2%}); peak "
-          f"{train['peak_mem_gb']:.2f} GiB; {TRAIN_LAUNCHES} window passes a step", flush=True)
+    for tag, t in (("batch 1, remat", train), ("batch 1, no remat", train["no_remat"]),
+                   (f"batch {BIG_BATCH}, remat", train["big"])):
+        print(f"[train] teacher-student step, {tag}: median {t['step_ms']:.1f} ms "
+              f"({', '.join(f'{k} {v:.1f}' for k, v in t['stages_ms'].items())}); peak "
+              f"{t['peak_mem_gb']:.2f} GiB (by stage: "
+              f"{', '.join(f'{k} {v:.2f}' for k, v in t['stages_peak_gb'].items())})", flush=True)
+    print(f"[train] window backward {b1_bwd:.3f} ms a step at batch 1 "
+          f"({b1_bwd / train['step_ms']:.2%}); window passes a step: {TRAIN_LAUNCHES} at batch 1, "
+          f"{train['big']['launches_per_step'][0]} at batch {BIG_BATCH}", flush=True)
+    print(f"[cli] dense teacher -> load_from -> distil at batch {BIG_BATCH} -> resume: "
+          f"{cli['seconds']:.1f} s; distillation steps (time hook) median "
+          f"{cli['distill']['step_s_median']:.3f} s, peak {cli['distill']['peak_gb']:.2f} GiB",
+          flush=True)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

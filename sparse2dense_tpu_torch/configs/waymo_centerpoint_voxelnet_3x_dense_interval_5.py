@@ -1,0 +1,72 @@
+# CenterPoint-VoxelNet on Waymo, the dense teacher: the first stage of the
+# flagship recipe, whose last checkpoint the second stage
+# (waymo_centerpoint_voxelnet_3x_distill_interval_5.py) loads as its teacher
+# through load_from. Copied from the reference zoo entry
+# (sparse2dense_tpu/zoo.py: _voxelnet_model, the train_cfg, test_cfg,
+# voxel_generator, the data block's batch and _runtime of waymo_voxelnet
+# "3x_dense_interval_5"): a plain VoxelNet (S_model, distillation off) with
+# the flagship's engine settings, trained for 30 epochs at samples_per_gpu=1.
+# The reference trains it on the dense point clouds (its data pipeline's
+# distillation streams); the synthetic frames of tools/train.py stand in.
+import itertools
+
+tasks = [dict(num_class=3, class_names=["VEHICLE", "PEDESTRIAN", "CYCLIST"])]
+class_names = list(itertools.chain(*[t["class_names"] for t in tasks]))
+
+S_model = dict(
+    type="VoxelNet",
+    pretrained=None,
+    reader=dict(type="VoxelFeatureExtractorV3", num_input_features=5),
+    # windowed sparse engine for conv1 and conv2_down, masked dense bf16 3D
+    # convs from conv2 on, as the flagship's teacher
+    backbone=dict(type="SpMiddleResNetFHD", num_input_features=5,
+                  ds_factor=8, engine="window", dense_from_stage=1,
+                  dense_compute_dtype="bfloat16",
+                  stage_budgets=(320000, 210000, 90000, 48000)),
+    neck=dict(
+        type="RPN",
+        layer_nums=[5, 5], ds_layer_strides=[1, 2], ds_num_filters=[128, 256],
+        us_layer_strides=[1, 2], us_num_filters=[256, 256],
+        num_input_features=256,
+    ),
+    bbox_head=dict(
+        type="CenterHead", in_channels=512, tasks=tasks, dataset="waymo",
+        weight=2, code_weights=[1.0] * 8,
+        common_heads={"reg": (2, 2), "height": (1, 2), "dim": (3, 2),
+                      "rot": (2, 2)},
+    ),
+)
+
+target_assigner = dict(tasks=tasks)
+assigner = dict(target_assigner=target_assigner, out_size_factor=8, dense_reg=1,
+                gaussian_overlap=0.1, max_objs=500, min_radius=2)
+train_cfg = dict(assigner=assigner)
+
+test_cfg = dict(
+    post_center_limit_range=[-80, -80, -10.0, 80, 80, 10.0],
+    nms=dict(use_rotate_nms=True, use_multi_class_nms=False,
+             nms_pre_max_size=4096, nms_post_max_size=500,
+             nms_iou_threshold=0.7),
+    score_threshold=0.1, pc_range=[-75.2, -75.2], out_size_factor=8,
+    voxel_size=[0.1, 0.1],
+)
+
+voxel_generator = dict(range=[-75.2, -75.2, -2, 75.2, 75.2, 4],
+                       voxel_size=[0.1, 0.1, 0.15], max_points_in_voxel=5,
+                       max_voxel_num=[150000, 200000], distillation=True)
+
+optimizer_config = dict(grad_clip=dict(max_norm=35, norm_type=2))
+optimizer = dict(type="adam", amsgrad=0.0, wd=0.01, fixed_wd=True, moving_average=False)
+lr_config = dict(type="one_cycle", lr_max=0.003, moms=[0.95, 0.85], div_factor=10.0,
+                 pct_start=0.4)
+# the reference's data block; its dataset entries wait for the data layer
+data = dict(samples_per_gpu=1, workers_per_gpu=0)
+checkpoint_config = dict(interval=1)
+log_config = dict(interval=5, hooks=[dict(type="TextLoggerHook")])
+total_epochs = 30
+log_level = "INFO"
+work_dir = None
+load_from = None
+resume_from = None
+workflow = [("train", 1)]
+distillation = False

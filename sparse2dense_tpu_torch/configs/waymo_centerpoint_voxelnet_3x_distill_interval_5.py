@@ -2,9 +2,9 @@
 # the dense VoxelNet teacher (model) distilling into the KD_VoxelNet +
 # S2D_RPN student (S_model). Copied from the reference zoo entry
 # (sparse2dense_tpu/zoo.py: _voxelnet_model, the train_cfg, test_cfg,
-# voxel_generator and _runtime of waymo_voxelnet "3x_distill_interval_5").
-# The recipe's teacher checkpoint (epoch_30.pth of the dense stage) is not in
-# the repository: teacher and student take seeded random weights.
+# voxel_generator, the data block's batch and _runtime of waymo_voxelnet
+# "3x_distill_interval_5"). The recipe's second stage: its teacher comes from
+# the first, waymo_centerpoint_voxelnet_3x_dense_interval_5.py.
 import itertools
 
 tasks = [dict(num_class=3, class_names=["VEHICLE", "PEDESTRIAN", "CYCLIST"])]
@@ -63,5 +63,18 @@ optimizer_config = dict(grad_clip=dict(max_norm=35, norm_type=2))
 optimizer = dict(type="adam", amsgrad=0.0, wd=0.01, fixed_wd=True, moving_average=False)
 lr_config = dict(type="one_cycle", lr_max=0.003, moms=[0.95, 0.85], div_factor=10.0,
                  pct_start=0.3)
-total_epochs = 30   # the recipe's data block (not ported) has samples_per_gpu=3
+# the reference's data block; its dataset entries wait for the data layer
+data = dict(samples_per_gpu=3, workers_per_gpu=4)
+checkpoint_config = dict(interval=1)
+log_config = dict(interval=5, hooks=[dict(type="TextLoggerHook")])
+total_epochs = 30
+log_level = "INFO"
+work_dir = None
+# the recipe loads its dense teacher's last checkpoint,
+# ./work_dirs/waymo_centerpoint_voxelnet_3x_dense_interval_5/epoch_30.pth in
+# the reference; none is in the repository, so the teacher keeps seeded random
+# weights unless tools/train.py --load_from names one
+load_from = None
+resume_from = None
+workflow = [("train", 1)]
 distillation = True

@@ -37,6 +37,7 @@ from ...ops import tile_planes as TP
 from ...ops import window_conv as WC
 from ...ops.sparse_conv import conv_out_grid, scatter_to_dense
 from ..norm import BatchNorm
+from ..remat import remat
 
 
 def _kernel(cin: int, cout: int, ksize=(3, 3, 3)) -> nn.Parameter:
@@ -386,6 +387,10 @@ class SpMiddleResNetFHD(nn.Module):
     4x4 BEV tiles (``tile_size``) of per-stage heights ``tile_tz`` within
     the tile budgets ``tile_budgets``, with plan windows ``tilek_window`` (an
     int, or per stage (conv1..conv4) an int or a (w0, wz) pair).
+
+    In training, the window engine's dense modules (``DenseSubMStage``,
+    ``DenseBasicBlock``, ``DenseDownsample``) run rematerialised unless
+    ``remat_dense`` is False (``models/remat.py``), as the reference's do.
     """
 
     def __init__(self, num_input_features: int = 128,
@@ -399,7 +404,7 @@ class SpMiddleResNetFHD(nn.Module):
                  tile_budgets: Tuple[int, int, int, int] = (72000, 36000, 14000, 2400),
                  tile_backend: str = "xla", tilek_window=256,
                  plane_budgets: Tuple[int, int, int] = (80000, 26000, 6400),
-                 plane_window=128):
+                 plane_window=128, remat_dense: bool = True):
         super().__init__()
         dfs = 99 if dense_from_stage is None else dense_from_stage
         if engine not in ("window", "plane", "tile"):
@@ -421,7 +426,7 @@ class SpMiddleResNetFHD(nn.Module):
             raise NotImplementedError(
                 f"dense_from_stage={dense_from_stage}: sparse stages past conv2_down "
                 "need a window kernel for 64/128 channels, a later slice")
-        self.engine = engine
+        self.engine, self.remat_dense = engine, remat_dense
         self.sparse_shape = tuple(sparse_shape)
         self.stage_budgets = stage_budgets
         self.dfs = 1 if engine == "plane" else dfs
@@ -475,6 +480,15 @@ class SpMiddleResNetFHD(nn.Module):
             self.extra_conv = DenseDownsample(128, 128, (2, 1, 1), (0, 0, 0), (3, 1, 1),
                                               compute_dtype=cd)
 
+    def _dense(self, module, *args):
+        """``module(*args)`` for a dense module; in training, with
+        ``remat_dense``, rematerialised: its multi-GB activations (the conv2
+        stage's are 21x752x752x32 a sample on the Waymo grid) are rebuilt in
+        the backward, not kept."""
+        if self.remat_dense and self.training and torch.is_grad_enabled():
+            return remat(module, *args, name=type(module).__name__)
+        return module(*args)
+
     def _dense_stream(self, feats, coords, valid, grid):
         """Densify in the dense stages' storage dtype (cast before the
         scatter, so no f32 dense grid is built)."""
@@ -513,8 +527,8 @@ class SpMiddleResNetFHD(nn.Module):
 
         if self.dfs == 0:
             x, mask = self._dense_stream(feats, coords, valid0, grid)
-            x = self.conv_input(x, mask)
-            x = self.conv1_1(self.conv1_0(x, mask), mask)
+            x = self._dense(self.conv_input, x, mask)
+            x = self._dense(self.conv1_1, self._dense(self.conv1_0, x, mask), mask)
             multi_scale["conv1"] = (x, grid)
         else:
             feats, coords, valid, grid = self._window_stages(feats, coords, grid, telemetry,
@@ -523,12 +537,12 @@ class SpMiddleResNetFHD(nn.Module):
 
         for k, (name, _, stride, pad, ksz) in enumerate(_STAGES, start=1):
             if k > self.dfs:
-                x, mask = getattr(self, f"{name}_down")(x, mask)
+                x, mask = self._dense(getattr(self, f"{name}_down"), x, mask)
                 grid = conv_out_grid(grid, stride, pad, ksz)
-            x = getattr(self, f"{name}_0")(x, mask)
-            x = getattr(self, f"{name}_1")(x, mask)
+            x = self._dense(getattr(self, f"{name}_0"), x, mask)
+            x = self._dense(getattr(self, f"{name}_1"), x, mask)
             multi_scale[name] = (x, grid)
-        x, mask = self.extra_conv(x, mask)
+        x, mask = self._dense(self.extra_conv, x, mask)
         return dense_to_bev(x), multi_scale, telemetry
 
     def _chunk_planes(self, state, mask, sets, grid, tz, budget_t, counts):

@@ -5,8 +5,9 @@ decoders) and fuses it with the sparse input; the RPN trunk then runs on the
 fused map. In training the PCR generators also run: a 1x1 conv to 640
 channels read as a 5-deep (128, 5, H, W) volume, then 1x1x1 convs and 2x
 transposed 3D convs to occupancy logits and point offsets at 1/4 and 1/2 of
-the grid, in NCDHW. The reference keeps them z-folded, (B, H, W, D*C) with
-channel d*C + c, a TPU layout; this is the operator it computes.
+the grid, in NCDHW, rematerialised when gradients flow (the reference's
+``nn.remat(S2D_RPN._pcr)``). The reference keeps them z-folded, (B, H, W,
+D*C) with channel d*C + c, a TPU layout; this is the operator it computes.
 
 Flax's ``nn.gelu`` defaults to the tanh approximation, hence
 ``approximate="tanh"`` everywhere here.
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..norm import BatchNorm, LayerNorm2d
+from ..remat import remat
 from .rpn import RPN
 
 
@@ -137,7 +139,12 @@ class S2D_RPN(RPN):
         y3 = torch.cat([self.decoder_1(att), y1], 1)
         f_s_b = self.decoder_2b(self.decoder_2a(y3))
         f_s_a = self.fusion_dense(f_s_b) + self.fusion_sparse(x)
-        gens = self._pcr(f_s_b) if self.training else (None,) * 4
+        if not self.training:
+            gens = (None,) * 4
+        elif torch.is_grad_enabled():  # the generators' narrow 5D maps are rebuilt, not kept
+            gens = remat(self._pcr, f_s_b, name="_pcr")
+        else:
+            gens = self._pcr(f_s_b)
         out, _ = self.trunk_and_ups(f_s_a)
 
         def nhwc(t):

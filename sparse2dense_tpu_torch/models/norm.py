@@ -4,7 +4,9 @@
 use (momentum 0.01 is the weight of the new batch statistic) but with
 eps 1e-3, not torch's 1e-5. In training mode its statistics skip rows
 outside an optional validity mask, so padded voxels do not pollute them; in
-eval mode it uses the running statistics.
+eval mode it uses the running statistics. Its running statistics move once a
+step: not again when a rematerialised module runs it again in the backward
+(``remat.recomputing``).
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from .remat import recomputing
 
 
 class BatchNorm(nn.Module):
@@ -47,10 +51,11 @@ class BatchNorm(nn.Module):
             cnt = cnt.clamp(min=1.0)
             mean = s / cnt
             var = (s2 / cnt - mean.square()).clamp(min=0.0)
-            with torch.no_grad():  # torch updates running_var unbiased
-                unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
-                self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-                self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+            if not recomputing():  # one update a step, from the forward
+                with torch.no_grad():  # torch updates running_var unbiased
+                    unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
+                    self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+                    self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps)

@@ -41,6 +41,16 @@ class OneCycleAdam(torch.optim.Optimizer):
         self.count = 0
         super().__init__(params, {})
 
+    def state_dict(self) -> dict:
+        """The moments, plus ``count``: the steps taken, the position of the
+        one-cycle schedules."""
+        return dict(super().state_dict(), count=self.count)
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        state_dict = dict(state_dict)
+        self.count = int(state_dict.pop("count"))
+        super().load_state_dict(state_dict)
+
     @torch.no_grad()
     def step(self, closure=None) -> torch.Tensor:
         params = [p for group in self.param_groups for p in group["params"]]

@@ -2,7 +2,7 @@
 time and memory go.
 
     python3 -m sparse2dense_tpu_torch.tools.profile_train_step [--batch 1]
-        [--warmup 2] [--steps 4] [--profile]
+        [--warmup 2] [--steps 4] [--no-remat] [--profile]
 
 Builds the flagship's VoxelNet teacher and KD_VoxelNet + S2D_RPN student
 (``engine="window", dense_from_stage=1``, bf16 dense stages; seeded random
@@ -10,9 +10,11 @@ weights: the recipe's teacher checkpoint is not in the repository), a
 training batch of ``--batch`` synthetic frames (the bench's frame: 170k
 points, 32 objects, 150k voxels, seeds 0, 1, ...; with the CenterHead
 targets and the distillation streams), and runs ``TS_Trainer.step`` at
-PyTorch's defaults. Prints one JSON line: each step's stages (teacher
-forward, student forward + losses, backward, optimizer; the device
-synchronised at each boundary) and window-pass (B1) launches, the medians
+PyTorch's defaults, the student's dense backbone stages rematerialised
+unless ``--no-remat`` is given. Prints one JSON line: each step's stages
+(teacher forward, student forward + losses, backward, optimizer; the device
+synchronised at each boundary), the peak memory of each stage (the peak
+counter reset at each boundary) and window-pass (B1) launches, the medians
 of the timed steps, the last step's metrics and the peak memory. With
 ``--profile``, a second line: a torch.profiler trace of one step (device
 busy time, idle share, launches, the kernels with the most time).
@@ -32,8 +34,9 @@ STAGES = ("teacher_forward", "student_forward", "backward", "optimizer")
 FRAME = dict(max_voxels=150000, n_points=170000, n_obj=32)
 
 
-def train_setup(batch_size: int, total_steps: int):
-    """(batch, trainer) of the flagship on the card."""
+def train_setup(batch_size: int, total_steps: int, remat: bool = True):
+    """(batch, trainer) of the flagship on the card; ``remat`` is the
+    student backbone's ``remat_dense``."""
     from ..models import build_detector
     from ..solver.optim import OneCycleAdam
     from ..training.synthetic import make_batch
@@ -41,6 +44,7 @@ def train_setup(batch_size: int, total_steps: int):
     from ..utils.config import FLAGSHIP, ConfigDict
 
     cfg = ConfigDict.fromfile(FLAGSHIP)
+    cfg.S_model.backbone["remat_dense"] = remat
     kw = dict(test_cfg=cfg.test_cfg, voxel_generator=cfg.voxel_generator, device="cuda")
     teacher = build_detector(cfg.model, generator=torch.Generator().manual_seed(0), **kw)
     student = build_detector(cfg.S_model, generator=torch.Generator().manual_seed(1), **kw)
@@ -53,27 +57,32 @@ def train_setup(batch_size: int, total_steps: int):
 
 def run_steps(trainer, batch, steps: int):
     """``steps`` calls of ``trainer.step``: per step its host-clock ms, the
-    ms of each stage (device synchronised at the boundaries) and the B1
+    ms and the peak GiB of each stage (device synchronised, peak counter
+    read and reset at the boundaries), the step's peak and the B1
     launches; and the last step's metrics. Counts B1 launches from 0."""
     from ..ops import window_kernel as WK
 
     rows, metrics = [], None
     WK.launches = 0
     for _ in range(steps):
-        stages, clock = {}, [0.0]
+        stages, peaks, clock = {}, {}, [0.0]
 
         def mark(name):
             torch.cuda.synchronize()
             now = time.perf_counter()
             stages[name] = (now - clock[0]) * 1e3
+            peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()
             clock[0] = now
 
         before = WK.launches
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = clock[0] = time.perf_counter()
         metrics = trainer.step(batch, mark)
         torch.cuda.synchronize()
         rows.append(dict(step_ms=(time.perf_counter() - t0) * 1e3, stages=stages,
+                         peak_gb=peaks, step_peak_gb=max(peaks.values()),
                          window_pass_launches=WK.launches - before))
     return rows, metrics
 
@@ -83,9 +92,12 @@ def median(xs):
 
 
 def summary(rows):
-    """Medians of the step and of each stage over ``rows``."""
+    """Medians of the step and of each stage over ``rows``; the peak GiB of
+    each stage and of the step, the most over ``rows``."""
     return dict(step_ms=median([r["step_ms"] for r in rows]),
-                stages_ms={s: median([r["stages"][s] for r in rows]) for s in STAGES})
+                stages_ms={s: median([r["stages"][s] for r in rows]) for s in STAGES},
+                stages_peak_gb={s: max(r["peak_gb"][s] for r in rows) for s in STAGES},
+                peak_mem_gb=max(r["step_peak_gb"] for r in rows))
 
 
 def main():
@@ -93,15 +105,18 @@ def main():
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--no-remat", dest="remat", action="store_false",
+                    help="keep the dense stages' activations (remat_dense=False)")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    batch, trainer = train_setup(args.batch, args.warmup + args.steps + args.profile)
-    torch.cuda.reset_peak_memory_stats()
+    batch, trainer = train_setup(args.batch, args.warmup + args.steps + args.profile,
+                                 args.remat)
     rows, metrics = run_steps(trainer, batch, args.warmup + args.steps)
-    print(json.dumps(dict(gpu=smi, batch=args.batch, **summary(rows[args.warmup:]),
-                          peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+    print(json.dumps(dict(gpu=smi, batch=args.batch, remat=args.remat,
+                          **summary(rows[args.warmup:]),
+                          peak_all_steps_gb=max(r["step_peak_gb"] for r in rows),
                           steps=rows, metrics={k: float(v) for k, v in metrics.items()})),
           flush=True)
     if args.profile:

@@ -1,0 +1,157 @@
+"""Training entry point (counterpart of ``sparse2dense_tpu/tools/train.py``;
+the reference's tools/train.py:64-155).
+
+    python -m sparse2dense_tpu_torch.tools.train <config.py> --synthetic N
+        [--work_dir D] [--resume_from CKPT] [--load_from CKPT] [--seed S]
+        [--batch_size B] [--max_voxels V] [--epochs E] [--device cuda|cpu]
+
+The reference's semantics: with ``cfg.distillation`` the teacher is built
+from ``cfg.model`` (its weights from ``--load_from`` or ``cfg.load_from``,
+through ``merge_params``) and the student from ``cfg.S_model``, and training
+runs the teacher-student step (``TS_Trainer``); otherwise a plain detector
+trains from ``cfg.S_model``. The batch is ``cfg.data.samples_per_gpu``
+unless ``--batch_size`` is given; the one-cycle schedule covers the epoch's
+steps times the epochs. ``--synthetic N`` trains on N synthetic frames
+(``make_batch`` with the CenterHead targets, seeds 0, 1, ... a batch; the
+same batches every epoch). Checkpoints go to ``--work_dir``, else
+``cfg.work_dir``, else ``work_dirs/<config name>`` (the reference's layout):
+``epoch_<n>`` each ``checkpoint_config.interval`` epochs and the ``latest``
+symlink.
+
+Runs on CUDA unless ``--device cpu`` is given. Left out, with what they
+wait for: the dataset loader (without ``--synthetic`` the CLI raises; the
+data layer), ``--launcher`` other than ``none`` (DDP with SyncBN), the JAX
+CLI's ``--no_mesh`` (there is no device mesh) and ``--ts_step`` (the eager
+step already runs the frozen teacher under ``no_grad`` before the student's
+graph, the JAX CLI's split step).
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+from typing import Optional, Sequence
+
+import torch
+
+
+def parse_args(argv: Optional[Sequence[str]] = None):
+    p = argparse.ArgumentParser(description="Train a detector")
+    p.add_argument("config")
+    p.add_argument("--work_dir", default=None)
+    p.add_argument("--resume_from", default=None)
+    p.add_argument("--load_from", default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--max_voxels", type=int, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="train on N synthetic frames instead of cfg.data")
+    p.add_argument("--launcher", default="none",
+                   help="'none' only: multi-GPU training waits for DDP")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+class SyntheticLoader:
+    """``max(n // batch_size, 1)`` batches of ``make_batch`` (seed ``i`` for
+    the i-th), the JAX CLI's synthetic dataset."""
+
+    def __init__(self, cfg, n: int, batch_size: int, max_voxels: int, distillation: bool,
+                 device):
+        self.cfg, self.batch_size, self.max_voxels = cfg, batch_size, max_voxels
+        self.distillation, self.device = distillation, device
+        self.n = max(n // batch_size, 1)
+
+    def __len__(self):
+        return self.n
+
+    def set_epoch(self, e: int):
+        """Every epoch takes the same batches."""
+
+    def __iter__(self):
+        from ..training.synthetic import make_batch
+
+        for i in range(self.n):
+            yield make_batch(self.cfg, self.batch_size, max_voxels=self.max_voxels, seed=i,
+                             device=self.device, with_targets=True,
+                             distillation=self.distillation)
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Train as the command line says; returns the trainer."""
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    logger = logging.getLogger("sparse2dense_tpu_torch")
+
+    from ..device import resolve_device
+    from ..models import build_detector
+    from ..solver.optim import OneCycleAdam
+    from ..training.checkpoint import load_checkpoint, merge_params
+    from ..training.hooks import build_hooks
+    from ..training.trainer import TS_Trainer, Trainer
+    from ..utils.config import ConfigDict
+
+    if args.launcher != "none":
+        raise NotImplementedError(
+            f"--launcher {args.launcher}: multi-GPU training (DDP with SyncBN) comes in a "
+            "later slice; run with --launcher none")
+    if not args.synthetic:
+        raise NotImplementedError(
+            "training on cfg.data needs the data layer (data/datasets, data/loader.py), a "
+            "later slice; pass --synthetic N")
+    device = resolve_device(args.device)
+    cfg = ConfigDict.fromfile(args.config)
+    name = os.path.splitext(os.path.basename(args.config))[0]
+    work_dir = args.work_dir or cfg.get("work_dir") or os.path.join("work_dirs", name)
+    os.makedirs(work_dir, exist_ok=True)
+    distillation = bool(cfg.get("distillation", False))
+    total_epochs = args.epochs or cfg.total_epochs
+    batch_size = args.batch_size or cfg.get("data", {}).get("samples_per_gpu", 4)
+    max_voxels = args.max_voxels or _default_max_voxels(cfg)
+
+    train_loader = SyntheticLoader(cfg, args.synthetic, batch_size, max_voxels, distillation,
+                                   device)
+    epoch_len = len(train_loader)
+    kw = dict(test_cfg=cfg.test_cfg, voxel_generator=cfg.get("voxel_generator"),
+              device=device)
+    student = build_detector(cfg.S_model, generator=torch.Generator().manual_seed(args.seed),
+                             **kw)
+    optimizer = OneCycleAdam(student.parameters(), cfg.optimizer, cfg.lr_config,
+                             max(epoch_len * total_epochs, 1),
+                             cfg.optimizer_config.get("grad_clip"))
+    with open(args.config) as f:
+        meta = {"config": f.read(), "classes": list(cfg.get("class_names", []))}
+    hooks = build_hooks(cfg.get("log_config"), cfg.get("checkpoint_config") or {"interval": 1},
+                        work_dir=work_dir)
+    common = dict(work_dir=work_dir, hooks=hooks, logger=logger, meta=meta)
+    if distillation:
+        teacher = build_detector(cfg.model,
+                                 generator=torch.Generator().manual_seed(args.seed + 9), **kw)
+        load_from = args.load_from or cfg.get("load_from")
+        if load_from:
+            restored, _ = load_checkpoint(load_from)
+            teacher.load_state_dict(merge_params(teacher.state_dict(), restored["model"],
+                                                 logger))
+            logger.info(f"loaded teacher checkpoint {load_from}")
+        trainer = TS_Trainer(teacher, student, optimizer, teacher_cfg=dict(cfg.model), **common)
+    else:
+        trainer = Trainer(student, optimizer, **common)
+
+    resume_from = args.resume_from or cfg.get("resume_from")
+    if resume_from:
+        trainer.resume(resume_from)
+    logger.info(f"start training: {total_epochs} epochs x {epoch_len} iters of batch "
+                f"{batch_size}, distillation={distillation}, on {device}")
+    trainer.run(train_loader, total_epochs)
+    logger.info("training finished")
+    return trainer
+
+
+def _default_max_voxels(cfg):
+    mv = cfg.voxel_generator["max_voxel_num"]
+    return mv[0] if isinstance(mv, (list, tuple)) else mv
+
+
+if __name__ == "__main__":
+    main()

@@ -50,8 +50,11 @@ class ConfigDict(dict):
                     and not callable(v)})
 
 
-FLAGSHIP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                        "configs", "waymo_centerpoint_voxelnet_3x_distill_interval_5.py")
+CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
+# the flagship recipe's two stages: the dense teacher, then the distillation
+# that loads its checkpoint
+DENSE_TEACHER = os.path.join(CONFIGS, "waymo_centerpoint_voxelnet_3x_dense_interval_5.py")
+FLAGSHIP = os.path.join(CONFIGS, "waymo_centerpoint_voxelnet_3x_distill_interval_5.py")
 
 
 # plane-engine budgets for the 150k-voxel synthetic frame of the chip runs

@@ -24,10 +24,11 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert "sparse2dense_tpu_torch.tools.microbench" in mods
     for name in ("training.trainer", "training.distill", "training.train_state",
                  "solver.optim", "solver.schedules", "models.detectors.voxelnet",
-                 "models.losses.centernet", "data.pipelines.assign_label", "core.center_utils"):
+                 "models.losses.centernet", "data.pipelines.assign_label", "core.center_utils",
+                 "training.checkpoint", "training.hooks", "tools.train", "models.remat"):
         assert f"sparse2dense_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
-            f"for m in {mods!r}:\n"
+            f"for m in {mods + ['chip_smoke']!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'sparse2dense_tpu' or m.startswith('sparse2dense_tpu.'))\n"
@@ -36,6 +37,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[]"
+    # chip_smoke.py imports inside its phases: none of them names JAX or the reference
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        imports = [line.split() for line in f if line.lstrip().startswith(("import ", "from "))]
+    assert not [i for i in imports if i[1].split(".")[0] in ("jax", "sparse2dense_tpu")]
 
 
 def test_entry_points_need_cuda_or_an_explicit_device():
