@@ -107,7 +107,23 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ``--resume_from latest --epochs 1`` must restore the model, BN buffers,
    optimizer moments and step, epoch and iteration exactly; ``--epochs 2``
    takes the second epoch's steps. Every loss finite, ``grad_norm`` > 0;
-9. agreement: the tiny distillation model on the card against the same model
+9. second: the SECOND recipe (``configs/waymo_second_3x_distill_interval_5.py``:
+   SpMiddleFHD on the window engine, dense bf16 from down1, S2D_RPN,
+   MultiGroupHead) at full width on the same 150k-voxel frame: the
+   student's inference frames (3 warm-up, 8 timed; 3 window-pass launches a
+   frame: subm0's two convs and down1), finite maps, 212,064 anchors, finite
+   detections, and the host's time of ``AssignTarget``'s assignment (the
+   frame's ``make_batch`` with targets less without); the same frame's backbone on the gather engine
+   (``gather_conv``, its conv operands rounded to bf16) against the window
+   engine with the same weights: subm0's and down1's rows within the bf16
+   kernel tolerance, the BEV within ``SECOND_BEV_TOL`` of its largest value;
+   the teacher-student step (branch "second") at batch 1 (2 + 4 steps) and
+   at the recipe's 4 (1 + 2): 9 window passes a sample, every loss finite,
+   ``grad_norm`` > 0, a gradient on subm0's and down1's weights, medians by
+   stage and peaks (at batch 4 a step that runs out of memory is reported
+   with its stages' peaks); and the CLI chain of phase 8 for SECOND's two
+   configs (dense teacher at batch 1, distillation at 4);
+10. agreement: the tiny distillation model on the card against the same model
    on the CPU (plain versions only), window, plane and tile engines; and one
    teacher-student step of the tiny pair (window engine) on the card against
    the same step on the CPU with its window pass on bf16-rounded inputs (as
@@ -115,8 +131,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    each window-engine conv weight's gradient within 2e-2 (the tiny step is
    ill-conditioned: ``_ts_step_agreement`` says how much).
 
-TF32 is switched off for cuDNN and matmuls in phases 2 and 9, which compare
-against float32 plain versions; phases 3 to 8 run at PyTorch's defaults
+TF32 is switched off for cuDNN and matmuls in phases 2, 10 and the gather
+comparison of 9, which compare against float32 plain versions; the rest of
+phases 3 to 9 run at PyTorch's defaults
 (TF32 on in cuDNN convs, off in matmuls). With TF32 off cuDNN picks an FFT
 algorithm for the neck's 3x3 convs that costs ~200 ms a frame on an H100
 (``sparse2dense_tpu_torch/tools/profile_flagship.py``). The second-to-last
@@ -1107,9 +1124,9 @@ def phase_train():
     return res
 
 
-# frames of the CLI phase's distillation runs: 5 steps of the recipe's batch
-# of 3 an epoch, so the config's text log (every 5 steps) writes a line
-CLI_FRAMES = 15
+# steps an epoch of the CLI phase's distillation runs, at the recipe's batch,
+# so the config's text log (every 5 steps) writes a line
+CLI_STEPS = 5
 
 
 class _LogLines:
@@ -1157,16 +1174,16 @@ def _same_state(tag, model_state, opt_state, state):
                              f"count {opt_state['count']} vs {state['optimizer']['count']}")
 
 
-def phase_cli():
-    """The recipe through its command line (``tools/train.py``, in this
+def phase_cli(recipe="flagship"):
+    """A recipe through its command line (``tools/train.py``, in this
     process, on the card) in a temporary work directory, with the
     window-pass launch count set to 0 just before and read just after: the
-    dense teacher (its config, 1 epoch of 2 synthetic frames at its batch of
-    1) writes ``epoch_1``; the distillation config loads it as its teacher
-    (``--load_from``) and trains 1 epoch of ``CLI_FRAMES`` frames at the
-    config's batch of 3; a run with ``--resume_from latest --epochs 1``
-    restores the model, BN buffers and optimizer exactly and takes no step;
-    ``--epochs 2`` takes the second epoch's steps."""
+    dense teacher (its config, 1 epoch of 2 synthetic frames at batch 1)
+    writes ``epoch_1``; the distillation config loads it as its teacher
+    (``--load_from``) and trains 1 epoch of 5 steps at the config's batch
+    (the flagship's 3, SECOND's 4); a run with ``--resume_from latest
+    --epochs 1`` restores the model, BN buffers and optimizer exactly and
+    takes no step; ``--epochs 2`` takes the second epoch's steps."""
     import gc
     import tempfile
 
@@ -1175,7 +1192,13 @@ def phase_cli():
     from sparse2dense_tpu_torch.ops import window_kernel as WK
     from sparse2dense_tpu_torch.tools import train as cli
     from sparse2dense_tpu_torch.training.checkpoint import load_checkpoint
-    from sparse2dense_tpu_torch.utils.config import DENSE_TEACHER, FLAGSHIP
+    from sparse2dense_tpu_torch.utils.config import (DENSE_TEACHER, FLAGSHIP, SECOND,
+                                                     SECOND_DENSE, ConfigDict)
+
+    dense_cfg, distil_cfg = ((DENSE_TEACHER, FLAGSHIP) if recipe == "flagship" else
+                             (SECOND_DENSE, SECOND))
+    batch = ConfigDict.fromfile(distil_cfg).data["samples_per_gpu"]
+    frames = CLI_STEPS * batch
 
     def done(trainer):
         del trainer
@@ -1186,18 +1209,18 @@ def phase_cli():
     WK.launches = 0
     with tempfile.TemporaryDirectory() as tmp, _LogLines("sparse2dense_tpu_torch") as log:
         dense, distil = os.path.join(tmp, "dense"), os.path.join(tmp, "distill")
-        trainer = cli.main([DENSE_TEACHER, "--work_dir", dense, "--synthetic", "2",
-                            "--epochs", "1"])
+        trainer = cli.main([dense_cfg, "--work_dir", dense, "--synthetic", "2",
+                            "--batch_size", "1", "--epochs", "1"])
         res["dense_teacher"] = _check_run("dense teacher", trainer, 1, 2)
         done(trainer)
         ckpt = os.path.join(dense, "epoch_1")
         saved = load_checkpoint(ckpt)[0]["model"]
-        common = [FLAGSHIP, "--work_dir", distil, "--load_from", ckpt,
-                  "--synthetic", str(CLI_FRAMES)]
+        common = [distil_cfg, "--work_dir", distil, "--load_from", ckpt,
+                  "--synthetic", str(frames)]
         latest = os.path.join(distil, "latest")
         torch.cuda.reset_peak_memory_stats()
         trainer = cli.main(common + ["--epochs", "1"])
-        res["distill"] = _check_run("distill", trainer, 1, CLI_FRAMES // 3)
+        res["distill"] = _check_run("distill", trainer, 1, CLI_STEPS)
         res["distill"]["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
         teacher = trainer.teacher.state_dict()
         bad = [k for k, v in saved.items() if not torch.equal(teacher[k].cpu(), v)]
@@ -1210,27 +1233,261 @@ def phase_cli():
         trainer = cli.main(common + ["--resume_from", latest, "--epochs", "1"])
         _same_state("resume", trainer.model.state_dict(), trainer.optimizer.state_dict(), state)
         if (trainer.epoch, trainer.global_iter) != (meta["epoch"], meta["iter"]) or \
-                meta["iter"] != CLI_FRAMES // 3:
+                meta["iter"] != CLI_STEPS:
             raise AssertionError(f"cli: resumed at {trainer.epoch}, {trainer.global_iter}; "
                                  f"meta {meta['epoch']}, {meta['iter']}")
         done(trainer)
         trainer = cli.main(common + ["--resume_from", latest, "--epochs", "2"])
-        res["resumed"] = _check_run("resumed", trainer, 2, CLI_FRAMES // 3)
-        if (trainer.global_iter, trainer.optimizer.count) != (2 * (CLI_FRAMES // 3),) * 2 or \
+        res["resumed"] = _check_run("resumed", trainer, 2, CLI_STEPS)
+        if (trainer.global_iter, trainer.optimizer.count) != (2 * CLI_STEPS,) * 2 or \
                 os.readlink(latest) != "epoch_2":
             raise AssertionError(f"cli: after the second epoch iter {trainer.global_iter}, "
                                  f"optimizer step {trainer.optimizer.count}, latest -> "
                                  f"{os.readlink(latest)}")
         done(trainer)
-    steps = CLI_FRAMES // 3
+    steps = CLI_STEPS
     for want in (f"epoch [1][{steps}/{steps}]", f"epoch [2][{steps}/{steps}]",
                  "loaded teacher checkpoint", "resumed from"):
         if not any(want in line for line in log):
             raise AssertionError(f"cli: no log line with {want!r}")
-    res.update(launches=WK.launches, seconds=time.perf_counter() - t0,
+    res.update(recipe=recipe, batch=batch, launches=WK.launches,
+               seconds=time.perf_counter() - t0,
                text_log_lines=[line for line in log if line.startswith("epoch [")])
-    print("[cli] " + json.dumps(res), flush=True)
+    print(f"[cli] {recipe} " + json.dumps(res), flush=True)
     return res
+
+
+# SECOND's window passes: a frame (subm0's two convs, down1) and a sample of
+# a teacher-student step (the teacher's two streams and the student)
+SECOND_FRAME_LAUNCHES, SECOND_STEP_LAUNCHES = 3, 9
+SECOND_WINDOW_WEIGHTS = ("backbone.subm0.conv_0_weight", "backbone.subm0.conv_1_weight",
+                         "backbone.down1.conv_weight")
+# gather against window on one frame, the BEV: the window engine stores the
+# dense stages' activations in bf16 and the gather engine in float32, so the
+# nine dense convs after down1 (subm1 2, down2, subm2 3, down3, subm3 3 ...)
+# see up to one bf16 rounding (2^-8 relative) of their input each more on
+# the window side; bounded by their sum, relative to the map's largest value
+SECOND_BEV_TOL = 9 * 2.0 ** -8
+SECOND_BATCHES = (1, 4)   # the TS step at batch 1 and at the recipe's samples_per_gpu
+
+
+def _second_model(engine):
+    """(cfg, student) of the SECOND recipe at full width on the card, its
+    backbone on ``engine`` (the config's dense stages from down1 kept)."""
+    import torch
+
+    from sparse2dense_tpu_torch.models import build_detector
+    from sparse2dense_tpu_torch.utils.config import SECOND, flagship
+
+    cfg = flagship(engine, path=SECOND)
+    return cfg, build_detector(cfg["S_model"], test_cfg=cfg["test_cfg"],
+                               voxel_generator=cfg["voxel_generator"], device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+
+
+@contextlib.contextmanager
+def _gather_conv_in_bf16():
+    """The gather engine's convs on their operands rounded to bf16, as the
+    window pass multiplies them (bf16 products, float32 sums), while the
+    block runs."""
+    import torch
+
+    from sparse2dense_tpu_torch.models.backbones import scn as SCN
+
+    old = SCN._gather_conv
+
+    def gather_bf16(feats, nbr, w, b=None):
+        return old(feats.to(torch.bfloat16).float(), nbr, w.to(torch.bfloat16).float(), b)
+
+    SCN._gather_conv = gather_bf16
+    try:
+        yield
+    finally:
+        SCN._gather_conv = old
+
+
+def _rows_by_cell(feats, coords, valid, grid):
+    """A sample's valid rows sorted by their grid-linear cell."""
+    from sparse2dense_tpu_torch.ops.sparse_conv import ravel_coords
+
+    f, c = feats[0][valid[0]], coords[0][valid[0]]
+    order = ravel_coords(c, grid).long().argsort()
+    return f[order].float(), c[order]
+
+
+def _second_agreement(batch, window_model):
+    """The SECOND student's backbone on one frame, window engine (B1) against
+    gather engine (``gather_conv``, an independent formulation) with the same
+    weights, in inference: subm0's and down1's rows within the bf16 kernel
+    tolerance (the gather side's conv operands rounded to bf16), the BEV
+    within ``SECOND_BEV_TOL`` of its largest value."""
+    import torch
+
+    _, gather = _second_model("gather")
+    gather.load_state_dict(window_model.state_dict())
+    gather.eval()
+    grid = window_model.backbone.sparse_shape
+    got = {}
+    for tag, model in (("window", window_model), ("gather", gather)):
+        def hook(mod, args, out, tag=tag):
+            # down1's input is subm0's output; its output holds its grid
+            # (window: out, coords, keys, valid, grid, plans; gather: out,
+            # coords, valid, grid)
+            g_out = out[4] if len(out) == 6 else out[3]
+            got[tag] = dict(subm0=_rows_by_cell(args[0], args[1], (args[1] >= 0).all(-1), grid),
+                            down1=_rows_by_cell(out[0], out[1], (out[1] >= 0).all(-1), g_out))
+        h = model.backbone.down1.register_forward_hook(hook)
+        try:
+            with torch.inference_mode(), (_gather_conv_in_bf16() if tag == "gather"
+                                          else contextlib.nullcontext()):
+                feats = model.reader(batch["voxels"], batch["num_points"])
+                got[tag]["bev"] = model.backbone(feats, batch["coordinates"])[0].float()
+        finally:
+            h.remove()
+    res = {}
+    for key in ("subm0", "down1"):
+        (fw, cw), (fg, cg) = got["window"][key], got["gather"][key]
+        if not torch.equal(cw, cg):
+            raise AssertionError(f"second: {key}'s active rows differ between the engines")
+        err = (fw - fg).abs()
+        tol = BF16_STEP * fg.abs() + BF16_FLOOR * fg.abs().max()
+        res[key] = dict(rows=int(fw.shape[0]), max_abs_err=float(err.max()),
+                        worst_over_tol=float((err / tol).max()))
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"second: {key} window against gather beyond the bf16 "
+                                 f"tolerance: {res[key]}")
+    bw, bg = got["window"]["bev"], got["gather"]["bev"]
+    res["bev"] = dict(shape=list(bw.shape), max_abs_err=float((bw - bg).abs().max()),
+                      rel_to_max=float((bw - bg).abs().max() / bg.abs().max()),
+                      tol=SECOND_BEV_TOL)
+    if not res["bev"]["rel_to_max"] <= SECOND_BEV_TOL:
+        raise AssertionError(f"second: BEV window against gather: {res['bev']}")
+    del gather
+    return res
+
+
+def _second_steps(batch_size):
+    """SECOND teacher-student steps at ``batch_size`` (1 warm-up, 2 timed;
+    batch 1: 2 and 4): medians, stages, peaks, B1 launches a step, metrics,
+    the window-engine weights' gradients, residual rows. At the recipe's
+    batch a step that runs out of memory is reported with the stages it got
+    through (the fault the slice records), not raised."""
+    import gc
+
+    import torch
+
+    from sparse2dense_tpu_torch.tools import profile_train_step as PT
+    from sparse2dense_tpu_torch.utils.config import SECOND
+
+    warmup, steps = (TRAIN_WARMUP, TRAIN_STEPS) if batch_size == 1 else (BIG_WARMUP, BIG_STEPS)
+    batch, trainer = PT.train_setup(batch_size, warmup + steps, config=SECOND)
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    try:
+        rows, metrics = PT.run_steps(trainer, batch, warmup + steps)
+    except torch.cuda.OutOfMemoryError as e:
+        if batch_size == 1:
+            raise
+        res = dict(batch=batch_size, out_of_memory=True, card_gb=card_gb,
+                   stages_ms=getattr(e, "stages_ms", None),
+                   stages_peak_gb=getattr(e, "stages_peak_gb", None),
+                   failed_stage_peak_gb=getattr(e, "failed_peak_gb", None),
+                   error=str(e).splitlines()[0])
+        print("[second] train batch " + json.dumps(res), flush=True)
+        del trainer, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+    per_step = [r["window_pass_launches"] for r in rows]
+    if per_step != [SECOND_STEP_LAUNCHES * batch_size] * len(rows):
+        raise AssertionError(f"second batch {batch_size}: window-pass launches a step "
+                             f"{per_step}, expected {SECOND_STEP_LAUNCHES * batch_size}")
+    metrics = {k: float(v) for k, v in metrics.items()}
+    _check_metrics(f"second batch {batch_size}", metrics)
+    params = dict(trainer.model.named_parameters())
+    for name in SECOND_WINDOW_WEIGHTS:
+        g = params[name].grad
+        if g is None or not bool(g.abs().max() > 0):
+            raise AssertionError(f"second: the window-engine weight {name} got no gradient")
+    res = dict(PT.summary(rows[warmup:]), batch=batch_size, out_of_memory=False,
+               launches=sum(per_step), launches_per_step=per_step, metrics=metrics,
+               card_gb=card_gb, steps=rows,
+               residual_rows_vs_budget=_residual_rows(f"second batch {batch_size}", trainer,
+                                                      batch))
+    print(f"[second] train batch {batch_size} " + json.dumps(res), flush=True)
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_second():
+    """The SECOND recipe on the card: the student's inference frames (window
+    engine, ``WARMUP_FRAMES`` + ``TIMED_FRAMES``, 3 window passes a frame,
+    the count set to 0 just before and read just after), the same frame on
+    the gather engine against the window engine (``_second_agreement``), the
+    teacher-student step at batch 1 and 4 (``_second_steps``) and the CLI
+    chain (``phase_cli("second")``)."""
+    import torch
+
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+    from sparse2dense_tpu_torch.training.synthetic import make_batch
+
+    cfg, model = _second_model("window")
+    frame_args = dict(max_voxels=150000, n_points=170000, n_obj=32, device="cuda")
+    tb = [time.perf_counter()]
+    batch = make_batch(cfg, 1, **frame_args)             # the anchors alone
+    tb.append(time.perf_counter())
+    make_batch(cfg, 1, with_targets=True, **frame_args)  # and AssignTarget's assignment
+    tb.append(time.perf_counter())
+    # the host's time to assign 212,064 anchors against the frame's boxes, set-up
+    # outside every timed frame and step
+    make_batch_s, assign_s = tb[1] - tb[0], (tb[2] - tb[1]) - (tb[1] - tb[0])
+    torch.cuda.reset_peak_memory_stats()
+    times, per_frame = [], []
+    WK.launches = 0
+    for i in range(WARMUP_FRAMES + TIMED_FRAMES):
+        before = WK.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = model(batch)
+            det = model.predict(out, example=batch)
+        torch.cuda.synchronize()
+        if i >= WARMUP_FRAMES:
+            times.append((time.perf_counter() - t0) * 1e3)
+        per_frame.append(WK.launches - before)
+    launches = WK.launches
+    if per_frame != [SECOND_FRAME_LAUNCHES] * len(per_frame):
+        raise AssertionError(f"second: window-pass launches per frame {per_frame}")
+    for name, (count, budget) in out["telemetry"].items():
+        if int(count.max()) > budget:
+            raise AssertionError(f"second: {name} counts {int(count.max())} > {budget}")
+    maps = [v for pd in out["preds"] for v in pd.values()]
+    if not all(bool(torch.isfinite(m).all()) for m in maps):
+        raise AssertionError("second: non-finite head maps")
+    if tuple(maps[0].shape[1:3]) != (188, 188) or \
+            batch["anchors"][0].shape[1] != 188 * 188 * 6:
+        raise AssertionError(f"second: head map {tuple(maps[0].shape)}, anchors "
+                             f"{tuple(batch['anchors'][0].shape)}")
+    valid = det["valid"]
+    if not int(valid.sum()) or not bool(torch.isfinite(det["box3d_lidar"][valid]).all()):
+        raise AssertionError("second: no finite detections")
+    frame = dict(frame_ms_median=sorted(times)[len(times) // 2], frame_ms_min=min(times),
+                 frame_ms_max=max(times), frame_ms=times, launches=launches,
+                 launches_per_frame=per_frame, detections=int(valid.sum()),
+                 telemetry={k: int(v[0].max()) for k, v in out["telemetry"].items()},
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 make_batch_s=make_batch_s, assign_target_s=assign_s)
+    print("[second] frame " + json.dumps(frame), flush=True)
+    with no_tf32():
+        agreement = _second_agreement(batch, model)
+    print("[second] gather against window, one frame: " + json.dumps(agreement), flush=True)
+    del model, out, batch
+    torch.cuda.empty_cache()
+    steps = {b: _second_steps(b) for b in SECOND_BATCHES}
+    cli = phase_cli("second")
+    return dict(frame=frame, agreement=agreement, steps=steps, cli=cli,
+                train_launches=sum(r.get("launches", 0) for r in steps.values()))
 
 
 # tiny-model engine settings: every key of every stage fits and the plan
@@ -1400,6 +1657,7 @@ def main() -> int:
     tile = phase_main_path("tile", budgets=TILE_FRAME_BUDGETS)
     train = phase_train()
     cli = phase_cli()
+    second = phase_second()
     with no_tf32():
         phase_agreement()
 
@@ -1407,7 +1665,9 @@ def main() -> int:
                            for k in ("window_pass", "plane_subm", "tile_subm"))
     b1_paths = {"window": window["launches"]["window_pass"],
                 "plane": plane["launches"]["window_pass"], "train": train["launches"],
-                f"train_batch{BIG_BATCH}": train["big"]["launches"], "cli": cli["launches"]}
+                f"train_batch{BIG_BATCH}": train["big"]["launches"], "cli": cli["launches"],
+                "second": second["frame"]["launches"], "second_train": second["train_launches"],
+                "second_cli": second["cli"]["launches"]}
     record = {"kernels": [
         dict(_record("window_pass", "sparse2dense_tpu_torch/csrc/window_pass.cu",
                      "sparse2dense_tpu/ops/pallas/window_kernel.py:69",
@@ -1446,6 +1706,27 @@ def main() -> int:
           f"{cli['seconds']:.1f} s; distillation steps (time hook) median "
           f"{cli['distill']['step_s_median']:.3f} s, peak {cli['distill']['peak_gb']:.2f} GiB",
           flush=True)
+    sf, sa = second["frame"], second["agreement"]
+    print(f"[second] frame: median {sf['frame_ms_median']:.1f} ms, min "
+          f"{sf['frame_ms_min']:.1f}, max {sf['frame_ms_max']:.1f} (set-up on the host: "
+          f"make_batch {sf['make_batch_s']:.2f} s, AssignTarget's assignment "
+          f"{sf['assign_target_s']:.2f} s a sample); gather against window: "
+          f"subm0 {sa['subm0']['max_abs_err']:.3e}, down1 {sa['down1']['max_abs_err']:.3e}, "
+          f"BEV {sa['bev']['rel_to_max']:.3e} of its largest value", flush=True)
+    for b, t in second["steps"].items():
+        if t["out_of_memory"]:
+            print(f"[second] teacher-student step, batch {b}: out of memory "
+                  f"({t['card_gb']:.1f} GiB card); stages done {t['stages_peak_gb']}, failed "
+                  f"stage's peak {t['failed_stage_peak_gb']:.2f} GiB", flush=True)
+        else:
+            print(f"[second] teacher-student step, batch {b}: median {t['step_ms']:.1f} ms "
+                  f"({', '.join(f'{k} {v:.1f}' for k, v in t['stages_ms'].items())}); peak "
+                  f"{t['peak_mem_gb']:.2f} GiB (by stage: "
+                  f"{', '.join(f'{k} {v:.2f}' for k, v in t['stages_peak_gb'].items())})",
+                  flush=True)
+    print(f"[second] cli: dense teacher -> load_from -> distil at batch {second['cli']['batch']} "
+          f"-> resume: {second['cli']['seconds']:.1f} s, peak "
+          f"{second['cli']['distill']['peak_gb']:.2f} GiB", flush=True)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

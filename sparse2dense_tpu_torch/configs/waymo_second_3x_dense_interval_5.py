@@ -1,0 +1,96 @@
+# SECOND on Waymo, the dense teacher: the first stage of the SECOND
+# Sparse2Dense recipe, whose last checkpoint the second stage
+# (waymo_second_3x_distill_interval_5.py) loads as its teacher through
+# load_from. Copied from the reference zoo entry (sparse2dense_tpu/zoo.py:
+# _second_model, _SECOND_BOX_CODER, _second_target_assigner, the train_cfg,
+# test_cfg, voxel_generator, the data block's batch and _runtime of
+# waymo_second "dense_interval_5"): a plain VoxelNet (S_model, distillation
+# off) with SpMiddleFHD, a one-level RPN and the anchor head MultiGroupHead,
+# trained for 30 epochs at samples_per_gpu=8. The reference trains it on the
+# dense point clouds (its data pipeline's distillation streams); the
+# synthetic frames of tools/train.py stand in.
+import itertools
+
+tasks = [dict(num_class=3, class_names=["VEHICLE", "PEDESTRIAN", "CYCLIST"])]
+class_names = list(itertools.chain(*[t["class_names"] for t in tasks]))
+
+box_coder = dict(type="ground_box3d_coder", n_dim=7, linear_dim=False,
+                 encode_angle_vector=False)
+
+
+def _anchors(name, sizes, matched, unmatched):
+    return dict(type="anchor_generator_range", sizes=sizes,
+                anchor_ranges=[-74.88, -74.88, 0, 74.88, 74.88, 0], rotations=[0, 1.57],
+                matched_threshold=matched, unmatched_threshold=unmatched, class_name=name)
+
+
+target_assigner = dict(
+    type="iou",
+    anchor_generators=[_anchors("VEHICLE", [2.08, 4.73, 1.77], 0.55, 0.4),
+                       _anchors("PEDESTRIAN", [0.84, 0.91, 1.74], 0.5, 0.35),
+                       _anchors("CYCLIST", [0.84, 1.81, 1.77], 0.5, 0.3)],
+    sample_positive_fraction=-1,
+    sample_size=512,
+    region_similarity_calculator=dict(type="nearest_iou_similarity"),
+    pos_area_threshold=-1,
+    tasks=tasks,
+)
+
+S_model = dict(
+    type="VoxelNet",
+    pretrained=None,
+    reader=dict(type="VoxelFeatureExtractorV3", num_input_features=5),
+    # windowed sparse engine for subm0 and down1, masked dense bf16 3D convs
+    # from subm1 on: the flagship's engine settings on the same grid
+    backbone=dict(type="SpMiddleFHD", num_input_features=5, ds_factor=8,
+                  engine="window", dense_from_stage=1,
+                  dense_compute_dtype="bfloat16",
+                  stage_budgets=(320000, 210000, 90000, 48000)),
+    neck=dict(type="RPN", layer_nums=[5], ds_layer_strides=[1], ds_num_filters=[128],
+              us_layer_strides=[1], us_num_filters=[128], num_input_features=128),
+    bbox_head=dict(
+        type="MultiGroupHead", mode="3d", in_channels=128, tasks=tasks, weights=[1],
+        box_coder=box_coder, encode_background_as_zeros=True,
+        loss_norm=dict(type="NormByNumPositives", pos_cls_weight=1.0, neg_cls_weight=2.0),
+        loss_cls=dict(type="SigmoidFocalLoss", alpha=0.25, gamma=2.0, loss_weight=1.0),
+        use_sigmoid_score=True,
+        loss_bbox=dict(type="WeightedSmoothL1Loss", sigma=3.0, code_weights=[1.0] * 7,
+                       codewise=True, loss_weight=2.0),
+        encode_rad_error_by_sin=True,
+        loss_aux=dict(type="WeightedSoftmaxClassificationLoss", name="direction_classifier",
+                      loss_weight=0.2),
+        direction_offset=0.0,
+    ),
+)
+
+assigner = dict(box_coder=box_coder, target_assigner=target_assigner, out_size_factor=8,
+                debug=False)
+train_cfg = dict(assigner=assigner)
+
+test_cfg = dict(
+    post_center_limit_range=[-80, -80, -10.0, 80, 80, 10.0],
+    max_per_img=4096,
+    nms=dict(use_rotate_nms=True, use_multi_class_nms=False, nms_pre_max_size=1000,
+             nms_post_max_size=100, nms_iou_threshold=0.01),
+    score_threshold=0.1, pc_range=[-74.88, -74.88], out_size_factor=8,
+)
+
+voxel_generator = dict(range=[-75.2, -75.2, -2, 75.2, 75.2, 4],
+                       voxel_size=[0.1, 0.1, 0.15], max_points_in_voxel=5,
+                       max_voxel_num=150000, distillation=True)
+
+optimizer_config = dict(grad_clip=dict(max_norm=35, norm_type=2))
+optimizer = dict(type="adam", amsgrad=0.0, wd=0.01, fixed_wd=True, moving_average=False)
+lr_config = dict(type="one_cycle", lr_max=0.003, moms=[0.95, 0.85], div_factor=10.0,
+                 pct_start=0.4)
+# the reference's data block; its dataset entries wait for the data layer
+data = dict(samples_per_gpu=8, workers_per_gpu=8)
+checkpoint_config = dict(interval=1)
+log_config = dict(interval=5, hooks=[dict(type="TextLoggerHook")])
+total_epochs = 30
+log_level = "INFO"
+work_dir = None
+load_from = None
+resume_from = None
+workflow = [("train", 1)]
+distillation = False

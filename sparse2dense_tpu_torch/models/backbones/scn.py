@@ -1,10 +1,13 @@
-"""SpMiddleResNetFHD, window, plane and tile engines (counterpart of
-``sparse2dense_tpu/models/backbones/scn.py``).
+"""SpMiddleResNetFHD (gather, window, plane and tile engines) and SpMiddleFHD
+(gather and window engines): the counterpart of
+``sparse2dense_tpu/models/backbones/scn.py``.
 
-With ``engine="window"`` and ``"plane"``, the conv1 stage (conv_input,
-conv1_0, conv1_1) and the strided conv2_down run as windowed sparse convs on
-voxel rows (``ops/window_conv.py``; the window pass is the hand-written CUDA
-kernel on the card). With ``engine="window"``, the stages from
+With ``engine="gather"`` (the reference's default), the sparse stages run as
+gather-GEMM convs through neighbour tables (``ops/sparse_conv.py``; plain
+autograd in training). With ``engine="window"`` and ``"plane"``, the conv1
+stage (conv_input, conv1_0, conv1_1) and the strided conv2_down run as
+windowed sparse convs on voxel rows (``ops/window_conv.py``; the window pass
+is the hand-written CUDA kernel on the card). With ``engine="window"``, the stages from
 ``dense_from_stage`` on run as masked dense 3D convs: one ``F.conv3d``
 followed by the occupancy mask is the operator the reference's z-packed /
 z-decomposed TPU convs compute. With ``engine="plane"``, conv2 to conv4 run as
@@ -35,7 +38,10 @@ from ...ops import tile_conv as TLC
 from ...ops import tile_kernel as TKK
 from ...ops import tile_planes as TP
 from ...ops import window_conv as WC
-from ...ops.sparse_conv import conv_out_grid, scatter_to_dense
+from ...ops.sparse_conv import (build_index_grid_batched, conv_out_grid,
+                                downsample_active_set_batched,
+                                downsample_neighbor_table_batched, gather_conv_batched,
+                                scatter_to_dense, subm_neighbor_table_batched)
 from ..norm import BatchNorm
 from ..remat import remat
 
@@ -67,6 +73,12 @@ def _win_conv(feats, plans, w, b=None, ksize=(3, 3, 3)):
                         for f, p in zip(feats, plans)])
 
 
+def _gather_conv(feats, nbr, w, b=None):
+    """The gather engine's conv: through the batched neighbour table
+    (B, V_out, K), taps in the kernel's z-major order."""
+    return gather_conv_batched(feats, nbr, _taps(w), b)
+
+
 class WinSubMStage(nn.Module):
     """n x [windowed subm conv (no bias) + BN + ReLU] on voxel rows."""
 
@@ -78,10 +90,13 @@ class WinSubMStage(nn.Module):
             setattr(self, f"norm_{i}", BatchNorm(ch, channel_dim=-1))
             cin = ch
 
+    def _conv(self, feats, plans, w, b=None):
+        return _win_conv(feats, plans, w, b)
+
     def forward(self, feats, valid, plans):
         m = valid[..., None]
         for i in range(self.n):
-            feats = _win_conv(feats, plans, getattr(self, f"conv_{i}_weight"))
+            feats = self._conv(feats, plans, getattr(self, f"conv_{i}_weight"))
             feats = F.relu(getattr(self, f"norm_{i}")(feats, mask=m)) * m.to(feats.dtype)
         return feats
 
@@ -98,14 +113,30 @@ class WinBasicBlock(nn.Module):
         self.conv2_bias = nn.Parameter(torch.zeros(planes))
         self.bn2 = BatchNorm(planes, channel_dim=-1)
 
+    _conv = WinSubMStage._conv
+
     def forward(self, feats, valid, plans):
         mb = valid[..., None]
         m = mb.to(feats.dtype)
-        out = _win_conv(feats, plans, self.conv1_weight, self.conv1_bias)
+        out = self._conv(feats, plans, self.conv1_weight, self.conv1_bias)
         out = F.relu(self.bn1(out, mask=mb)) * m
-        out = _win_conv(out, plans, self.conv2_weight, self.conv2_bias)
+        out = self._conv(out, plans, self.conv2_weight, self.conv2_bias)
         out = self.bn2(out, mask=mb)
         return F.relu(out + feats) * m
+
+
+class SubMStage(WinSubMStage):
+    """The gather engine's n x [subm conv + BN + ReLU]: each conv through one
+    shared neighbour table (B, V, 27) (``forward(feats, valid, nbr)``)."""
+
+    def _conv(self, feats, nbr, w, b=None):
+        return _gather_conv(feats, nbr, w, b)
+
+
+class SparseBasicBlock(WinBasicBlock):
+    """The gather engine's residual block of two subm convs."""
+
+    _conv = SubMStage._conv
 
 
 class WinDownsample(nn.Module):
@@ -140,6 +171,39 @@ class WinDownsample(nn.Module):
         ovalid = (oc >= 0).all(-1)
         out = F.relu(self.norm(out, mask=ovalid[..., None])) * ovalid[..., None].to(out.dtype)
         return out, oc, ol, ovalid, grid_out, plans
+
+
+class SparseDownsample(nn.Module):
+    """The gather engine's strided sparse conv + BN + ReLU: the coarse
+    active set in grid-linear order, its neighbour table through the input's
+    index grid (names of WinDownsample)."""
+
+    def __init__(self, cin: int, out_channels: int, grid_in, stride, padding,
+                 ksize=(3, 3, 3), out_budget: Optional[int] = None):
+        super().__init__()
+        self.grid_in, self.stride, self.padding = tuple(grid_in), tuple(stride), tuple(padding)
+        self.ksize, self.out_budget = tuple(ksize), out_budget
+        self.conv_weight = _kernel(cin, out_channels, ksize)
+        self.norm = BatchNorm(out_channels, channel_dim=-1)
+
+    def forward(self, feats, coords, valid):
+        """-> (features, coords, valid, grid) of the output rows."""
+        grid_out = conv_out_grid(self.grid_in, self.stride, self.padding, self.ksize)
+        budget = self.out_budget or feats.shape[1]
+        oc, ov = downsample_active_set_batched(coords, valid, self.grid_in, grid_out,
+                                               self.stride, self.padding, self.ksize, budget)
+        nbr = downsample_neighbor_table_batched(
+            oc, ov, build_index_grid_batched(coords, valid, self.grid_in), self.grid_in,
+            self.stride, self.padding, self.ksize)
+        out = _gather_conv(feats, nbr, self.conv_weight)
+        m = ov[..., None]
+        return F.relu(self.norm(out, mask=m)) * m.to(out.dtype), oc, ov, grid_out
+
+
+def _subm_table(coords, valid, grid):
+    """The gather engine's (B, V, 27) subm neighbour table of a stage."""
+    return subm_neighbor_table_batched(coords, valid,
+                                       build_index_grid_batched(coords, valid, grid), grid)
 
 
 def dense_subm_conv(x, mask, w, b=None, compute_dtype=None):
@@ -354,6 +418,13 @@ def dense_to_bev(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, c * d, h, w).permute(0, 2, 3, 1)
 
 
+def sparse_to_bev(feats, coords, valid, grid) -> torch.Tensor:
+    """Rows -> NHWC BEV (B, H, W, C*D): spconv's ``.dense()`` and the torch
+    ``view(N, C*D, H, W)``."""
+    dense = torch.stack([scatter_to_dense(f, c, v, grid) for f, c, v in zip(feats, coords, valid)])
+    return dense_to_bev(dense.permute(0, 4, 1, 2, 3))
+
+
 _STAGES = [  # (name, channels, down stride, down padding, down ksize)
     ("conv2", 32, (2, 2, 2), (1, 1, 1), (3, 3, 3)),
     ("conv3", 64, (2, 2, 2), (1, 1, 1), (3, 3, 3)),
@@ -361,8 +432,46 @@ _STAGES = [  # (name, channels, down stride, down padding, down ksize)
 ]
 
 
-class SpMiddleResNetFHD(nn.Module):
-    """CenterPoint residual sparse backbone, window, plane or tile engine.
+class _DenseStages(nn.Module):
+    """What the backbones share for their masked dense stages: the dense
+    compute dtype and the rematerialisation in training."""
+
+    out_channels = 128   # of the last stage; the BEV map has this times its depth
+
+    def __init__(self, remat_dense: bool, dense_compute_dtype: Optional[str]):
+        super().__init__()
+        self.remat_dense, self.cd = remat_dense, _dtype(dense_compute_dtype)
+
+    @property
+    def bev_channels(self) -> int:
+        """Channels of the BEV map: the last stage's times the depth left
+        after the three strided convs and ``extra_conv``."""
+        grid = self.sparse_shape
+        for _, _, stride, pad, ksz in _STAGES:
+            grid = conv_out_grid(grid, stride, pad, ksz)
+        return self.out_channels * conv_out_grid(grid, (2, 1, 1), (0, 0, 0), (3, 1, 1))[0]
+
+    def _dense(self, module, *args):
+        """``module(*args)`` for a dense module; in training, with
+        ``remat_dense``, rematerialised: its multi-GB activations (the conv2
+        stage's are 21x752x752x32 a sample on the Waymo grid) are rebuilt in
+        the backward, not kept."""
+        if self.remat_dense and self.training and torch.is_grad_enabled():
+            return remat(module, *args, name=type(module).__name__)
+        return module(*args)
+
+    def _dense_stream(self, feats, coords, valid, grid):
+        """Densify in the dense stages' storage dtype (cast before the
+        scatter, so no f32 dense grid is built). The gather engine densifies
+        in the rows' dtype, as the reference does."""
+        if self.cd is not None and self.engine != "gather":
+            feats = feats.to(self.cd)
+        return densify(feats, coords, valid, grid)
+
+
+class SpMiddleResNetFHD(_DenseStages):
+    """CenterPoint residual sparse backbone, gather, window, plane or tile
+    engine.
 
     forward(voxel_features (B, V, C), coords (B, V, 3) zyx)
       -> (bev NHWC (B, H/8, W/8, 128*2), multi_scale, telemetry)
@@ -374,11 +483,14 @@ class SpMiddleResNetFHD(nn.Module):
     stages) to budget 0. The result is exact while every count is within its
     budget.
 
-    ``engine="window"``: ``dense_from_stage`` 1 runs conv1 and conv2_down
-    sparse and the rest dense (the shipped setting); 0 runs every stage
-    dense. ``engine="plane"`` runs conv1 and conv2_down on the window engine
-    and conv2..conv4 as fused plane convs (inference only), with the
-    reference's plane knobs: per-stage z-chunk heights ``tile_tz``, chunk
+    ``engine="gather"`` (the reference's default) runs the stages before
+    ``dense_from_stage`` (any; past 4 also ``extra_conv``) as gather-GEMM
+    convs through neighbour tables (``ops/sparse_conv.py``), the rest
+    dense; it has no telemetry. ``engine="window"``: ``dense_from_stage`` 1
+    runs conv1 and conv2_down sparse and the rest dense (the shipped
+    setting); 0 runs every stage dense. ``engine="plane"`` runs conv1 and
+    conv2_down on the window engine and conv2..conv4 as fused plane convs
+    (inference only), with the reference's plane knobs: per-stage z-chunk heights ``tile_tz``, chunk
     budgets ``tile_budgets``, plane budgets ``plane_budgets`` (conv2..conv4)
     and plan windows ``plane_window`` (an int, or per stage an int or a
     (w0, wy) pair); ``dense_from_stage`` is not read. ``engine="tile"`` with
@@ -388,9 +500,10 @@ class SpMiddleResNetFHD(nn.Module):
     the tile budgets ``tile_budgets``, with plan windows ``tilek_window`` (an
     int, or per stage (conv1..conv4) an int or a (w0, wz) pair).
 
-    In training, the window engine's dense modules (``DenseSubMStage``,
-    ``DenseBasicBlock``, ``DenseDownsample``) run rematerialised unless
-    ``remat_dense`` is False (``models/remat.py``), as the reference's do.
+    In training, the gather and window engines' dense modules
+    (``DenseSubMStage``, ``DenseBasicBlock``, ``DenseDownsample``) run
+    rematerialised unless ``remat_dense`` is False (``models/remat.py``), as
+    the reference's do.
     """
 
     def __init__(self, num_input_features: int = 128,
@@ -405,12 +518,11 @@ class SpMiddleResNetFHD(nn.Module):
                  tile_backend: str = "xla", tilek_window=256,
                  plane_budgets: Tuple[int, int, int] = (80000, 26000, 6400),
                  plane_window=128, remat_dense: bool = True):
-        super().__init__()
         dfs = 99 if dense_from_stage is None else dense_from_stage
-        if engine not in ("window", "plane", "tile"):
+        if engine not in ("window", "plane", "tile", "gather"):
             raise NotImplementedError(
-                f"engine={engine!r}: this port runs engine='window', 'plane' and 'tile'; "
-                "'gather' and 'column' come in a later slice")
+                f"engine={engine!r}: this port runs engine='gather', 'window', 'plane' and "
+                "'tile'; 'column' (the reference's column oracle) comes in a later slice")
         if engine == "tile" and tile_backend != "pallas":
             raise NotImplementedError(
                 f"tile_backend={tile_backend!r}: this port runs the tile engine's fused "
@@ -426,7 +538,8 @@ class SpMiddleResNetFHD(nn.Module):
             raise NotImplementedError(
                 f"dense_from_stage={dense_from_stage}: sparse stages past conv2_down "
                 "need a window kernel for 64/128 channels, a later slice")
-        self.engine, self.remat_dense = engine, remat_dense
+        super().__init__(remat_dense, dense_compute_dtype)
+        self.engine = engine
         self.sparse_shape = tuple(sparse_shape)
         self.stage_budgets = stage_budgets
         self.dfs = 1 if engine == "plane" else dfs
@@ -436,7 +549,6 @@ class SpMiddleResNetFHD(nn.Module):
         self.plane_budgets = tuple(plane_budgets)
         self.plane_wins = _stage_wins(plane_window, 3)
         cd = dense_compute_dtype
-        self.cd = _dtype(cd)
         cin = num_input_features
         if engine == "tile":
             _check_tile_chain(self.sparse_shape, self.tile_tz)
@@ -447,6 +559,10 @@ class SpMiddleResNetFHD(nn.Module):
             self.conv_input = DenseSubMStage(cin, (16,), compute_dtype=cd)
             self.conv1_0 = DenseBasicBlock(16, 16, compute_dtype=cd)
             self.conv1_1 = DenseBasicBlock(16, 16, compute_dtype=cd)
+        elif engine == "gather":
+            self.conv_input = SubMStage(cin, (16,))
+            self.conv1_0 = SparseBasicBlock(16, 16)
+            self.conv1_1 = SparseBasicBlock(16, 16)
         else:
             self.conv_input = WinSubMStage(cin, (16,))
             self.conv1_0 = WinBasicBlock(16, 16)
@@ -459,8 +575,10 @@ class SpMiddleResNetFHD(nn.Module):
                                       ksize=ksz, compute_dtype=cd)
             elif k <= self.dfs:
                 budget = stage_budgets[k - 1] if stage_budgets else None
-                down = WinDownsample(cin, ch, grid, stride, pad, ksz, out_budget=budget,
-                                     window=win_window, resid_budget=win_resid_budget)
+                down = (SparseDownsample(cin, ch, grid, stride, pad, ksz, out_budget=budget)
+                        if engine == "gather" else
+                        WinDownsample(cin, ch, grid, stride, pad, ksz, out_budget=budget,
+                                      window=win_window, resid_budget=win_resid_budget))
             else:
                 down = DenseDownsample(cin, ch, stride, pad, ksz, compute_dtype=cd)
             setattr(self, f"{name}_down", down)
@@ -468,6 +586,8 @@ class SpMiddleResNetFHD(nn.Module):
                 block = PlaneKBlock
             elif engine == "tile" and k < self.dfs:
                 block = TileKBlock
+            elif engine == "gather" and k < self.dfs:
+                block = SparseBasicBlock
             else:
                 block = partial(DenseBasicBlock, compute_dtype=cd)
             setattr(self, f"{name}_0", block(ch, ch))
@@ -476,25 +596,13 @@ class SpMiddleResNetFHD(nn.Module):
         if engine == "plane" or engine == "tile" and self.dfs > 4:
             self.extra_conv = TileZConv(128, 128, d=grid[0], tz=self.tile_tz[3],
                                         compute_dtype=cd)
+        elif engine == "gather" and self.dfs > 4:
+            self.extra_conv = SparseDownsample(
+                128, 128, grid, (2, 1, 1), (0, 0, 0), (3, 1, 1),
+                out_budget=stage_budgets[3] if stage_budgets else None)
         else:
             self.extra_conv = DenseDownsample(128, 128, (2, 1, 1), (0, 0, 0), (3, 1, 1),
                                               compute_dtype=cd)
-
-    def _dense(self, module, *args):
-        """``module(*args)`` for a dense module; in training, with
-        ``remat_dense``, rematerialised: its multi-GB activations (the conv2
-        stage's are 21x752x752x32 a sample on the Waymo grid) are rebuilt in
-        the backward, not kept."""
-        if self.remat_dense and self.training and torch.is_grad_enabled():
-            return remat(module, *args, name=type(module).__name__)
-        return module(*args)
-
-    def _dense_stream(self, feats, coords, valid, grid):
-        """Densify in the dense stages' storage dtype (cast before the
-        scatter, so no f32 dense grid is built)."""
-        if self.cd is not None:
-            feats = feats.to(self.cd)
-        return densify(feats, coords, valid, grid)
 
     def _window_stages(self, feats, coords, grid, telemetry, multi_scale):
         """conv1 stage and the strided conv2_down on the window engine."""
@@ -524,6 +632,8 @@ class SpMiddleResNetFHD(nn.Module):
             return self._plane_forward(feats, coords, grid, telemetry, multi_scale)
         if self.engine == "tile":
             return self._tile_forward(feats, coords, grid, telemetry, multi_scale)
+        if self.engine == "gather":
+            return self._gather_forward(feats, coords, valid0, grid, multi_scale)
 
         if self.dfs == 0:
             x, mask = self._dense_stream(feats, coords, valid0, grid)
@@ -544,6 +654,45 @@ class SpMiddleResNetFHD(nn.Module):
             multi_scale[name] = (x, grid)
         x, mask = self._dense(self.extra_conv, x, mask)
         return dense_to_bev(x), multi_scale, telemetry
+
+    def _gather_forward(self, feats, coords, valid, grid, multi_scale):
+        """Sparse stages as gather-GEMM convs, each stage's subm convs through
+        one neighbour table; densified after the strided conv of stage
+        ``dense_from_stage``."""
+        x = mask = None
+        if self.dfs <= 0:
+            x, mask = self._dense_stream(feats, coords, valid, grid)
+            x = self._dense(self.conv_input, x, mask)
+            x = self._dense(self.conv1_1, self._dense(self.conv1_0, x, mask), mask)
+            multi_scale["conv1"] = (x, grid)
+        else:
+            nbr = _subm_table(coords, valid, grid)
+            feats = self.conv_input(feats, valid, nbr)
+            feats = self.conv1_1(self.conv1_0(feats, valid, nbr), valid, nbr)
+            multi_scale["conv1"] = ((feats, coords, valid), grid)
+        for k, (name, _, stride, pad, ksz) in enumerate(_STAGES, start=1):
+            blocks = (getattr(self, f"{name}_0"), getattr(self, f"{name}_1"))
+            if x is None:
+                feats, coords, valid, grid = getattr(self, f"{name}_down")(feats, coords, valid)
+                if k == self.dfs:
+                    x, mask = self._dense_stream(feats, coords, valid, grid)
+            else:
+                x, mask = self._dense(getattr(self, f"{name}_down"), x, mask)
+                grid = conv_out_grid(grid, stride, pad, ksz)
+            if x is None:
+                nbr = _subm_table(coords, valid, grid)
+                feats = blocks[1](blocks[0](feats, valid, nbr), valid, nbr)
+                multi_scale[name] = ((feats, coords, valid), grid)
+            else:
+                x = self._dense(blocks[1], self._dense(blocks[0], x, mask), mask)
+                multi_scale[name] = (x, grid)
+        if self.dfs > 4:
+            feats, coords, valid, g4 = self.extra_conv(feats, coords, valid)
+            return sparse_to_bev(feats, coords, valid, g4), multi_scale, {}
+        if x is None:
+            x, mask = self._dense_stream(feats, coords, valid, grid)
+        x, _ = self._dense(self.extra_conv, x, mask)
+        return dense_to_bev(x), multi_scale, {}
 
     def _chunk_planes(self, state, mask, sets, grid, tz, budget_t, counts):
         """Plane rows -> chunk planes of the chunk sets that cover the planes
@@ -695,6 +844,152 @@ class SpMiddleResNetFHD(nn.Module):
                 x, dmask = densify_tiles(p, mk, sets, grid, tzs[3])
             x, _ = self.extra_conv(x, dmask)
         return dense_to_bev(x.to(out_dtype)), multi_scale, telemetry
+
+
+_FHD_STAGES = [  # (subm stage, its strided conv, channels, stride, padding, ksize)
+    ("subm1", "down1", (32, 32), (2, 2, 2), (1, 1, 1), (3, 3, 3)),
+    ("subm2", "down2", (64, 64, 64), (2, 2, 2), (1, 1, 1), (3, 3, 3)),
+    ("subm3", "down3", (64, 64, 64), (2, 2, 2), (0, 1, 1), (3, 3, 3)),
+]
+
+
+class SpMiddleFHD(_DenseStages):
+    """SECOND's non-residual sparse backbone, gather or window engine.
+
+    forward(voxel_features (B, V, C), coords (B, V, 3) zyx)
+      -> (bev NHWC (B, H/8, W/8, 64*2), conv4, telemetry)
+    where conv4 is the last subm stage's output with its grid, ((features,
+    coords, valid), grid) while it is sparse, else (dense NCDHW, grid); and
+    telemetry, on the window engine, maps "subm0" (its subm plans) and
+    "down1" (its strided plans) to their residual rows a sample and their
+    budget. The result is exact while every count is within its budget.
+
+    ``engine="gather"`` (the reference's default) runs the stages before
+    ``dense_from_stage`` (any; past 4 also ``extra_conv``) as gather-GEMM
+    convs, ``engine="window"`` as windowed convs (the window pass, the
+    hand-written CUDA kernel on the card); ``dense_from_stage`` 1 (the
+    shipped setting) runs subm0 and down1 sparse, 0 every stage dense. The
+    later stages are masked dense 3D convs, rematerialised in training
+    unless ``remat_dense`` is False. The parameters do not depend on the
+    engine, so one checkpoint serves both.
+    """
+
+    out_channels = 64
+
+    def __init__(self, num_input_features: int = 128,
+                 sparse_shape: Tuple[int, int, int] = (41, 1504, 1504),
+                 stage_budgets: Optional[Tuple[int, int, int, int]] = None,
+                 dense_from_stage: Optional[int] = 2, engine: str = "gather",
+                 win_window=384, win_resid_budget: int = 16384,
+                 dense_compute_dtype: Optional[str] = None, remat_dense: bool = True):
+        dfs = 99 if dense_from_stage is None else dense_from_stage
+        if engine not in ("gather", "window"):
+            raise NotImplementedError(
+                f"engine={engine!r}: SpMiddleFHD runs engine='gather' and 'window' in this port")
+        if engine == "window" and dfs not in (0, 1):
+            raise NotImplementedError(
+                f"dense_from_stage={dense_from_stage}: sparse stages past down1 need a window "
+                "kernel for 64 channels, a later slice")
+        super().__init__(remat_dense, dense_compute_dtype)
+        self.engine, self.dfs = engine, dfs
+        self.sparse_shape = tuple(sparse_shape)
+        self.wins = _win_windows(win_window)
+        self.win_resid_budget = win_resid_budget
+        cd = dense_compute_dtype
+        stage = SubMStage if engine == "gather" else WinSubMStage
+        self.subm0 = (stage(num_input_features, (16, 16)) if dfs > 0 else
+                      DenseSubMStage(num_input_features, (16, 16), compute_dtype=cd))
+        cin, grid = 16, self.sparse_shape
+        for k, (name, down, chans, stride, pad, ksz) in enumerate(_FHD_STAGES, start=1):
+            budget = stage_budgets[k - 1] if stage_budgets else None
+            if k > dfs:
+                mod = DenseDownsample(cin, chans[0], stride, pad, ksz, compute_dtype=cd)
+            elif engine == "gather":
+                mod = SparseDownsample(cin, chans[0], grid, stride, pad, ksz, out_budget=budget)
+            else:
+                mod = WinDownsample(cin, chans[0], grid, stride, pad, ksz, out_budget=budget,
+                                    window=self.wins[k], resid_budget=win_resid_budget)
+            setattr(self, down, mod)
+            setattr(self, name, stage(chans[0], chans) if k < dfs else
+                    DenseSubMStage(chans[0], chans, compute_dtype=cd))
+            cin, grid = chans[-1], conv_out_grid(grid, stride, pad, ksz)
+        if dfs > 4:
+            self.extra_conv = SparseDownsample(
+                64, 64, grid, (2, 1, 1), (0, 0, 0), (3, 1, 1),
+                out_budget=stage_budgets[3] if stage_budgets else None)
+        else:
+            self.extra_conv = DenseDownsample(64, 64, (2, 1, 1), (0, 0, 0), (3, 1, 1),
+                                              compute_dtype=cd)
+
+    def _subm_plans(self, k, lin, coords, grid, telemetry, name):
+        """The window plans of subm stage k, with their residual rows."""
+        plans = _for_autograd([WC.make_subm_plan_presorted(l, c, grid, window=self.wins[k])
+                               for l, c in zip(lin, coords)])
+        telemetry[name] = (torch.stack([p.n_resid for p in plans]),
+                           plans[0].resid_rows.shape[0])
+        return plans
+
+    def forward(self, voxel_features, coords):
+        coords = coords.to(torch.int32)
+        valid = (coords >= 0).all(-1)
+        feats = voxel_features * valid[..., None].to(voxel_features.dtype)
+        grid = self.sparse_shape
+        telemetry: Dict[str, Tuple[torch.Tensor, int]] = {}
+        window = self.engine == "window"
+        lin = x = mask = None
+        if self.dfs <= 0:
+            x, mask = self._dense_stream(feats, coords, valid, grid)
+            x = self._dense(self.subm0, x, mask)
+            conv4 = (x, grid)
+        else:
+            if window:
+                rows = [WC.sort_rows(f, c, grid) for f, c in zip(feats, coords)]
+                feats, coords, lin = (torch.stack(t) for t in zip(*rows))
+                valid = lin < WC.MISS
+                tables = self._subm_plans(0, lin, coords, grid, telemetry, "subm0")
+            else:
+                tables = _subm_table(coords, valid, grid)
+            feats = self.subm0(feats, valid, tables)
+            conv4 = ((feats, coords, valid), grid)
+        for k, (name, down, _, stride, pad, ksz) in enumerate(_FHD_STAGES, start=1):
+            if x is None:
+                if window:
+                    feats, coords, lin, valid, grid, plans = getattr(self, down)(feats, coords,
+                                                                                 lin)
+                    telemetry[down] = (torch.stack([p.n_resid for p in plans]),
+                                       self.win_resid_budget)
+                else:
+                    feats, coords, valid, grid = getattr(self, down)(feats, coords, valid)
+                if k == self.dfs:
+                    x, mask = self._dense_stream(feats, coords, valid, grid)
+            else:
+                x, mask = self._dense(getattr(self, down), x, mask)
+                grid = conv_out_grid(grid, stride, pad, ksz)
+            if x is None:
+                tables = (self._subm_plans(k, lin, coords, grid, telemetry, name) if window
+                          else _subm_table(coords, valid, grid))
+                feats = getattr(self, name)(feats, valid, tables)
+                conv4 = ((feats, coords, valid), grid)
+            else:
+                x = self._dense(getattr(self, name), x, mask)
+                conv4 = (x, grid)
+        if self.dfs > 4:
+            feats, coords, valid, g4 = self.extra_conv(feats, coords, valid)
+            return sparse_to_bev(feats, coords, valid, g4), conv4, telemetry
+        if x is None:
+            x, mask = self._dense_stream(feats, coords, valid, grid)
+        x, _ = self._dense(self.extra_conv, x, mask)
+        return dense_to_bev(x), conv4, telemetry
+
+
+def _win_windows(win) -> Tuple[int, int, int, int]:
+    """The window engine's plan windows of the four stages from an int or a
+    4-tuple."""
+    if isinstance(win, (tuple, list)):
+        if len(win) != 4:
+            raise ValueError(f"expected an int or 4 per-stage windows, got {win!r}")
+        return tuple(int(w) for w in win)
+    return (int(win),) * 4
 
 
 def _check_tile_chain(grid: Sequence[int], tzs: Sequence[int]) -> None:

@@ -11,18 +11,19 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .backbones.scn import SpMiddleResNetFHD
+from .backbones.scn import SpMiddleFHD, SpMiddleResNetFHD
 from .detectors.kd import KD_VoxelNet
 from .detectors.voxelnet import VoxelNet
 from .heads.center_head import CenterHead, SepHead
+from .heads.mg_head import MultiGroupHead
 from .necks.rpn import RPN
 from .necks.s2d_rpn import S2D_RPN
 from .readers.pillar_encoder import VoxelFeatureExtractorV3
 
 READERS = {"VoxelFeatureExtractorV3": VoxelFeatureExtractorV3}
-BACKBONES = {"SpMiddleResNetFHD": SpMiddleResNetFHD}
+BACKBONES = {"SpMiddleResNetFHD": SpMiddleResNetFHD, "SpMiddleFHD": SpMiddleFHD}
 NECKS = {"RPN": RPN, "S2D_RPN": S2D_RPN}
-HEADS = {"CenterHead": CenterHead}
+HEADS = {"CenterHead": CenterHead, "MultiGroupHead": MultiGroupHead}
 DETECTORS = {"KD_VoxelNet": KD_VoxelNet, "VoxelNet": VoxelNet}
 
 
@@ -62,7 +63,7 @@ def _trunc_normal_(t: torch.Tensor, fan_in: int, scale: float, gen: torch.Genera
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """The reference's initialisers, drawn from ``generator``: lecun-normal
-    2D convs (he-normal in the head), fan-in-uniform 3D conv kernels (the
+    2D convs (he-normal in the CenterHead), fan-in-uniform 3D conv kernels (the
     PCR generators' too), zero biases, the heatmap output bias at
     ``init_bias``, unit BN scales."""
     head_mods = {id(m) for h in model.modules() if isinstance(h, CenterHead)
@@ -99,9 +100,12 @@ def build_detector(cfg, test_cfg=None, voxel_generator=None, device=None,
     bb.pop("ds_factor", None)
     if voxel_generator is not None:
         bb.setdefault("sparse_shape", sparse_shape_from_voxel_cfg(voxel_generator))
-    parts = dict(reader=_build(cfg.pop("reader"), READERS, "reader"),
-                 backbone=_build(bb, BACKBONES, "backbone"),
-                 neck=_build(cfg.pop("neck"), NECKS, "neck"),
+    backbone = _build(bb, BACKBONES, "backbone")
+    # the neck takes the backbone's BEV width (Flax infers it from the input;
+    # some reference-schema configs state another)
+    neck = dict(cfg.pop("neck"), num_input_features=backbone.bev_channels)
+    parts = dict(reader=_build(cfg.pop("reader"), READERS, "reader"), backbone=backbone,
+                 neck=_build(neck, NECKS, "neck"),
                  bbox_head=_build(cfg.pop("bbox_head"), HEADS, "head"))
     if cfg["type"] == "KD_VoxelNet" and voxel_generator is not None:
         cfg.setdefault("pc_range_full", tuple(float(v) for v in voxel_generator["range"]))

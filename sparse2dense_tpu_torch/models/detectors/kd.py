@@ -1,11 +1,12 @@
 """KD_VoxelNet, the Sparse2Dense student (counterpart of
 ``sparse2dense_tpu/models/detectors/kd.py:38-238``): reader -> sparse
-backbone -> S2D_RPN -> CenterHead, decode + rotated NMS in :meth:`predict`,
-and its losses. The PCR targets are the ``reconstruction_*_{2,4}`` voxel
-streams rasterized as mean-point grids at 1/2 and 1/4 of the grid
-(spconv's ``SparseConvTensor.dense()`` of det3d), held against the
-generators' occupancy logits and point offsets. The reference computes the
-same targets and losses z-folded (a TPU layout); here they are 5D."""
+backbone -> S2D_RPN -> CenterHead (or SECOND's MultiGroupHead), decode +
+rotated NMS in :meth:`predict`, and its losses. The PCR targets are the
+``reconstruction_*_{2,4}`` voxel streams rasterized as mean-point grids at
+1/2 and 1/4 of the grid (spconv's ``SparseConvTensor.dense()`` of det3d),
+held against the generators' occupancy logits and point offsets. The
+reference computes the same targets and losses z-folded (a TPU layout);
+here they are 5D."""
 from __future__ import annotations
 
 from typing import Any, Optional, Sequence, Tuple
@@ -16,6 +17,7 @@ from torch import nn
 
 from ...ops.sparse_conv import scatter_to_dense
 from ..heads.center_head import center_head_loss, center_head_predict
+from ..heads.mg_head import MultiGroupHead, mg_head_loss, mg_head_predict
 
 
 def world_grid(shape: Tuple[int, int, int], pc_range_full: Sequence[float],
@@ -90,11 +92,17 @@ class KD_VoxelNet(nn.Module):
         return losses[0][0] + losses[1][0], losses[0][1] + losses[1][1]
 
     def loss(self, preds, example):
+        if isinstance(self.bbox_head, MultiGroupHead):
+            return mg_head_loss(self.bbox_head, preds, example)
         return center_head_loss(preds, example, weight=self.bbox_head.weight,
                                 code_weights=self.bbox_head.code_weights)
 
-    def predict(self, preds, test_cfg=None):
+    def predict(self, preds, test_cfg=None, example=None):
+        """Detections of ``preds`` (the forward's output or its "preds");
+        the anchor head decodes against ``example``'s "anchors"."""
         if isinstance(preds, dict) and "preds" in preds:
             preds = preds["preds"]
         cfg = test_cfg if test_cfg is not None else self.test_cfg
+        if isinstance(self.bbox_head, MultiGroupHead):
+            return mg_head_predict(self.bbox_head, preds, example, cfg)
         return center_head_predict(preds, cfg, self.bbox_head.num_classes)

@@ -1,6 +1,6 @@
 """VoxelNet, the dense teacher (counterpart of
 ``sparse2dense_tpu/models/detectors/voxelnet.py:28-108``): reader -> sparse
-backbone -> RPN -> CenterHead.
+backbone -> RPN -> CenterHead, or SECOND's MultiGroupHead (anchors).
 
 When the example carries the ``dense_*`` stream (a teacher trained on, or
 distilling from, the densified cloud), the detector reads it instead of the
@@ -16,6 +16,7 @@ from typing import Any, Optional
 from torch import nn
 
 from ..heads.center_head import center_head_loss, center_head_predict
+from ..heads.mg_head import MultiGroupHead, mg_head_loss, mg_head_predict
 
 
 class VoxelNet(nn.Module):
@@ -39,11 +40,17 @@ class VoxelNet(nn.Module):
                 "telemetry": telemetry}
 
     def loss(self, preds, example):
+        if isinstance(self.bbox_head, MultiGroupHead):
+            return mg_head_loss(self.bbox_head, preds, example)
         return center_head_loss(preds, example, weight=self.bbox_head.weight,
                                 code_weights=self.bbox_head.code_weights)
 
-    def predict(self, preds, test_cfg=None):
+    def predict(self, preds, test_cfg=None, example=None):
+        """Detections of ``preds`` (the forward's output or its "preds");
+        the anchor head decodes against ``example``'s "anchors"."""
         if isinstance(preds, dict) and "preds" in preds:
             preds = preds["preds"]
         cfg = test_cfg if test_cfg is not None else self.test_cfg
+        if isinstance(self.bbox_head, MultiGroupHead):
+            return mg_head_predict(self.bbox_head, preds, example, cfg)
         return center_head_predict(preds, cfg, self.bbox_head.num_classes)

@@ -90,5 +90,7 @@ class RPN(nn.Module):
         return (torch.cat(ups, 1) if ups else x), stages
 
     def forward(self, x):
-        out, _ = self.trunk_and_ups(x.permute(0, 3, 1, 2))
+        # a bf16 BEV map (SECOND's dense stages keep bf16 to the end) meets
+        # float32 weights: float32, as Flax's type promotion in the conv
+        out, _ = self.trunk_and_ups(x.permute(0, 3, 1, 2).float())
         return out.permute(0, 2, 3, 1)

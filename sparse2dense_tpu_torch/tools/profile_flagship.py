@@ -1,16 +1,19 @@
 """Where the time of a flagship frame goes, on one NVIDIA GPU.
 
     python3 -m sparse2dense_tpu_torch.tools.profile_flagship [--frames 3] [--no-tf32]
-        [--engine window|plane|tile]
+        [--engine window|plane|tile|gather] [--config PATH]
 
 Runs the flagship KD_VoxelNet + S2D_RPN (random weights from a seeded
-generator, heatmap bias -6 as in chip_smoke.py) on a 150k-voxel synthetic
-Waymo frame, on the window engine (the config as it is), the plane engine
-(the reference bench's override, with the plane and tile budgets
-``utils.config.FRAME_BUDGETS`` that this frame needs to drop nothing) or
-the tile engine (the override ``engine="tile", tile_backend="pallas"``,
-with ``utils.config.TILE_FRAME_BUDGETS``), and prints one JSON line per
-measurement:
+generator, heatmap bias -6 as in chip_smoke.py), or the student of the
+recipe config ``--config`` names (such as the SECOND one,
+``sparse2dense_tpu_torch/configs/waymo_second_3x_distill_interval_5.py``:
+window and gather engines), on a 150k-voxel synthetic Waymo frame, on the
+window engine (the config as it is), the gather engine (the engine set
+alone), the plane engine (the reference bench's override, with the plane
+and tile budgets ``utils.config.FRAME_BUDGETS`` that this frame needs to
+drop nothing) or the tile engine (the override ``engine="tile",
+tile_backend="pallas"``, with ``utils.config.TILE_FRAME_BUDGETS``), and
+prints one JSON line per measurement:
 
 - ``stages``: per-module wall time (ms, median over the frames) of the
   backbone's and the neck's layers (on the tile engine: conv_input,
@@ -35,13 +38,16 @@ from collections import defaultdict
 import torch
 
 
-def _flagship(engine: str):
+def _flagship(engine: str, config: str = None):
     from sparse2dense_tpu_torch.models import build_detector
     from sparse2dense_tpu_torch.training.synthetic import make_batch
-    from sparse2dense_tpu_torch.utils.config import FRAME_BUDGETS, TILE_FRAME_BUDGETS, flagship
+    from sparse2dense_tpu_torch.utils.config import (FLAGSHIP, FRAME_BUDGETS,
+                                                     TILE_FRAME_BUDGETS, flagship)
 
-    cfg = flagship(engine, TILE_FRAME_BUDGETS if engine == "tile" else FRAME_BUDGETS)
-    cfg["S_model"]["bbox_head"]["init_bias"] = -6.0
+    budgets = {"plane": FRAME_BUDGETS, "tile": TILE_FRAME_BUDGETS}.get(engine)
+    cfg = flagship(engine, budgets, config or FLAGSHIP)
+    if cfg["S_model"]["bbox_head"]["type"] == "CenterHead":
+        cfg["S_model"]["bbox_head"]["init_bias"] = -6.0
     model = build_detector(cfg["S_model"], test_cfg=cfg["test_cfg"],
                            voxel_generator=cfg["voxel_generator"], device="cuda",
                            generator=torch.Generator().manual_seed(0))
@@ -51,7 +57,7 @@ def _flagship(engine: str):
 
 def _frame(model, batch):
     with torch.inference_mode():
-        return model.predict(model(batch))
+        return model.predict(model(batch), example=batch)
 
 
 def stage_times(model, batch, frames: int):
@@ -85,7 +91,7 @@ def stage_times(model, batch, frames: int):
                 out = model(batch)
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
-                model.predict(out)
+                model.predict(out, example=batch)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             totals.append((t2 - t0) * 1e3)
@@ -139,7 +145,9 @@ def device_trace(fn):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=3)
-    ap.add_argument("--engine", choices=("window", "plane", "tile"), default="window")
+    ap.add_argument("--engine", choices=("window", "plane", "tile", "gather"), default="window")
+    ap.add_argument("--config", default=None,
+                    help="a recipe config whose student runs (default: the flagship's)")
     ap.add_argument("--no-tf32", action="store_true",
                     help="full float32 in cuDNN convs (PyTorch's default lets them use "
                          "TF32), as chip_smoke.py's comparison phases run")
@@ -148,9 +156,10 @@ def main():
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    model, batch = _flagship(args.engine)
+    model, batch = _flagship(args.engine, args.config)
     _frame(model, batch)  # warm-up: kernel build, allocator
-    print(json.dumps({"gpu": smi, "engine": args.engine, "tf32": torch.backends.cudnn.allow_tf32,
+    print(json.dumps({"gpu": smi, "config": args.config, "engine": args.engine,
+                      "tf32": torch.backends.cudnn.allow_tf32,
                       "stages": stage_times(model, batch, args.frames)}), flush=True)
     print(json.dumps({"device": device_profile(model, batch)}), flush=True)
 

@@ -2,13 +2,15 @@
 time and memory go.
 
     python3 -m sparse2dense_tpu_torch.tools.profile_train_step [--batch 1]
-        [--warmup 2] [--steps 4] [--no-remat] [--profile]
+        [--warmup 2] [--steps 4] [--no-remat] [--profile] [--config PATH]
 
-Builds the flagship's VoxelNet teacher and KD_VoxelNet + S2D_RPN student
+Builds the flagship's VoxelNet teacher and KD_VoxelNet + S2D_RPN student,
+or the teacher and student of the recipe config ``--config`` names (such as
+the SECOND one, ``configs/waymo_second_3x_distill_interval_5.py``)
 (``engine="window", dense_from_stage=1``, bf16 dense stages; seeded random
 weights: the recipe's teacher checkpoint is not in the repository), a
 training batch of ``--batch`` synthetic frames (the bench's frame: 170k
-points, 32 objects, 150k voxels, seeds 0, 1, ...; with the CenterHead
+points, 32 objects, 150k voxels, seeds 0, 1, ...; with the head's
 targets and the distillation streams), and runs ``TS_Trainer.step`` at
 PyTorch's defaults, the student's dense backbone stages rematerialised
 unless ``--no-remat`` is given. Prints one JSON line: each step's stages
@@ -34,16 +36,17 @@ STAGES = ("teacher_forward", "student_forward", "backward", "optimizer")
 FRAME = dict(max_voxels=150000, n_points=170000, n_obj=32)
 
 
-def train_setup(batch_size: int, total_steps: int, remat: bool = True):
-    """(batch, trainer) of the flagship on the card; ``remat`` is the
-    student backbone's ``remat_dense``."""
+def train_setup(batch_size: int, total_steps: int, remat: bool = True, config: str = None):
+    """(batch, trainer) of the flagship (or of the recipe config at
+    ``config``) on the card; ``remat`` is the student backbone's
+    ``remat_dense``."""
     from ..models import build_detector
     from ..solver.optim import OneCycleAdam
     from ..training.synthetic import make_batch
     from ..training.trainer import TS_Trainer
     from ..utils.config import FLAGSHIP, ConfigDict
 
-    cfg = ConfigDict.fromfile(FLAGSHIP)
+    cfg = ConfigDict.fromfile(config or FLAGSHIP)
     cfg.S_model.backbone["remat_dense"] = remat
     kw = dict(test_cfg=cfg.test_cfg, voxel_generator=cfg.voxel_generator, device="cuda")
     teacher = build_detector(cfg.model, generator=torch.Generator().manual_seed(0), **kw)
@@ -59,7 +62,10 @@ def run_steps(trainer, batch, steps: int):
     """``steps`` calls of ``trainer.step``: per step its host-clock ms, the
     ms and the peak GiB of each stage (device synchronised, peak counter
     read and reset at the boundaries), the step's peak and the B1
-    launches; and the last step's metrics. Counts B1 launches from 0."""
+    launches; and the last step's metrics. Counts B1 launches from 0. A
+    step that runs out of device memory raises with the stages it finished
+    (``stages_ms``, ``stages_peak_gb``) and the peak of the one it did not
+    (``failed_peak_gb``) on the error."""
     from ..ops import window_kernel as WK
 
     rows, metrics = [], None
@@ -79,7 +85,13 @@ def run_steps(trainer, batch, steps: int):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = clock[0] = time.perf_counter()
-        metrics = trainer.step(batch, mark)
+        try:
+            metrics = trainer.step(batch, mark)
+        except torch.cuda.OutOfMemoryError as e:
+            # what the step got through, for the caller that reports it
+            e.stages_ms, e.stages_peak_gb = stages, peaks
+            e.failed_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+            raise
         torch.cuda.synchronize()
         rows.append(dict(step_ms=(time.perf_counter() - t0) * 1e3, stages=stages,
                          peak_gb=peaks, step_peak_gb=max(peaks.values()),
@@ -108,13 +120,16 @@ def main():
     ap.add_argument("--no-remat", dest="remat", action="store_false",
                     help="keep the dense stages' activations (remat_dense=False)")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--config", default=None,
+                    help="a recipe config whose teacher and student train (default: the "
+                         "flagship's)")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     batch, trainer = train_setup(args.batch, args.warmup + args.steps + args.profile,
-                                 args.remat)
+                                 args.remat, args.config)
     rows, metrics = run_steps(trainer, batch, args.warmup + args.steps)
-    print(json.dumps(dict(gpu=smi, batch=args.batch, remat=args.remat,
+    print(json.dumps(dict(gpu=smi, config=args.config, batch=args.batch, remat=args.remat,
                           **summary(rows[args.warmup:]),
                           peak_all_steps_gb=max(r["step_peak_gb"] for r in rows),
                           steps=rows, metrics={k: float(v) for k, v in metrics.items()})),

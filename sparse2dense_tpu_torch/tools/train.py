@@ -12,8 +12,10 @@ runs the teacher-student step (``TS_Trainer``); otherwise a plain detector
 trains from ``cfg.S_model``. The batch is ``cfg.data.samples_per_gpu``
 unless ``--batch_size`` is given; the one-cycle schedule covers the epoch's
 steps times the epochs. ``--synthetic N`` trains on N synthetic frames
-(``make_batch`` with the CenterHead targets, seeds 0, 1, ... a batch; the
-same batches every epoch). Checkpoints go to ``--work_dir``, else
+(``make_batch`` with the head's targets, CenterHead or MultiGroupHead,
+seeds 0, 1, ... a batch; the same batches every epoch). The distillation
+branch follows the teacher's backbone (``distill.branch_of``): "centerpoint"
+for the flagship's recipe, "second" for SECOND's. Checkpoints go to ``--work_dir``, else
 ``cfg.work_dir``, else ``work_dirs/<config name>`` (the reference's layout):
 ``epoch_<n>`` each ``checkpoint_config.interval`` epochs and the ``latest``
 symlink.

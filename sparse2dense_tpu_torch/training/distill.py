@@ -2,13 +2,16 @@
 ``sparse2dense_tpu/training/distill.py``; det3d's
 ``TS_Trainer.batch_processor_inline``). The teacher runs frozen (eval mode,
 no gradient) on the ``dense_*`` stream and, for F_D_b, on the
-``reconstruction_*`` stream; the student trains. The "centerpoint" branch
-(SpMiddleResNetFHD teachers) adds to the student's head loss: masked MSE of
-F_S_a against F_D_a (x10 where F_D_a > 0, x20 elsewhere) and of F_S_b
-against F_D_b (x5, x20), the KD heatmap focal loss against the teacher's
-sigmoid heatmap, the KD box regression MSE at the gt centres weighted by the
-code weights and the head weight, and the PCR mask and offset losses (x1).
-The masks are F_D > 0 elementwise, as det3d's boolean indexing.
+``reconstruction_*`` stream; the student trains. Both branches add to the
+student's head loss the masked MSE of F_S_a against F_D_a (x10 where F_D_a
+> 0, x20 elsewhere) and of F_S_b against F_D_b (x5, x20), and the PCR mask
+and offset losses. The "centerpoint" branch (SpMiddleResNetFHD teachers)
+adds the KD heatmap focal loss against the teacher's sigmoid heatmap and
+the KD box regression MSE at the gt centres weighted by the code weights
+and the head weight, and weighs the PCR losses x1; the "second" branch
+(SpMiddleFHD teachers, an anchor head with no heatmap) adds nothing else
+and weighs the PCR losses x0.5. The masks are F_D > 0 elementwise, as
+det3d's boolean indexing.
 """
 from __future__ import annotations
 
@@ -48,17 +51,31 @@ def make_teacher_forward(teacher):
     return teacher_forward
 
 
+def _kd_losses(head, s_preds, t_preds, batch):
+    """The "centerpoint" branch's KD terms: (kd heatmap focal, kd box
+    regression, the teacher's own heatmap loss for the logs)."""
+    ind, mask, cat = batch["ind"][0], batch["mask"][0], batch["cat"][0]
+    t_hm = torch.sigmoid(t_preds[0]["hm"])
+    kd_hm = fast_focal_loss(_clip_sigmoid(s_preds[0]["hm"]), t_hm, ind, mask, cat)
+    kd_reg = distill_reg_loss(torch.cat([s_preds[0][k] for k in _ANNO], -1),
+                              torch.cat([t_preds[0][k] for k in _ANNO], -1), mask, ind)
+    cw = torch.tensor(head.code_weights[:kd_reg.shape[0]], dtype=kd_reg.dtype,
+                      device=kd_reg.device)
+    t_hm_loss = fast_focal_loss(t_hm.clamp(1e-4, 1 - 1e-4), batch["hm"][0], ind, mask, cat)
+    return kd_hm, (kd_reg * cw).sum() * head.weight, t_hm_loss
+
+
 def make_ts_train_step(teacher, student, optimizer, branch: str):
     """-> ts_step(batch, mark=None) -> metrics (every loss in the logs,
     "loss", "grad_norm", "telemetry/*"). ``mark`` is called after
     "teacher_forward", "student_forward" (with the losses), "backward" and
     "optimizer"."""
-    if branch != "centerpoint":
+    if branch not in ("centerpoint", "second"):
         raise NotImplementedError(
-            f"the {branch!r} distillation branch comes with the PointPillars and SECOND "
-            "families, a later slice")
+            f"the {branch!r} distillation branch comes with the PointPillars family, a "
+            "later slice")
+    pcr_weight = 1.0 if branch == "centerpoint" else 0.5
     teacher_forward = make_teacher_forward(teacher)
-    head = student.bbox_head
 
     def student_losses(t_out, batch):
         t_preds, f_d_a, f_d_b = t_out
@@ -73,19 +90,14 @@ def make_ts_train_step(teacher, student, optimizer, branch: str):
         inds = f_d_b > 0
         s2d = s2d + masked_mse(f_s_b, f_d_b, inds) * 5
         s2d = s2d + masked_mse(f_s_b, f_d_b, ~inds) * 20
-        ind, mask, cat = batch["ind"][0], batch["mask"][0], batch["cat"][0]
-        t_hm = torch.sigmoid(t_preds[0]["hm"])
-        kd_hm = fast_focal_loss(_clip_sigmoid(s_preds[0]["hm"]), t_hm, ind, mask, cat)
-        kd_reg = distill_reg_loss(torch.cat([s_preds[0][k] for k in _ANNO], -1),
-                                  torch.cat([t_preds[0][k] for k in _ANNO], -1), mask, ind)
-        cw = torch.tensor(head.code_weights[:kd_reg.shape[0]], dtype=kd_reg.dtype,
-                          device=kd_reg.device)
-        kd_reg = (kd_reg * cw).sum() * head.weight
-        total = task_loss + (s2d + kd_hm + kd_reg) + (mask_loss + offset_loss)
-        logs.update(kd_hm_loss=kd_hm, kd_reg_loss=kd_reg, sparse2dense_loss=s2d,
-                    mask_loss=mask_loss, reconstruction_loss=offset_loss,
-                    T_hm_loss=fast_focal_loss(t_hm.clamp(1e-4, 1 - 1e-4), batch["hm"][0], ind,
-                                              mask, cat))
+        distill = s2d
+        if branch == "centerpoint":
+            kd_hm, kd_reg, t_hm_loss = _kd_losses(student.bbox_head, s_preds, t_preds, batch)
+            distill = distill + kd_hm + kd_reg
+            logs.update(kd_hm_loss=kd_hm, kd_reg_loss=kd_reg, T_hm_loss=t_hm_loss)
+        total = task_loss + distill + (mask_loss + offset_loss) * pcr_weight
+        logs.update(sparse2dense_loss=s2d, mask_loss=mask_loss,
+                    reconstruction_loss=offset_loss)
         return total, logs, out["telemetry"]
 
     def ts_step(batch, mark: Mark = None):

@@ -1,9 +1,10 @@
 """Synthetic LiDAR frames: a random point cloud with planted box objects,
-voxelized and padded to a static budget, with the CenterHead targets and the
+voxelized and padded to a static budget, with the head's targets and the
 distillation streams of a training batch. A copy of the reference's
-``sparse2dense_tpu/training/synthetic.py`` (CenterHead targets only); for the
-same seed it yields bit-identical arrays. Beside it, ``synth_voxels``: a
-voxel scene with no point cloud, for the microbenchmarks."""
+``sparse2dense_tpu/training/synthetic.py`` (CenterHead and MultiGroupHead
+targets); for the same seed it yields bit-identical arrays. Beside it,
+``synth_voxels``: a voxel scene with no point cloud, for the
+microbenchmarks."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from ..data.pipelines.assign_label import AssignLabel
+from ..data.pipelines.assign_target import AssignTarget
 from ..device import resolve_device
 from ..ops.voxelize import VoxelGenerator
 
@@ -131,10 +133,14 @@ def make_batch(cfg, batch_size: int, max_voxels: int, seed: int = 0,
     (CUDA unless given): "voxels" (B, V, P, C), "coordinates" (B, V, 3) zyx
     int32 with -1 padding, "num_points" (B, V) int32.
 
-    ``with_targets`` adds the CenterHead targets of ``AssignLabel`` as
-    per-task lists: "hm" (B, H, W, C), "anno_box" (B, M, 10), "ind" and
-    "cat" (B, M) int32, "mask" (B, M) uint8, and "gt_boxes_and_cls". With
-    ``distillation``, also the streams the reference's Voxelization stage
+    ``with_targets`` adds the head's targets as per-task lists: the
+    CenterHead's of ``AssignLabel``, "hm" (B, H, W, C), "anno_box" (B, M,
+    10), "ind" and "cat" (B, M) int32, "mask" (B, M) uint8, and
+    "gt_boxes_and_cls"; the MultiGroupHead's of ``AssignTarget``, "labels"
+    (B, A) int32, "reg_targets" (B, A, 7), "reg_weights" (B, A). A
+    MultiGroupHead batch always carries its "anchors" (B, A, 7), which the
+    head decodes against (the reference's ``AssignTarget`` stage gives them
+    in inference too). With ``distillation``, also the streams the reference's Voxelization stage
     makes when ``cfg.distillation`` is set: "dense_*" (the same cloud with
     extra in-box points) and "reconstruction_*{,_2,_4}" (the cloud
     voxelized at 1x, 2x and 4x the voxel size)."""
@@ -154,12 +160,15 @@ def make_batch(cfg, batch_size: int, max_voxels: int, seed: int = 0,
                                                     pc_range, vg_cfg["max_points_in_voxel"],
                                                     max_voxels))
             for tag, mult in (("", 1), ("_2", 2), ("_4", 4))]
-    if with_targets:
-        if model_cfg["bbox_head"]["type"] != "CenterHead":
-            raise NotImplementedError(
-                f"targets of {model_cfg['bbox_head']['type']} come with the other model "
-                "families, a later slice")
-        assigner = AssignLabel(cfg=cfg["train_cfg"]["assigner"])
+    head_type = model_cfg["bbox_head"]["type"]
+    if with_targets and head_type not in ("CenterHead", "MultiGroupHead"):
+        raise NotImplementedError(f"targets of {head_type} come with its model family, a "
+                                  "later slice")
+    # the anchor head decodes against the anchors, in training and inference
+    anchor_head = head_type == "MultiGroupHead"
+    if with_targets or anchor_head:
+        assigner = (AssignTarget if anchor_head else AssignLabel)(
+            cfg=cfg["train_cfg"]["assigner"])
     arrays = {(pre, suf): ([], [], []) for pre, suf, _ in streams}
     targets = []
     for i in range(batch_size):
@@ -173,8 +182,8 @@ def make_batch(cfg, batch_size: int, max_voxels: int, seed: int = 0,
             v, c, n = g.generate(dense_pts if pre == "dense_" else pts)
             for lst, a, fill in zip(arrays[pre, suf], (v, c, n), (0, -1, 0)):
                 lst.append(pad_to(a, max_voxels, fill=fill))
-        if with_targets:
-            res = {"mode": "train", "type": "WaymoDataset",
+        if with_targets or anchor_head:
+            res = {"mode": "train" if with_targets else "val", "type": "WaymoDataset",
                    "lidar": {"voxels": {"shape": gen.grid_size, "range": pc_range,
                                         "size": np.asarray(vg_cfg["voxel_size"], np.float32)},
                              "annotations": {"gt_boxes": gt_boxes, "gt_classes": gt_classes,
@@ -187,9 +196,12 @@ def make_batch(cfg, batch_size: int, max_voxels: int, seed: int = 0,
     batch = {f"{pre}{part}{suf}": put(np.stack(lst))
              for (pre, suf), lists in arrays.items()
              for part, lst in zip(("voxels", "coordinates", "num_points"), lists)}
-    if with_targets:
-        for key in ("hm", "anno_box", "ind", "mask", "cat"):
+    if targets:   # an anchor batch without targets holds only its anchors
+        keys = (("anchors", "labels", "reg_targets", "reg_weights") if anchor_head else
+                ("hm", "anno_box", "ind", "mask", "cat"))
+        for key in [k for k in keys if k in targets[0]]:
             batch[key] = [put(np.stack([t[key][ti] for t in targets]))
-                          for ti in range(len(targets[0]["hm"]))]
+                          for ti in range(len(targets[0][key]))]
+    if with_targets and not anchor_head:
         batch["gt_boxes_and_cls"] = put(np.stack([t["gt_boxes_and_cls"] for t in targets]))
     return batch

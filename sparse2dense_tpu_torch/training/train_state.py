@@ -29,7 +29,7 @@ def telemetry_metrics(telemetry) -> Dict[str, torch.Tensor]:
 def make_train_step(model, optimizer):
     """-> train_step(batch, mark=None) -> metrics: every loss of the model's
     logs, "loss", "grad_norm" (before clipping) and "telemetry/*", as 0-dim
-    tensors. ``batch`` carries the inputs and the CenterHead targets.
+    tensors. ``batch`` carries the inputs and the head's targets.
     ``mark`` is called after "forward", "backward" and "optimizer"."""
 
     def train_step(batch, mark: Mark = None):

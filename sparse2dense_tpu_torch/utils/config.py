@@ -1,10 +1,14 @@
 """Python-file configs: a plain ``.py`` file whose module-level names become
-the config (mirrors ``sparse2dense_tpu/utils/config.py``, without its det3d
-import shim: the port's configs import nothing)."""
+the config (mirrors ``sparse2dense_tpu/utils/config.py``). The port's own
+configs import nothing; reference-schema files (such as
+``configs/tests/*_tiny.py``) import two det3d names, which the loader binds
+to the port's own while the file runs (:func:`_det3d_names`)."""
 from __future__ import annotations
 
+import contextlib
 import os
 import runpy
+import sys
 import types
 
 
@@ -43,11 +47,56 @@ class ConfigDict(dict):
         filename = os.path.abspath(os.path.expanduser(filename))
         if not filename.endswith(".py"):
             raise ValueError(f"only .py configs are supported, got {filename}")
-        names = runpy.run_path(filename)
+        with _det3d_names():
+            names = runpy.run_path(filename)
         return cls({k: v for k, v in names.items()
                     if not k.startswith("__")
                     and not isinstance(v, types.ModuleType)
                     and not callable(v)})
+
+
+def get_downsample_factor(model_config) -> int:
+    """A detector config's BEV downsampling: the product of the neck's
+    strides over its last upsampling stride, times the backbone's
+    ``ds_factor`` (det3d's config_tool)."""
+    cfg = model_config if "neck" in model_config else model_config["first_stage_cfg"]
+    neck = cfg["neck"]
+    factor = 1.0
+    for s in neck.get("ds_layer_strides", [1]):
+        factor *= s
+    us = neck.get("us_layer_strides", [])
+    if len(us) > 0:
+        factor /= us[-1]
+    factor = int(factor * cfg["backbone"]["ds_factor"])
+    if factor <= 0:
+        raise ValueError(f"invalid downsample factor {factor}")
+    return factor
+
+
+@contextlib.contextmanager
+def _det3d_names():
+    """``det3d.builder.build_box_coder`` and
+    ``det3d.utils.config_tool.get_downsample_factor`` (all that reference
+    config files import) as the port's own while the block runs; the module
+    names' earlier entries in ``sys.modules`` are put back after."""
+    from ..core.box_coder import build_box_coder
+
+    mods = {name: types.ModuleType(name) for name in
+            ("det3d", "det3d.builder", "det3d.utils", "det3d.utils.config_tool")}
+    mods["det3d.builder"].build_box_coder = build_box_coder
+    mods["det3d.utils.config_tool"].get_downsample_factor = get_downsample_factor
+    mods["det3d"].builder, mods["det3d"].utils = mods["det3d.builder"], mods["det3d.utils"]
+    mods["det3d.utils"].config_tool = mods["det3d.utils.config_tool"]
+    saved = {name: sys.modules.get(name) for name in mods}
+    sys.modules.update(mods)
+    try:
+        yield
+    finally:
+        for name, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = mod
 
 
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
@@ -55,6 +104,9 @@ CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 # that loads its checkpoint
 DENSE_TEACHER = os.path.join(CONFIGS, "waymo_centerpoint_voxelnet_3x_dense_interval_5.py")
 FLAGSHIP = os.path.join(CONFIGS, "waymo_centerpoint_voxelnet_3x_distill_interval_5.py")
+# the SECOND recipe's two stages, likewise
+SECOND_DENSE = os.path.join(CONFIGS, "waymo_second_3x_dense_interval_5.py")
+SECOND = os.path.join(CONFIGS, "waymo_second_3x_distill_interval_5.py")
 
 
 # plane-engine budgets for the 150k-voxel synthetic frame of the chip runs
@@ -84,19 +136,21 @@ FRAME_BUDGETS = dict(plane_budgets=(90000, 37000, 8700),
 TILE_FRAME_BUDGETS = dict(tile_budgets=(73000, 90000, 43000, 2400), tilek_window=10 ** 6)
 
 
-def flagship(engine: str = "window", budgets=None) -> ConfigDict:
-    """The flagship config; ``engine="plane"`` or ``"tile"`` applies the
-    reference bench's override (``backbone.engine`` set, for the tile engine
-    with ``tile_backend = "pallas"``; ``dense_from_stage`` dropped), and
-    ``budgets`` (such as ``FRAME_BUDGETS`` or ``TILE_FRAME_BUDGETS``), if
-    given, replaces the engine's default budgets; every other knob keeps its
-    default."""
-    cfg = ConfigDict.fromfile(FLAGSHIP)
+def flagship(engine: str = "window", budgets=None, path: str = FLAGSHIP) -> ConfigDict:
+    """The flagship config (or the recipe config at ``path``, such as
+    ``SECOND``); ``engine="plane"`` or ``"tile"`` applies the reference
+    bench's override (``backbone.engine`` set, for the tile engine with
+    ``tile_backend = "pallas"``; ``dense_from_stage`` dropped), ``"gather"``
+    sets the engine alone, and ``budgets`` (such as ``FRAME_BUDGETS`` or
+    ``TILE_FRAME_BUDGETS``), if given, replaces the engine's default
+    budgets; every other knob keeps its default."""
+    cfg = ConfigDict.fromfile(path)
     if engine != "window":
         backbone = cfg["S_model"]["backbone"]
         backbone["engine"] = engine
         if engine == "tile":
             backbone["tile_backend"] = "pallas"
-        backbone.pop("dense_from_stage", None)
+        if engine != "gather":
+            backbone.pop("dense_from_stage", None)
         backbone.update(budgets or {})
     return cfg

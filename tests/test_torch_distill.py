@@ -56,10 +56,17 @@ def _port_grads(model):
 
 @pytest.fixture(scope="module")
 def run():
+    return ts_and_teacher_steps(ENGINE)
+
+
+def ts_and_teacher_steps(engine, teacher_step=True):
+    """One teacher-student step of ``distill_tiny`` with both backbones on
+    ``engine`` (config overrides) in each package, and with
+    ``teacher_step`` one plain step of the teacher."""
     jcfg, tcfg = Config.fromfile(CFG), ConfigDict.fromfile(CFG)
     for cfg in (jcfg, tcfg):
         for key in ("model", "S_model"):
-            cfg[key]["backbone"].update(ENGINE)
+            cfg[key]["backbone"].update(engine)
     kw = dict(test_cfg=jcfg.test_cfg, voxel_generator=jcfg.voxel_generator)
     jteacher, jstudent = (jax_build_detector(jcfg[k], **kw) for k in ("model", "S_model"))
     jbatch = jax_make_batch(jcfg, 1, distillation=True, **FRAME)
@@ -72,9 +79,6 @@ def run():
                                 batch_stats=s_vars["batch_stats"], tx=sgd)
     s_state, jmetrics = jax.jit(jax_ts_step(jteacher, jstudent, "centerpoint"))(
         t_vars, s_state, jbatch)
-    t_state = TrainState.create(apply_fn=jteacher.apply, params=t_vars["params"],
-                                batch_stats=t_vars["batch_stats"], tx=sgd)
-    t_state, jt_metrics = jax.jit(jax_train_step(jteacher))(t_state, jbatch)
 
     kw = dict(test_cfg=tcfg.test_cfg, voxel_generator=tcfg.voxel_generator, device="cpu")
     teacher, student = (build_detector(tcfg[k], **kw) for k in ("model", "S_model"))
@@ -86,20 +90,25 @@ def run():
                          OneCycleAdam(student.parameters(), tcfg.optimizer, tcfg.lr_config, 10,
                                       clip), tcfg.model)
     metrics = trainer.step(batch)
-    s_grads = _port_grads(student)
-    s_stats = {k: v.clone() for k, v in student.state_dict().items() if "running" in k}
-    t_metrics = make_train_step(teacher, OneCycleAdam(teacher.parameters(), tcfg.optimizer,
-                                                      tcfg.lr_config, 10, clip))(batch)
-    t_stats = {k: v.clone() for k, v in teacher.state_dict().items() if "running" in k}
-    return dict(
+    out = dict(
         jbatch=jbatch, batch=batch, jmetrics=jmetrics, metrics=metrics,
-        jt_metrics=jt_metrics, t_metrics=t_metrics,
-        s_grads=s_grads, js_grads=from_flax({"params": _sgd_grads(s_vars["params"],
-                                                                  s_state.params)}, student),
-        t_grads=_port_grads(teacher), jt_grads=from_flax(
-            {"params": _sgd_grads(t_vars["params"], t_state.params)}, teacher),
-        s_stats=s_stats, js_stats=from_flax({"batch_stats": s_state.batch_stats}, student),
-        t_stats=t_stats, jt_stats=from_flax({"batch_stats": t_state.batch_stats}, teacher))
+        s_grads=_port_grads(student), js_grads=from_flax(
+            {"params": _sgd_grads(s_vars["params"], s_state.params)}, student),
+        s_stats={k: v.clone() for k, v in student.state_dict().items() if "running" in k},
+        js_stats=from_flax({"batch_stats": s_state.batch_stats}, student))
+    if teacher_step:
+        t_state = TrainState.create(apply_fn=jteacher.apply, params=t_vars["params"],
+                                    batch_stats=t_vars["batch_stats"], tx=sgd)
+        t_state, out["jt_metrics"] = jax.jit(jax_train_step(jteacher))(t_state, jbatch)
+        out["t_metrics"] = make_train_step(teacher, OneCycleAdam(
+            teacher.parameters(), tcfg.optimizer, tcfg.lr_config, 10, clip))(batch)
+        out.update(
+            t_stats={k: v.clone() for k, v in teacher.state_dict().items() if "running" in k},
+            t_grads=_port_grads(teacher),
+            jt_grads=from_flax({"params": _sgd_grads(t_vars["params"], t_state.params)},
+                               teacher),
+            jt_stats=from_flax({"batch_stats": t_state.batch_stats}, teacher))
+    return out
 
 
 def test_make_batch_with_targets_and_distillation_bit_exact(run):

@@ -1,0 +1,125 @@
+"""The gather engine (the reference's default: ``engine="gather"``,
+``SubMStage``, ``SparseBasicBlock``, ``SparseDownsample`` over the gather
+oracle) against JAX: SpMiddleResNetFHD at ``voxelnet_tiny``'s (25, 32, 32)
+grid with ``dense_from_stage`` 0, 2 (the default) and 99 (every stage
+sparse, ``extra_conv`` too), in eval and in train mode; and one
+``distill_tiny`` teacher-student step with both backbones on the engine's
+defaults, as JAX's own training tests run it.
+
+The backbone gets seeded random voxel features and the coordinates of a
+synthetic frame; both packages the same Flax tree (``from_flax``). JAX runs
+op by op here (no jit: its gather convs compile slower than they run).
+Tolerances: the BEV map within 1e-4 of its largest value (float32 sums in
+other orders), BN running statistics 1e-5; the step as
+``tests/test_torch_distill.py``."""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from sparse2dense_tpu.models.backbones.scn import SpMiddleResNetFHD as JSpMiddleResNetFHD
+from sparse2dense_tpu.training.synthetic import make_batch as jax_make_batch
+from sparse2dense_tpu.utils import Config
+from sparse2dense_tpu_torch.convert import from_flax
+from sparse2dense_tpu_torch.models.backbones.scn import (SparseBasicBlock, SparseDownsample,
+                                                         SpMiddleResNetFHD, SubMStage)
+
+from tests.test_torch_distill import (_compare_metrics, _compare_stats, assert_grads_close,
+                                      ts_and_teacher_steps)
+from tests.test_torch_layers import rand_variables
+
+GRID = (25, 32, 32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the tiny models' small ops run as fast on it, and
+    the suite's parallel workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def frame():
+    coords = np.asarray(jax_make_batch(Config.fromfile("configs/tests/voxelnet_tiny.py"), 2,
+                                       max_voxels=512, n_points=3000, n_obj=6)["coordinates"])
+    feats = np.random.RandomState(5).randn(*coords.shape[:2], 5).astype(np.float32)
+    return feats, coords
+
+
+@pytest.fixture(scope="module", params=[0, 2, 99], ids=lambda d: f"dfs{d}")
+def backbone(request, frame):
+    """(dense_from_stage, the JAX module, its variables, the port's twin)."""
+    feats, coords = frame
+    dfs = request.param
+    jmod = JSpMiddleResNetFHD(num_input_features=5, sparse_shape=GRID, dense_from_stage=dfs)
+    variables = rand_variables(
+        lambda: jmod.init(jax.random.PRNGKey(0), jnp.asarray(feats), jnp.asarray(coords)),
+        seed=20 + dfs)
+    tmod = SpMiddleResNetFHD(num_input_features=5, sparse_shape=GRID, dense_from_stage=dfs)
+    tmod.load_state_dict(from_flax(variables, tmod))
+    return dfs, jmod, variables, tmod
+
+
+def test_gather_modules_by_stage(backbone):
+    """The stages before ``dense_from_stage`` are the gather engine's."""
+    dfs, _, _, tmod = backbone
+    assert tmod.engine == "gather"
+    assert isinstance(tmod.conv_input, SubMStage) == (dfs > 0)
+    assert isinstance(tmod.conv2_down, SparseDownsample) == (dfs >= 1)
+    assert isinstance(tmod.conv3_0, SparseBasicBlock) == (dfs > 2)
+    assert isinstance(tmod.extra_conv, SparseDownsample) == (dfs > 4)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_gather_backbone_against_jax(backbone, frame, train):
+    dfs, jmod, variables, tmod = backbone
+    feats, coords = frame
+    if train:
+        (jbev, _), mutated = jmod.apply(variables, jnp.asarray(feats), jnp.asarray(coords),
+                                        train=True, mutable=["batch_stats"])
+    else:
+        jbev, _ = jmod.apply(variables, jnp.asarray(feats), jnp.asarray(coords), train=False)
+    tmod.load_state_dict(from_flax(variables, tmod))
+    tmod.train(train)
+    with torch.set_grad_enabled(train):
+        bev, multi_scale, telemetry = tmod(torch.from_numpy(feats), torch.from_numpy(coords))
+    want = np.asarray(jbev)
+    assert bev.shape == want.shape == (2, 4, 4, 128) and telemetry == {}
+    assert sorted(multi_scale) == ["conv1", "conv2", "conv3", "conv4"]
+    np.testing.assert_allclose(bev.detach().numpy(), want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+    assert np.abs(want).max() > 0
+    if train:
+        _compare_stats({k: v for k, v in tmod.state_dict().items() if "running" in k},
+                       from_flax({"batch_stats": mutated["batch_stats"]}, tmod))
+        bev.square().sum().backward()   # plain autograd through gather_conv
+        assert tmod.conv_input.conv_0_weight.grad.abs().max() > 0
+
+
+@pytest.fixture(scope="module")
+def run():
+    """``distill_tiny``'s teacher-student step on the configs' own engine
+    (gather, ``dense_from_stage`` 2) in each package."""
+    return ts_and_teacher_steps({}, teacher_step=False)
+
+
+def test_gather_ts_step_metrics(run):
+    _compare_metrics(run["metrics"], run["jmetrics"])
+    assert float(run["metrics"]["grad_norm"]) > 0
+    assert not [k for k in run["metrics"] if k.startswith("telemetry/")]
+
+
+def test_gather_ts_step_student_gradients(run):
+    assert_grads_close(run["s_grads"], run["js_grads"])
+    for name in ("backbone.conv_input.conv_0_weight", "backbone.conv1_0.conv1_weight",
+                 "backbone.conv2_down.conv_weight", "backbone.conv2_1.conv2_weight"):
+        assert np.abs(run["s_grads"][name]).max() > 0, name
+
+
+def test_gather_ts_step_batchnorm_statistics(run):
+    _compare_stats(run["s_stats"], run["js_stats"])

@@ -25,7 +25,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     for name in ("training.trainer", "training.distill", "training.train_state",
                  "solver.optim", "solver.schedules", "models.detectors.voxelnet",
                  "models.losses.centernet", "data.pipelines.assign_label", "core.center_utils",
-                 "training.checkpoint", "training.hooks", "tools.train", "models.remat"):
+                 "training.checkpoint", "training.hooks", "tools.train", "models.remat",
+                 "core.box_np_ops", "core.box_coder", "core.anchors",
+                 "data.pipelines.assign_target", "models.losses.second_losses",
+                 "models.heads.mg_head"):
         assert f"sparse2dense_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"
@@ -61,7 +64,7 @@ def test_entry_points_need_cuda_or_an_explicit_device():
 
 def test_other_engines_raise():
     from sparse2dense_tpu_torch.models.backbones.scn import (
-        PlaneKBlock, SpMiddleResNetFHD, TileKBlock)
+        PlaneKBlock, SpMiddleFHD, SpMiddleResNetFHD, TileKBlock)
 
     kw = dict(num_input_features=5, sparse_shape=(41, 32, 32))
     plane = SpMiddleResNetFHD(engine="plane", **kw)
@@ -72,8 +75,13 @@ def test_other_engines_raise():
         SpMiddleResNetFHD(engine="tile", **kw)   # the reference's default backend
     with pytest.raises(NotImplementedError, match="dense_from_stage=0"):
         SpMiddleResNetFHD(engine="tile", tile_backend="pallas", dense_from_stage=0, **kw)
-    for engine in ("gather", "column"):
-        with pytest.raises(NotImplementedError, match=engine):
-            SpMiddleResNetFHD(engine=engine, **kw)
+    assert SpMiddleResNetFHD(engine="gather", **kw).engine == "gather"
+    with pytest.raises(NotImplementedError, match="column"):
+        SpMiddleResNetFHD(engine="column", **kw)
     with pytest.raises(NotImplementedError, match="dense_from_stage"):
         SpMiddleResNetFHD(engine="window", dense_from_stage=2, **kw)
+    for engine in ("plane", "tile", "column"):
+        with pytest.raises(NotImplementedError, match=engine):
+            SpMiddleFHD(engine=engine, **kw)
+    with pytest.raises(NotImplementedError, match="dense_from_stage"):
+        SpMiddleFHD(engine="window", dense_from_stage=2, **kw)
