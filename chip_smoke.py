@@ -21,6 +21,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      + ``residual_conv`` within 1e-4 + 1e-4*|p| (the gradient of a linear
      map does not depend on the bf16 forward), then its backward and reader
      table timed on the frame's plans (the window backward's ms a step);
+     the plans ``dense_from_stage=2`` adds (the conv2 blocks' subm plan
+     32->32 on the 320,000 conv2_down output rows, the strided conv3_down
+     32->64) the same way as the frame's, and Cin 32 -> Cout 64 on the
+     edge cases above (GATE groups, clipped windows, all-padding blocks,
+     z-only);
    - the plane subm conv on the plane states, masks and plans of conv2
      (32), conv3 (64) and conv4 (128) of the same frame on the plane
      engine, in bfloat16 within one bf16 rounding step,
@@ -29,7 +34,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      then, for each of the four (C, Co) pairs built, in both types, on
      targets set to SENTINEL, fully masked planes (whole groups of 4 and
      8), a T1p whose last plan block is mostly padding, and no residual
-     with no ReLU;
+     with no ReLU; then B2 under autograd (``plane_kernel.PlaneConv``, the
+     plane engine's training conv) at conv2..conv4: its d state and d taps
+     against autograd through the plain formula within 1e-4 + 1e-4*|p|
+     (float32; the d taps, sums over a stage's cells, 1e-4 * max|p| +
+     1e-4*|p|), its forward and backward timed in bf16 (the plane backward's
+     ms a step, beside its bound);
    - the tile subm conv on the tile states, masks and plans of conv1 (16,
      tz 8), conv2 (32, tz 4), conv3 (64, tz 2) and conv4 (128, tz 6) of the
      same frame on the tile engine with every stage on tiles, at
@@ -81,7 +91,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    random weights, the bench's frame with its CenterHead targets and
    distillation streams) through ``TS_Trainer.step``, the student's dense
    backbone stages and PCR generators rematerialised as in the reference:
-   at batch 1, 2 warm-up and 4 timed steps: the median step and its stages
+   at batch 1, 1 warm-up and 3 timed steps: the median step and its stages
    (teacher forward, student forward + losses, backward, optimizer;
    synchronised at the boundaries), the peak memory of each stage, 18
    window-pass launches a step (the teacher's two streams and the student,
@@ -95,7 +105,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    within ``REMAT_GRAD_TOL`` of its module's largest (cuDNN's bf16 convs
    recomputed in the backward), BN running statistics and the other metrics
    within ``REMAT_STAT_TOL`` (the forward is the same), both peaks printed;
-   4 more steps without. Then the recipe's batch of 3 (1 warm-up, 2 timed
+   3 more steps without. Then the recipe's batch of 3 (1 warm-up, 2 timed
    steps), which must fit in the card's memory: step, stages, peaks and the
    window-pass launches a step, read;
 8. cli: the recipe through its command line (``tools/train.py`` in this
@@ -117,13 +127,27 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    (``gather_conv``, its conv operands rounded to bf16) against the window
    engine with the same weights: subm0's and down1's rows within the bf16
    kernel tolerance, the BEV within ``SECOND_BEV_TOL`` of its largest value;
-   the teacher-student step (branch "second") at batch 1 (2 + 4 steps) and
+   the teacher-student step (branch "second") at batch 1 (1 + 3 steps) and
    at the recipe's 4 (1 + 2): 9 window passes a sample, every loss finite,
    ``grad_norm`` > 0, a gradient on subm0's and down1's weights, medians by
    stage and peaks (at batch 4 a step that runs out of memory is reported
    with its stages' peaks); and the CLI chain of phase 8 for SECOND's two
    configs (dense teacher at batch 1, distillation at 4);
-10. agreement: the tiny distillation model on the card against the same model
+10. engines: the flagship's training past the shipped engine, teacher and
+   student alike: the window engine at ``dense_from_stage=2`` (plan windows
+   ``utils.config.DFS2_FRAME_SETTINGS``: plan windows, residual and stage
+   budgets that fit this frame;
+   its inference frame as phase 4's, 11 window passes a
+   frame) and the plane engine at ``FRAME_BUDGETS`` (its frame is phase
+   5's): the student's train-mode BEV against the shipped window engine's
+   on the same weights (within ``ENGINE_BEV_TOL`` of its largest value
+   where every counter says the reference is exact; else printed, not
+   judged), and the teacher-student step at batch 1 (1 + 3 steps) and at
+   the recipe's 3 (1 + 2): medians by stage, peaks, the window-pass and
+   plane-conv launches a step (dense_from_stage 2: 33 B1 a sample; plane:
+   18 B1 a sample and 36 B2 a step), every loss finite, a gradient on the
+   engine's convs, every backbone run's counters within their budgets;
+11. agreement: the tiny distillation model on the card against the same model
    on the CPU (plain versions only), window, plane and tile engines; and one
    teacher-student step of the tiny pair (window engine) on the card against
    the same step on the CPU with its window pass on bf16-rounded inputs (as
@@ -131,9 +155,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    each window-engine conv weight's gradient within 2e-2 (the tiny step is
    ill-conditioned: ``_ts_step_agreement`` says how much).
 
-TF32 is switched off for cuDNN and matmuls in phases 2, 10 and the gather
+TF32 is switched off for cuDNN and matmuls in phases 2, 11 and the gather
 comparison of 9, which compare against float32 plain versions; the rest of
-phases 3 to 9 run at PyTorch's defaults
+phases 3 to 10 run at PyTorch's defaults
 (TF32 on in cuDNN convs, off in matmuls). With TF32 off cuDNN picks an FFT
 algorithm for the neck's 3x3 convs that costs ~200 ms a frame on an H100
 (``sparse2dense_tpu_torch/tools/profile_flagship.py``). The second-to-last
@@ -155,9 +179,17 @@ BF16_FLOPS = 989e12         # dense bf16 tensor-core peak
 TOL_ABS, TOL_REL = 1e-4, 1e-4  # float32: summation order only
 BF16_STEP = 2.0 ** -7          # one bf16 rounding step, relative
 BF16_FLOOR = 1e-3              # times max|p|: outputs near zero
-# launches a frame of (window_pass, plane_subm, tile_subm) per engine
-EXPECTED_LAUNCHES = {"window": (6, 0, 0), "plane": (6, 12, 0), "tile": (0, 0, 9)}
+# launches a frame of (window_pass, plane_subm, tile_subm) per engine; the
+# window engine at dense_from_stage 2 adds the conv2 blocks' 4 and conv3_down
+EXPECTED_LAUNCHES = {"window": (6, 0, 0), "plane": (6, 12, 0), "tile": (0, 0, 9),
+                     "window_dfs2": (11, 0, 0)}
 WARMUP_FRAMES, TIMED_FRAMES = 3, 8   # a frame's time still falls over its first ~3
+# the window engine at dense_from_stage 2, teacher and student alike, at
+# ``profile_train_step.engine_settings("window", 2)``: plan windows, residual
+# and stage budgets that fit the frame (``utils.config.DFS2_FRAME_SETTINGS``);
+# its window passes a frame by case of the kernel phase
+DFS2_WINDOW_LAUNCHES = {"conv_input 5->16": 1, "conv1 16->16": 4, "conv2_down 16->32": 1,
+                        "conv2 32->32": 4, "conv3_down 32->64": 1}
 
 
 @contextlib.contextmanager
@@ -202,8 +234,9 @@ def phase_device():
     return name, smi
 
 
-def _flagship(engine="window", budgets=None, dense_from_stage=None):
-    """(cfg, batch, model) of the flagship at full width on the card."""
+def _flagship(engine="window", budgets=None, overrides=None):
+    """(cfg, batch, model) of the flagship at full width on the card;
+    ``overrides`` update the student's backbone."""
     import torch
 
     from sparse2dense_tpu_torch.models import build_detector
@@ -211,8 +244,7 @@ def _flagship(engine="window", budgets=None, dense_from_stage=None):
     from sparse2dense_tpu_torch.utils.config import flagship
 
     cfg = flagship(engine, budgets)
-    if dense_from_stage is not None:
-        cfg["S_model"]["backbone"]["dense_from_stage"] = dense_from_stage
+    cfg["S_model"]["backbone"].update(overrides or {})
     # trained-like heatmap density for NMS (random-init heatmaps sit at the
     # score threshold and flood NMS)
     cfg["S_model"]["bbox_head"]["init_bias"] = -6.0
@@ -245,58 +277,99 @@ def _hits(plan, ksize):
     return n
 
 
-def _window_rows(batch, grid, gen):
-    """Window pass against its plain version at the flagship plans."""
+def _window_case_row(name, plan, f, cin, cout, ksize, per_frame, stride, pad, coords, grid,
+                     gen):
+    """One window-pass case against its plain version, timed L2-warm and
+    cold, with its bound and the layer as one dense bf16 conv3d (a
+    yardstick the port never calls) on ``grid``, where ``coords`` are the
+    input rows'."""
     import torch
     import torch.nn.functional as F
 
     from sparse2dense_tpu_torch.ops import window_conv as WC
     from sparse2dense_tpu_torch.ops import window_kernel as WK
-    from sparse2dense_tpu_torch.tools.bench_window_pass import window_cases
     from sparse2dense_tpu_torch.tools.microbench import timed_cold
 
+    w = torch.randn((cout, cin) + ksize, device="cuda", generator=gen) * 0.2
+    wd = WC.taps_zyx_to_dyx(w).to(torch.bfloat16)
+    fb = f.to(torch.bfloat16).contiguous()
+    got = WK.window_pass_cuda(fb, plan, wd, ksize)
+    want = WC.window_pass_plain(fb.float(), plan, wd.float())
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    bad = int((err > TOL_ABS + TOL_REL * want.abs()).sum())
+    ms = cuda_ms(lambda: WK.window_pass_cuda(fb, plan, wd, ksize), reps=20)
+    cold_ms = timed_cold(lambda i: WK.window_pass_cuda(fb, plan, wd, ksize),
+                         torch.device("cuda")) * 1e3
+    plain_ms = cuda_ms(lambda: WC.window_pass_plain(fb.float(), plan, wd.float()),
+                       reps=3, warmup=1)
+    v_in, vo, nb = plan.lin.shape[0], plan.out_lin.shape[0], plan.ws.shape[0]
+    nbytes = (v_in * cin * 2 + v_in * 4 + nb * 128 * 3 * 4 + nb * 3 * 4 + 9 * 3 * 4
+              + 27 * cin * cout * 2 + vo * cout * 4)
+    hits = _hits(plan, ksize)
+    flops = 2.0 * hits * cin * cout
+    bound_ms, bound_by = bound(nbytes, flops)
+    dense = _densify_rows(fb, coords, grid)
+    w5 = w.to(torch.bfloat16)
+    library_ms = cuda_ms(lambda: F.conv3d(dense, w5, stride=stride, padding=pad), reps=5)
+    del dense
+    row = dict(kernel="window_pass", case=name, v_in=v_in, v_out=vo, window=plan.window,
+               n_resid=int(plan.n_resid), hits=hits, max_abs_err=float(err.max()),
+               n_bad=bad, ms=ms, cold_ms=cold_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bytes=nbytes, flops=flops, bound_by=bound_by, library_ms=library_ms,
+               per_frame=per_frame, per_frame_dfs2=DFS2_WINDOW_LAUNCHES.get(name, 0))
+    print("[kernels] " + json.dumps(row), flush=True)
+    if bad:
+        raise AssertionError(f"{name}: {bad} outputs beyond {TOL_ABS} + {TOL_REL}*|p|")
+    if int(plan.n_resid) > plan.resid_rows.shape[0]:
+        raise AssertionError(f"{name}: residual rows over budget")
+    return row
+
+
+def _window_rows(batch, grid, gen):
+    """Window pass against its plain version at the flagship plans, and at
+    the plans ``dense_from_stage=2`` adds (``_window_dfs2_cases``)."""
+    import torch
+
+    from sparse2dense_tpu_torch.tools.bench_window_pass import window_cases
+
     cases, feats5, feats16, coords, lin = window_cases(batch, grid, gen)
-    rows = []
-    for name, plan, f, cin, cout, ksize, per_frame, stride, pad in cases:
-        w = torch.randn((cout, cin) + ksize, device="cuda", generator=gen) * 0.2
-        wd = WC.taps_zyx_to_dyx(w).to(torch.bfloat16)
-        fb = f.to(torch.bfloat16).contiguous()
-        got = WK.window_pass_cuda(fb, plan, wd, ksize)
-        want = WC.window_pass_plain(fb.float(), plan, wd.float())
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        bad = int((err > TOL_ABS + TOL_REL * want.abs()).sum())
-        ms = cuda_ms(lambda: WK.window_pass_cuda(fb, plan, wd, ksize), reps=20)
-        cold_ms = timed_cold(lambda i: WK.window_pass_cuda(fb, plan, wd, ksize),
-                             torch.device("cuda")) * 1e3
-        plain_ms = cuda_ms(lambda: WC.window_pass_plain(fb.float(), plan, wd.float()),
-                           reps=3, warmup=1)
-        v_in, vo, nb = plan.lin.shape[0], plan.out_lin.shape[0], plan.ws.shape[0]
-        nbytes = (v_in * cin * 2 + v_in * 4 + nb * 128 * 3 * 4 + nb * 3 * 4 + 9 * 3 * 4
-                  + 27 * cin * cout * 2 + vo * cout * 4)
-        hits = _hits(plan, ksize)
-        flops = 2.0 * hits * cin * cout
-        bound_ms, bound_by = bound(nbytes, flops)
-        # the layer as one dense bf16 conv3d on the densified grid (a
-        # yardstick the port never calls)
-        dense = _densify_rows(fb, coords, grid)
-        w5 = w.to(torch.bfloat16)
-        library_ms = cuda_ms(lambda: F.conv3d(dense, w5, stride=stride, padding=pad), reps=5)
-        del dense
-        row = dict(kernel="window_pass", case=name, v_in=v_in, v_out=vo,
-                   n_resid=int(plan.n_resid), hits=hits, max_abs_err=float(err.max()),
-                   n_bad=bad, ms=ms, cold_ms=cold_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bytes=nbytes, flops=flops, bound_by=bound_by, library_ms=library_ms,
-                   per_frame=per_frame)
-        print("[kernels] " + json.dumps(row), flush=True)
-        if bad:
-            raise AssertionError(f"{name}: {bad} outputs beyond {TOL_ABS} + {TOL_REL}*|p|")
-        if int(plan.n_resid) > plan.resid_rows.shape[0]:
-            raise AssertionError(f"{name}: residual rows over budget")
-        rows.append(row)
+    rows = [_window_case_row(*case, coords, grid, gen) for case in cases]
+    torch.cuda.empty_cache()
+    rows += [_window_case_row(*case, gen) for case in _window_dfs2_cases(coords, lin, grid,
+                                                                         gen)]
     torch.cuda.empty_cache()
     rows += _window_edge_rows(feats5, feats16, coords, lin, grid, gen)
     return rows + _window_backward_rows(cases, feats16, coords, lin, grid, gen)
+
+
+def _window_dfs2_cases(coords, lin, grid, gen):
+    """The window plans ``dense_from_stage=2`` adds on the flagship frame:
+    the conv2 blocks' subm plan 32->32 on the conv2_down output rows (the
+    stage budget's 320,000) and the strided conv3_down 32->64, at the
+    windows, stage and residual budgets of ``DFS2_FRAME_SETTINGS``, with a
+    seeded 32-channel state. Cases as ``_window_case_row`` takes them, with
+    the input rows' coords and grid."""
+    import torch
+
+    from sparse2dense_tpu_torch.ops import window_conv as WC
+    from sparse2dense_tpu_torch.ops.sparse_conv import conv_out_grid
+    from sparse2dense_tpu_torch.utils.config import DFS2_FRAME_SETTINGS as DFS2
+
+    wins = DFS2["win_window"]
+    down = ((2, 2, 2), (1, 1, 1), (3, 3, 3))
+    g2 = conv_out_grid(grid, *down)
+    c2, l2 = WC.downsample_active_set_yxz(coords, coords[:, 0] >= 0, grid, g2, *down, 320000)
+    g3 = conv_out_grid(g2, *down)
+    c3, l3 = WC.downsample_active_set_yxz(c2, c2[:, 0] >= 0, g2, g3, *down,
+                                          DFS2["stage_budgets"][1])
+    f32 = torch.randn(l2.shape[0], 32, device="cuda", generator=gen) * (l2 < WC.MISS)[:, None]
+    subm = WC.make_subm_plan_presorted(l2, c2, g2, window=wins[1])
+    strided = WC.make_strided_plan(l2, l3, c3, g2, g3, *down, window=wins[2],
+                                   resid_budget=DFS2["win_resid_budget"])
+    return [("conv2 32->32", subm, f32, 32, 32, (3, 3, 3), 0, (1, 1, 1), (1, 1, 1), c2, g2),
+            ("conv3_down 32->64", strided, f32, 32, 64, (3, 3, 3), 0, (2, 2, 2), (1, 1, 1),
+             c2, g2)]
 
 
 # window-pass backwards of a training step by plan: the student's conv_input
@@ -397,7 +470,9 @@ def _window_edge_rows(feats5, feats16, coords, lin, grid, gen):
     in the kernel's blocks), a subm plan whose last windows are clipped at
     the end of V_in, a strided plan with three times the output budget it
     needs (all-padding blocks), the z-only (3,1,1) plan, and Cin 5 on the
-    strided and z-only plans."""
+    strided and z-only plans; and Cin 32 -> Cout 64 (conv3_down's width at
+    ``dense_from_stage=2``) on a seeded 32-channel state: GATE groups, the
+    clipped windows, all-padding blocks and the z-only plan."""
     import torch
 
     from sparse2dense_tpu_torch.ops import window_conv as WC
@@ -407,6 +482,7 @@ def _window_edge_rows(feats5, feats16, coords, lin, grid, gen):
     n = 30037
     f5, f16, cc, ll = feats5[:n], feats16[:n], coords[:n], lin[:n]
     active = int((ll < WC.MISS).sum())
+    f32 = torch.randn(n, 32, device="cuda", generator=gen) * (ll < WC.MISS)[:, None]
 
     def strided(stride, pad, ksize, budget):
         g_out = conv_out_grid(grid, stride, pad, ksize)
@@ -430,6 +506,16 @@ def _window_edge_rows(feats5, feats16, coords, lin, grid, gen):
          (3, 1, 1)),
         ("Cin 5 strided 5->32", strided(*down, n_down + 200), f5, 32, (3, 3, 3)),
         ("Cin 5 z-only (3,1,1) 5->16", strided((2, 1, 1), (0, 0, 0), (3, 1, 1), n), f5, 16,
+         (3, 1, 1)),
+        ("residual rows (window 128) 32->64",
+         WC.make_subm_plan_presorted(ll, cc, grid, window=128, resid_budget=n), f32, 64,
+         (3, 3, 3)),
+        ("window clipped at the end of V_in 32->64",
+         WC.make_subm_plan_presorted(ll, cc, grid, window=384, resid_budget=n), f32, 64,
+         (3, 3, 3)),
+        ("all-padding blocks (budget 3x) 32->64", strided(*down, 3 * n_down), f32, 64,
+         (3, 3, 3)),
+        ("z-only (3,1,1) 32->64", strided((2, 1, 1), (0, 0, 0), (3, 1, 1), n), f32, 64,
          (3, 1, 1)),
     ]
     rows = []
@@ -611,6 +697,92 @@ def _plane_edge_rows(stages, state16, gen):
     return rows
 
 
+# the student's plane convs a training step: four a stage (two blocks of
+# two), each under autograd (``plane_kernel.PlaneConv``)
+PLANE_CONVS_A_STAGE = 4
+
+
+def _plane_backward_rows(stages, gen):
+    """B2 under autograd (``plane_kernel.PlaneConv``, the plane engine's
+    training conv) at conv2..conv4's planes, masks and plans: its d state
+    and d taps against autograd through ``plane_subm_plain`` (identity
+    epilogue over the plan's targets) in float32 within 1e-4 + 1e-4*|p|, for
+    the d taps 1e-4 * max|p| + 1e-4*|p| (the gradient of a linear map; its
+    neighbour table misses nothing here), then
+    its forward (the kernel, bf16 as training runs it) and its backward
+    (``plane_conv.plane_conv_grad``: bf16 state, float32 gradient and sums)
+    timed L2-warm, the backward beside its bound: the state, the gradient,
+    d state and the neighbour table of the occupied planes once each, the
+    taps and d taps, over 3.35 TB/s, or its two products (d state, d taps)
+    at its (output cell, source cell) pairs over 989 TFLOP/s."""
+    import torch
+
+    from sparse2dense_tpu_torch.ops import plane_conv as PK
+    from sparse2dense_tpu_torch.ops import plane_kernel as PKK
+    from sparse2dense_tpu_torch.tools.bench_plane_subm import PLANE_STAGES
+
+    rows, step_ms, step_bound = [], 0.0, 0.0
+    for (name, c), (state, mask, sets, grid, plan) in zip(PLANE_STAGES, stages):
+        n = state.shape[0]
+        plan = plan._replace(nbr=PK.flat_neighbor_ranks(sets, n // len(sets)))
+        w = torch.randn((27, c, c), device="cuda", generator=gen) * (27 * c) ** -0.5
+        cot = torch.randn((n, 16 * c), device="cuda", generator=gen)
+        m16 = PK.expand_mask(mask, c).float()
+        ones = torch.ones((1, 16 * c), device="cuda")
+        grads = []
+        for function in (True, False):
+            x, wt = state.float().clone().requires_grad_(True), w.clone().requires_grad_(True)
+            out = (PK.pk_subm_conv_train(x, plan, wt, m16) if function else
+                   PK.plane_subm_plain(x, plan.tgt, wt, ones, torch.zeros_like(ones), m16,
+                                       relu=False))
+            (out * cot).sum().backward()
+            grads.append((x.grad, wt.grad))
+            del out, x, wt
+        torch.cuda.synchronize()
+        planes = sum(int(t.valid.sum()) for t in sets)
+        row = dict(kernel="plane_subm", case=f"backward {name} {c}->{c}", t1p=n, planes=planes,
+                   n_miss=int(plan.n_miss.sum()), per_frame=0)
+        for key, got, want in zip(("d_state", "d_weights"), *grads):
+            err = (got - want).abs()
+            # a tap's d weights sums T1p x 16 products (1.4 million at
+            # conv2), in another order on each side: the absolute part of
+            # the float32 tolerance scales with the largest value there
+            floor = TOL_ABS * (float(want.abs().max()) if key == "d_weights" else 1.0)
+            row[f"{key}_max_abs_err"] = float(err.max())
+            row[f"{key}_max_abs_ref"] = float(want.abs().max())
+            row[f"{key}_n_bad"] = int((err > floor + TOL_REL * want.abs()).sum())
+        row["max_abs_err"] = max(row["d_state_max_abs_err"], row["d_weights_max_abs_err"])
+        del grads
+        sb, mb = state.to(torch.bfloat16), m16.to(torch.bfloat16)
+        g = cot.to(torch.bfloat16)
+        fwd = cuda_ms(lambda: PKK.PlaneConv.apply(sb, w, mb, plan), reps=10)
+        bwd = cuda_ms(lambda: PK.plane_conv_grad(sb, w, plan.nbr, g.float() * mb.float()),
+                      reps=3, warmup=1)
+        hits = float(PK.plane_subm_plain(
+            mask.float(), plan.tgt, torch.ones((27, 1, 1), device="cuda"),
+            torch.ones((1, 16), device="cuda"), torch.zeros((1, 16), device="cuda"),
+            mask.float(), relu=False).sum())
+        nbytes = 3 * planes * 16 * c * 2 + planes * 26 * 4 + 27 * c * c * (2 + 4)
+        flops = 2 * 2.0 * hits * c * c
+        bound_ms, bound_by = bound(nbytes, flops)
+        row.update(forward_ms=fwd, backward_ms=bwd, backward_bound_ms=bound_ms,
+                   backward_bound_by=bound_by, hits=hits, bytes=nbytes, flops=flops,
+                   per_step=PLANE_CONVS_A_STAGE)
+        step_ms += PLANE_CONVS_A_STAGE * bwd
+        step_bound += PLANE_CONVS_A_STAGE * bound_ms
+        print("[kernels] " + json.dumps(row), flush=True)
+        if row["d_state_n_bad"] or row["d_weights_n_bad"]:
+            raise AssertionError(f"plane backward {name}: gradients beyond {TOL_ABS} + "
+                                 f"{TOL_REL}*|p| of autograd through the plain formula")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    print(f"[kernels] plane backward a training step (the student's 12 plane convs): "
+          f"{step_ms:.3f} ms, bound {step_bound:.3f} ms", flush=True)
+    rows.append(dict(kernel="plane_subm", case="backward a step", plane_backward_ms=step_ms,
+                     plane_backward_bound_ms=step_bound, per_frame=0, max_abs_err=0.0))
+    return rows
+
+
 def _tile_rows(stages, gen):
     """Tile subm kernel against its plain version at conv1..conv4, and on
     conv1's plan at the reference's default window (misses)."""
@@ -767,7 +939,8 @@ def phase_kernels():
     logs = cuda_build.build_all([(m.SOURCE, m.LIBRARY) for m in (WK, PKK, TBK, GP)])
     print(f"[kernels] built {sorted(logs)} in {time.perf_counter() - t0:.1f} s\n" + "\n".join(
         "  " + line for log in logs.values() for line in log.splitlines()
-        if "registers" in line or "smem" in line or "spill" in line), flush=True)
+        if "registers" in line or "smem" in line or "spill" in line or "entry function" in line),
+        flush=True)
     gen = torch.Generator(device="cuda").manual_seed(1)
     cfg, batch, model = _flagship("plane", FRAME_BUDGETS)
     rows = _window_rows(batch, sparse_shape_from_voxel_cfg(cfg["voxel_generator"]), gen)
@@ -781,9 +954,11 @@ def phase_kernels():
     rows += _plane_rows(stages, state16, gen)
     torch.cuda.empty_cache()
     rows += _plane_edge_rows(stages, state16, gen)
+    torch.cuda.empty_cache()
+    rows += _plane_backward_rows(stages, gen)
     del stages
     torch.cuda.empty_cache()
-    _, _, model = _flagship("tile", TILE_FRAME_BUDGETS, dense_from_stage=99)
+    _, _, model = _flagship("tile", TILE_FRAME_BUDGETS, dict(dense_from_stage=99))
     stages = tile_stage_data(batch, model)
     del model
     rows += _tile_rows(stages, gen)
@@ -897,7 +1072,7 @@ def _probe_record(row):
             "library_ms": row["library_cold_ms"]}
 
 
-def phase_main_path(engine: str, budgets=None):
+def phase_main_path(engine: str, budgets=None, overrides=None, tag=None):
     """The flagship on one engine: launches per frame of each kernel, with
     every count set to 0 just before the frames and read just after; every
     telemetry count within its budget. The first ``WARMUP_FRAMES`` frames
@@ -908,9 +1083,10 @@ def phase_main_path(engine: str, budgets=None):
     from sparse2dense_tpu_torch.ops import tile_block_kernel as TBK
     from sparse2dense_tpu_torch.ops import window_kernel as WK
 
-    _, batch, model = _flagship(engine, budgets)
+    _, batch, model = _flagship(engine, budgets, overrides)
     mods = {"window_pass": WK, "plane_subm": PKK, "tile_subm": TBK}
-    expected = dict(zip(mods, EXPECTED_LAUNCHES[engine]))
+    tag = tag or engine
+    expected = dict(zip(mods, EXPECTED_LAUNCHES[tag]))
     torch.cuda.reset_peak_memory_stats()
     times, per_frame = [], {k: [] for k in mods}
     for mod in mods.values():
@@ -942,7 +1118,7 @@ def phase_main_path(engine: str, budgets=None):
     valid = det["valid"]
     if not bool(torch.isfinite(det["box3d_lidar"][valid]).all()):
         raise AssertionError(f"{engine}: non-finite boxes")
-    res = dict(engine=engine, budgets=budgets, frame_ms_median=sorted(times)[len(times) // 2],
+    res = dict(engine=tag, budgets=budgets, frame_ms_median=sorted(times)[len(times) // 2],
                frame_ms_min=min(times), frame_ms_max=max(times), frame_ms=times,
                launches=launches, launches_per_frame=per_frame, detections=int(valid.sum()),
                max_heatmap=float(torch.sigmoid(out["preds"][0]["hm"]).max()),
@@ -954,7 +1130,7 @@ def phase_main_path(engine: str, budgets=None):
     return res
 
 
-TRAIN_WARMUP, TRAIN_STEPS = 2, 4
+TRAIN_WARMUP, TRAIN_STEPS = 1, 3
 TRAIN_LAUNCHES = 18   # window passes a step at batch 1: the teacher's two streams, the student
 # the student's window-engine conv weights: the custom autograd Function's
 WINDOW_WEIGHTS = ("backbone.conv_input.conv_0_weight", "backbone.conv1_0.conv1_weight",
@@ -1490,6 +1666,153 @@ def phase_second():
                 train_launches=sum(r.get("launches", 0) for r in steps.values()))
 
 
+# phase 10: teacher-student steps a run at batch 1 (the recipe's batch 3:
+# BIG_WARMUP, BIG_STEPS); the weights each engine's step must reach (its
+# windowed or plane convs); the train-mode BEV against the shipped engine's:
+# the window engine at dense_from_stage 1 stores the conv2 stage's
+# activations in bf16 on the dense grid, the others in float32 rows or bf16
+# plane state, so each of the nine convs from conv2 on sees up to one more
+# bf16 rounding (2^-8 relative) of its input on one side (as SECOND_BEV_TOL)
+ENGINE_WARMUP, ENGINE_STEPS = 1, 3
+ENGINE_WEIGHTS = {
+    "window_dfs2": ("backbone.conv2_down.conv_weight", "backbone.conv2_0.conv1_weight",
+                    "backbone.conv2_1.conv2_weight", "backbone.conv3_down.conv_weight"),
+    "plane": ("backbone.conv2_down.conv_weight", "backbone.conv2_0.conv1_weight",
+              "backbone.conv3_down.conv_weight", "backbone.conv4_1.conv2_weight",
+              "backbone.extra_conv.conv_weight")}
+ENGINE_BEV_TOL = 9 * 2.0 ** -8
+
+
+def _engine_agreement(batch, settings):
+    """The flagship student's backbone in train mode (batch statistics, no
+    gradient) on the frame, on the window engine as shipped and on the
+    engine ``settings`` names, with the same weights: the BEV against the
+    shipped engine's, relative to its largest value. Judged against
+    ``ENGINE_BEV_TOL`` only where every counter of both runs says the
+    reference is exact (residual rows within their budgets, no drop or
+    miss); else the error is printed with the counters and not judged."""
+    import torch
+
+    from sparse2dense_tpu_torch.models import build_detector
+    from sparse2dense_tpu_torch.models.backbones.scn import WinDownsample
+    from sparse2dense_tpu_torch.utils.config import FLAGSHIP, ConfigDict
+
+    bevs, tele, weights = {}, {}, None
+    for tag, override in (("shipped", {}), ("engine", settings)):
+        cfg = ConfigDict.fromfile(FLAGSHIP)
+        cfg.S_model.backbone.update(override)
+        model = build_detector(cfg.S_model, test_cfg=cfg.test_cfg,
+                               voxel_generator=cfg.voxel_generator, device="cuda",
+                               generator=torch.Generator().manual_seed(1))
+        if weights is None:
+            weights = model.state_dict()
+        model.load_state_dict(weights)
+        model.train()
+        rows, hooks = {}, []
+        down = model.backbone.conv3_down
+        if isinstance(down, WinDownsample):
+            # a strided window conv's output set is cut at its stage budget:
+            # it dropped nothing while its valid rows stay below the budget
+            hooks.append(down.register_forward_hook(
+                lambda mod, args, out: rows.update(n=int(out[3].sum(-1).max()),
+                                                   budget=out[3].shape[1])))
+        try:
+            with torch.no_grad():
+                feats = model.reader(batch["voxels"], batch["num_points"])
+                bev, _, t = model.backbone(feats, batch["coordinates"])
+        finally:
+            for h in hooks:
+                h.remove()
+        bevs[tag] = bev.float()
+        tele[tag] = {k: [int(v[0].max()), v[1]] for k, v in t.items()}
+        if rows:
+            tele[tag]["conv3_down rows (budget less one)"] = [rows["n"], rows["budget"] - 1]
+        del model
+    exact = all(c <= b for t in tele.values() for c, b in t.values())
+    diff = float((bevs["engine"] - bevs["shipped"]).abs().max())
+    res = dict(counters=tele, exact=exact, max_abs_err=diff,
+               rel_to_max=diff / float(bevs["shipped"].abs().max()), tol=ENGINE_BEV_TOL)
+    if exact and not res["rel_to_max"] <= ENGINE_BEV_TOL:
+        raise AssertionError(f"engines: train-mode BEV against the shipped engine: {res}")
+    if not exact:
+        print("[engines] not judged: a counter says the reference is not exact: "
+              + json.dumps(res), flush=True)
+    del bevs
+    torch.cuda.empty_cache()
+    return res
+
+
+def _engine_steps(tag, settings, batch_size, expected):
+    """Teacher-student steps on the engine ``settings`` names, teacher and
+    student alike: batch 1 ``ENGINE_WARMUP`` + ``ENGINE_STEPS``, batch 3
+    ``BIG_WARMUP`` + ``BIG_STEPS``; medians by stage, peaks, the B1 and B2
+    launches a step (``expected`` at batch 1 a sample for B1, a batch for
+    B2), every loss finite, a gradient on ``ENGINE_WEIGHTS[tag]``, and every
+    backbone run's counters (the teacher's two streams, the student) within
+    their budgets."""
+    import gc
+
+    import torch
+
+    from sparse2dense_tpu_torch.tools import profile_train_step as PT
+
+    warmup, steps = (ENGINE_WARMUP, ENGINE_STEPS) if batch_size == 1 else (BIG_WARMUP,
+                                                                           BIG_STEPS)
+    batch, trainer = PT.train_setup(batch_size, warmup + steps, backbone=settings)
+    rows, metrics = PT.run_steps(trainer, batch, warmup + steps)
+    got = [(r["window_pass_launches"], r["plane_subm_launches"]) for r in rows]
+    want = (expected[0] * batch_size, expected[1])
+    if got != [want] * len(rows):
+        raise AssertionError(f"{tag} batch {batch_size}: (B1, B2) launches a step {got}, "
+                             f"expected {want}")
+    metrics = {k: float(v) for k, v in metrics.items()}
+    _check_metrics(f"{tag} batch {batch_size}", metrics)
+    params = dict(trainer.model.named_parameters())
+    for name in ENGINE_WEIGHTS[tag]:
+        g = params[name].grad
+        if g is None or not bool(g.abs().max() > 0):
+            raise AssertionError(f"{tag}: the weight {name} got no gradient")
+    res = dict(PT.summary(rows[warmup:]), batch=batch_size, launches_per_step=got,
+               launches=[sum(x) for x in zip(*got)], metrics=metrics, steps=rows,
+               counters=_residual_rows(f"{tag} batch {batch_size}", trainer, batch))
+    print(f"[engines] {tag} train batch {batch_size} " + json.dumps(res), flush=True)
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_engines(plane_frame):
+    """The flagship's training on the engines past the shipped one: the
+    window engine at ``dense_from_stage=2`` (``DFS2_FRAME_SETTINGS``) and
+    the plane engine at ``FRAME_BUDGETS``, teacher and student alike: the
+    inference frame (phase 4's way; the plane engine's is phase 5's), the
+    teacher-student step at batch 1 and at the recipe's 3
+    (``_engine_steps``), and the student's train-mode BEV against the
+    shipped window engine on the same weights (``_engine_agreement``)."""
+    from sparse2dense_tpu_torch.tools import profile_train_step as PT
+    from sparse2dense_tpu_torch.training.synthetic import make_batch
+    from sparse2dense_tpu_torch.utils.config import flagship
+
+    res = {}
+    for tag, settings, expected in (
+            ("window_dfs2", PT.engine_settings("window", 2),
+             (3 * EXPECTED_LAUNCHES["window_dfs2"][0], 0)),
+            ("plane", PT.engine_settings("plane"), (3 * EXPECTED_LAUNCHES["plane"][0],
+                                                    3 * EXPECTED_LAUNCHES["plane"][1]))):
+        frame = (phase_main_path("window", overrides=settings, tag=tag)
+                 if tag == "window_dfs2" else plane_frame)
+        batch = make_batch(flagship(), 1, max_voxels=150000, n_points=170000, n_obj=32,
+                           device="cuda")
+        r = dict(settings=settings, frame=frame, agreement=_engine_agreement(batch, settings))
+        print(f"[engines] {tag} student in train mode against the shipped engine: "
+              + json.dumps(r["agreement"]), flush=True)
+        del batch
+        r["steps"] = {b: _engine_steps(tag, settings, b, expected) for b in (1, BIG_BATCH)}
+        res[tag] = r
+    return res
+
+
 # tiny-model engine settings: every key of every stage fits and the plan
 # windows cover every neighbour (as in the CPU tests)
 TINY_ENGINES = {
@@ -1621,26 +1944,28 @@ def _ts_step_agreement():
     return max(errs.values())
 
 
-def _record(name, source, replaces, launches, rows):
-    frame = [r for r in rows if r["per_frame"]]
+def _record(name, source, replaces, launches, rows, per="per_frame"):
+    frame = [r for r in rows if r.get(per)]
     lib = [r["library_ms"] for r in frame]
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
         # per frame: each timed shape times its launches in one frame
-        "ms": sum(r["ms"] * r["per_frame"] for r in frame),
-        "plain_ms": sum(r["plain_ms"] * r["per_frame"] for r in frame),
-        "bound_ms": sum(r["bound_ms"] * r["per_frame"] for r in frame),
+        "ms": sum(r["ms"] * r[per] for r in frame),
+        "cold_ms": sum(r["cold_ms"] * r[per] for r in frame),
+        "plain_ms": sum(r["plain_ms"] * r[per] for r in frame),
+        "bound_ms": sum(r["bound_ms"] * r[per] for r in frame),
         "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in frame)
                      else "operations"),
         "library_ms": (None if any(x is None for x in lib)
-                       else sum(x * r["per_frame"] for x, r in zip(lib, frame))),
+                       else sum(x * r[per] for x, r in zip(lib, frame))),
     }
 
 
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1658,6 +1983,7 @@ def main() -> int:
     train = phase_train()
     cli = phase_cli()
     second = phase_second()
+    engines = phase_engines(plane)
     with no_tf32():
         phase_agreement()
 
@@ -1668,13 +1994,26 @@ def main() -> int:
                 f"train_batch{BIG_BATCH}": train["big"]["launches"], "cli": cli["launches"],
                 "second": second["frame"]["launches"], "second_train": second["train_launches"],
                 "second_cli": second["cli"]["launches"]}
+    b2_paths = {"plane": plane["launches"]["plane_subm"]}
+    for tag, r in engines.items():
+        if tag == "window_dfs2":
+            b1_paths[tag] = r["frame"]["launches"]["window_pass"]
+        for b, st in r["steps"].items():
+            key = f"{tag}_train" + ("" if b == 1 else f"_batch{b}")
+            b1_paths[key] = st["launches"][0]
+            if tag == "plane":
+                b2_paths[key] = st["launches"][1]
+    b2_bwd = [r for r in prows if "plane_backward_ms" in r][0]
     record = {"kernels": [
         dict(_record("window_pass", "sparse2dense_tpu_torch/csrc/window_pass.cu",
                      "sparse2dense_tpu/ops/pallas/window_kernel.py:69",
-                     sum(b1_paths.values()), wrows), launches_by_path=b1_paths),
-        _record("plane_subm", "sparse2dense_tpu_torch/csrc/plane_subm.cu",
-                "sparse2dense_tpu/ops/pallas/plane_block_kernel.py:131",
-                plane["launches"]["plane_subm"], prows),
+                     sum(b1_paths.values()), wrows), launches_by_path=b1_paths,
+             dfs2_frame=_record("window_pass", "", "", 0, wrows, "per_frame_dfs2")),
+        dict(_record("plane_subm", "sparse2dense_tpu_torch/csrc/plane_subm.cu",
+                     "sparse2dense_tpu/ops/pallas/plane_block_kernel.py:131",
+                     sum(b2_paths.values()), prows), launches_by_path=b2_paths,
+             backward_ms_per_step=b2_bwd["plane_backward_ms"],
+             backward_bound_ms_per_step=b2_bwd["plane_backward_bound_ms"]),
         _record("tile_subm", "sparse2dense_tpu_torch/csrc/tile_subm.cu",
                 "sparse2dense_tpu/ops/pallas/tile_block_kernel.py:156",
                 tile["launches"]["tile_subm"], trows),
@@ -1702,6 +2041,21 @@ def main() -> int:
     print(f"[train] window backward {b1_bwd:.3f} ms a step at batch 1 "
           f"({b1_bwd / train['step_ms']:.2%}); window passes a step: {TRAIN_LAUNCHES} at batch 1, "
           f"{train['big']['launches_per_step'][0]} at batch {BIG_BATCH}", flush=True)
+    print(f"[kernels] window_pass a dense_from_stage=2 frame: L2-warm "
+          f"{record['kernels'][0]['dfs2_frame']['ms']:.4f} ms, L2-cold "
+          f"{record['kernels'][0]['dfs2_frame']['cold_ms']:.4f} ms; plane backward a training "
+          f"step {b2_bwd['plane_backward_ms']:.3f} ms (bound "
+          f"{b2_bwd['plane_backward_bound_ms']:.3f})", flush=True)
+    for tag, r in engines.items():
+        print(f"[engines] {tag}: frame median {r['frame']['frame_ms_median']:.1f} ms; student "
+              f"train-mode BEV against the shipped engine {r['agreement']['rel_to_max']:.3e} "
+              f"of its largest value ({'judged' if r['agreement']['exact'] else 'not judged'})",
+              flush=True)
+        for b, t in r["steps"].items():
+            print(f"[engines] {tag} teacher-student step, batch {b}: median {t['step_ms']:.1f} "
+                  f"ms ({', '.join(f'{k} {v:.1f}' for k, v in t['stages_ms'].items())}); peak "
+                  f"{t['peak_mem_gb']:.2f} GiB; (B1, B2) launches a step "
+                  f"{t['launches_per_step'][0]}", flush=True)
     print(f"[cli] dense teacher -> load_from -> distil at batch {BIG_BATCH} -> resume: "
           f"{cli['seconds']:.1f} s; distillation steps (time hook) median "
           f"{cli['distill']['step_s_median']:.3f} s, peak {cli['distill']['peak_gb']:.2f} GiB",
@@ -1727,6 +2081,8 @@ def main() -> int:
     print(f"[second] cli: dense teacher -> load_from -> distil at batch {second['cli']['batch']} "
           f"-> resume: {second['cli']['seconds']:.1f} s, peak "
           f"{second['cli']['distill']['peak_gb']:.2f} GiB", flush=True)
+    print(f"[main] chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' build "
+          f"included", flush=True)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -313,8 +313,8 @@ int launch(const void* feat, const void* lin, const void* kbase, const void* ws,
 }  // namespace
 
 // Launches on `stream`; returns the cudaGetLastError() code (0 = launched).
-// Returns -1 for widths the kernel is not built for (Cin <= 16 or 32; Cout
-// 16 or 32). w: (27, cout, cin_pad + 8) bf16, window_kernel.window_weights.
+// Returns -1 for widths the kernel is not built for (Cin <= 16 or 32 to Cout
+// 16 or 32; Cin 32 to Cout 64). w: (27, cout, cin_pad + 8) bf16, window_kernel.window_weights.
 extern "C" int s2d_window_pass(const void* feat, const void* lin,
                                const void* kbase, const void* ws,
                                const void* offsets, const void* w, void* out,
@@ -333,6 +333,7 @@ extern "C" int s2d_window_pass(const void* feat, const void* lin,
   } else if (cin == 32) {
     if (cout == 16) S2D_WINDOW_CASE(32, 16, false);
     if (cout == 32) S2D_WINDOW_CASE(32, 32, false);
+    if (cout == 64) S2D_WINDOW_CASE(32, 64, false);
   }
 #undef S2D_WINDOW_CASE
   return -1;

@@ -287,8 +287,13 @@ class DenseDownsample(nn.Module):
 
 class PlaneKBlock(nn.Module):
     """Residual block of two fused plane subm convs (names of
-    DenseBasicBlock). Bias, inference BatchNorm, ReLU, the residual and the
-    occupancy mask fold into the conv's epilogue; inference only."""
+    DenseBasicBlock). In inference, bias, BatchNorm, ReLU, the residual and
+    the occupancy mask fold into the conv's epilogue. In training each conv
+    is the masked linear conv under autograd (``plane_conv.pk_subm_conv_train``:
+    the kernel forward, a plain VJP backward over ``plan.nbr``), followed by
+    the bias, masked BatchNorm over (T, 16 cells, C) with batch statistics,
+    a cast to the state's dtype and ReLU times the mask, in the reference's
+    order."""
 
     engine = "plane"
     conv = staticmethod(PK.pk_subm_conv)
@@ -298,26 +303,37 @@ class PlaneKBlock(nn.Module):
         self.planes = planes
         self.conv1_weight = _kernel(cin, planes)
         self.conv1_bias = nn.Parameter(torch.zeros(planes))
-        self.bn1 = BatchNorm(planes)
+        self.bn1 = BatchNorm(planes, channel_dim=-1)
         self.conv2_weight = _kernel(planes, planes)
         self.conv2_bias = nn.Parameter(torch.zeros(planes))
-        self.bn2 = BatchNorm(planes)
+        self.bn2 = BatchNorm(planes, channel_dim=-1)
 
     def _fold(self, bias, bn):
         return PK.fold_epilogue(self.planes, bias=bias, bn_scale=bn.weight, bn_bias=bn.bias,
                                 bn_mean=bn.running_mean, bn_var=bn.running_var, eps=bn.eps)
 
     def forward(self, state, mask, plan):
-        if self.training:
-            raise NotImplementedError(
-                f"{type(self).__name__} runs inference only; the {self.engine} engine's "
-                "training half comes with the training slice")
         mask16 = PK.expand_mask(mask, self.planes).to(state.dtype)
+        if self.training:
+            return self._train_forward(state, mask, mask16, plan)
         sc1, sh1 = self._fold(self.conv1_bias, self.bn1)
         sc2, sh2 = self._fold(self.conv2_bias, self.bn2)
         out = self.conv(state, plan, _taps(self.conv1_weight), sc1, sh1, mask16, relu=True)
         return self.conv(out, plan, _taps(self.conv2_weight), sc2, sh2, mask16,
                          residual=state, relu=True)
+
+    def _train_forward(self, state, mask, mask16, plan):
+        t, p = state.shape[0], self.planes
+        cells = mask.reshape(t, 16, 1)
+
+        def bn(x, bias, norm):
+            x = x + bias.repeat(16).to(x.dtype)
+            return norm(x.reshape(t, 16, p), mask=cells).reshape(t, 16 * p).to(state.dtype)
+
+        out = PK.pk_subm_conv_train(state, plan, _taps(self.conv1_weight), mask16)
+        out = F.relu(bn(out, self.conv1_bias, self.bn1)) * mask16
+        out = PK.pk_subm_conv_train(out, plan, _taps(self.conv2_weight), mask16)
+        return F.relu(bn(out, self.conv2_bias, self.bn2) + state) * mask16
 
 
 class TileKBlock(PlaneKBlock):
@@ -326,6 +342,11 @@ class TileKBlock(PlaneKBlock):
 
     engine = "tile"
     conv = staticmethod(TKK.tk_subm_conv)
+
+    def _train_forward(self, state, mask, mask16, plan):
+        raise NotImplementedError(
+            "TileKBlock runs inference only; the tile engine's training half (the XLA tile "
+            "engine) comes with the training slice")
 
 
 class TileKStage(nn.Module):
@@ -460,6 +481,16 @@ class _DenseStages(nn.Module):
             return remat(module, *args, name=type(module).__name__)
         return module(*args)
 
+    def _subm_plans(self, k, lin, coords, grid, telemetry, name):
+        """The window plans of subm stage k (window ``wins[k]``), with their
+        residual rows against their budget in ``telemetry[name]``; with
+        their reader tables when gradients will flow."""
+        plans = _for_autograd([WC.make_subm_plan_presorted(l, c, grid, window=self.wins[k])
+                               for l, c in zip(lin, coords)])
+        telemetry[name] = (torch.stack([p.n_resid for p in plans]),
+                           plans[0].resid_rows.shape[0])
+        return plans
+
     def _dense_stream(self, feats, coords, valid, grid):
         """Densify in the dense stages' storage dtype (cast before the
         scatter, so no f32 dense grid is built). The gather engine densifies
@@ -476,21 +507,25 @@ class SpMiddleResNetFHD(_DenseStages):
     forward(voxel_features (B, V, C), coords (B, V, 3) zyx)
       -> (bev NHWC (B, H/8, W/8, 128*2), multi_scale, telemetry)
     where telemetry maps each counter to (per-sample counts (B,), budget):
-    the window plan groups ("conv1", "conv2_down") to their residual rows
-    and budget; with the plane engine "plane_drop", "planek_miss",
-    "plane_chunk_drop" and "down_drop", with the tile engine
-    "conv1_tile_drop", "tilek_miss" and "down_drop" (each summed over the
-    stages) to budget 0. The result is exact while every count is within its
-    budget.
+    the window plan groups (the subm plans of "conv1" and, at
+    ``dense_from_stage`` 2, "conv2"; the strided "conv2_down" and
+    "conv3_down") to their residual rows and budget; with the plane engine
+    "plane_drop", "planek_miss", "plane_chunk_drop" and "down_drop", with
+    the tile engine "conv1_tile_drop", "tilek_miss" and "down_drop" (each
+    summed over the stages) to budget 0. The result is exact while every
+    count is within its budget.
 
     ``engine="gather"`` (the reference's default) runs the stages before
     ``dense_from_stage`` (any; past 4 also ``extra_conv``) as gather-GEMM
     convs through neighbour tables (``ops/sparse_conv.py``), the rest
     dense; it has no telemetry. ``engine="window"``: ``dense_from_stage`` 1
     runs conv1 and conv2_down sparse and the rest dense (the shipped
-    setting); 0 runs every stage dense. ``engine="plane"`` runs conv1 and
-    conv2_down on the window engine and conv2..conv4 as fused plane convs
-    (inference only), with the reference's plane knobs: per-stage z-chunk heights ``tile_tz``, chunk
+    setting); 2 also the conv2 blocks and conv3_down; 0 runs every stage
+    dense. ``win_window`` is an int or the four stages' plan windows (conv1,
+    conv2 with conv2_down, conv3_down, conv4). ``engine="plane"`` runs conv1
+    and conv2_down on the window engine and conv2..conv4 as fused plane
+    convs (in training the plane conv under autograd, ``PlaneKBlock``), with
+    the reference's plane knobs: per-stage z-chunk heights ``tile_tz``, chunk
     budgets ``tile_budgets``, plane budgets ``plane_budgets`` (conv2..conv4)
     and plan windows ``plane_window`` (an int, or per stage an int or a
     (w0, wy) pair); ``dense_from_stage`` is not read. ``engine="tile"`` with
@@ -534,16 +569,17 @@ class SpMiddleResNetFHD(_DenseStages):
                 "state) comes in a later slice")
         if engine == "tile" and tuple(tile_size) != (4, 4):
             raise ValueError(f"the tile kernel needs 4x4 BEV tiles, got {tile_size}")
-        if engine == "window" and dfs not in (0, 1):
+        if engine == "window" and dfs not in (0, 1, 2):
             raise NotImplementedError(
-                f"dense_from_stage={dense_from_stage}: sparse stages past conv2_down "
-                "need a window kernel for 64/128 channels, a later slice")
+                f"dense_from_stage={dense_from_stage}: sparse stages past conv3_down need the "
+                "window kernel at 64->64, 64->128 and 128->128 channels (weights streamed "
+                "through shared memory), a later slice")
         super().__init__(remat_dense, dense_compute_dtype)
         self.engine = engine
         self.sparse_shape = tuple(sparse_shape)
         self.stage_budgets = stage_budgets
         self.dfs = 1 if engine == "plane" else dfs
-        self.win_window, self.win_resid_budget = win_window, win_resid_budget
+        self.wins, self.win_resid_budget = _win_windows(win_window), win_resid_budget
         self.tile_tz, self.tile_budgets = tuple(tile_tz), tuple(tile_budgets)
         self.tile_wins = _stage_wins(tilek_window, 4)
         self.plane_budgets = tuple(plane_budgets)
@@ -578,7 +614,7 @@ class SpMiddleResNetFHD(_DenseStages):
                 down = (SparseDownsample(cin, ch, grid, stride, pad, ksz, out_budget=budget)
                         if engine == "gather" else
                         WinDownsample(cin, ch, grid, stride, pad, ksz, out_budget=budget,
-                                      window=win_window, resid_budget=win_resid_budget))
+                                      window=self.wins[k], resid_budget=win_resid_budget))
             else:
                 down = DenseDownsample(cin, ch, stride, pad, ksz, compute_dtype=cd)
             setattr(self, f"{name}_down", down)
@@ -588,6 +624,8 @@ class SpMiddleResNetFHD(_DenseStages):
                 block = TileKBlock
             elif engine == "gather" and k < self.dfs:
                 block = SparseBasicBlock
+            elif engine == "window" and k < self.dfs:
+                block = WinBasicBlock
             else:
                 block = partial(DenseBasicBlock, compute_dtype=cd)
             setattr(self, f"{name}_0", block(ch, ch))
@@ -605,21 +643,19 @@ class SpMiddleResNetFHD(_DenseStages):
                                               compute_dtype=cd)
 
     def _window_stages(self, feats, coords, grid, telemetry, multi_scale):
-        """conv1 stage and the strided conv2_down on the window engine."""
+        """The conv1 stage and the strided conv2_down on the window engine.
+        Returns the conv2 stage's sorted (feats, coords, keys, valid, grid)."""
         rows = [WC.sort_rows(f, c, grid) for f, c in zip(feats, coords)]
         feats, coords, lin = (torch.stack(t) for t in zip(*rows))
         valid = lin < WC.MISS
-        plans = _for_autograd([WC.make_subm_plan_presorted(l, c, grid, window=self.win_window)
-                               for l, c in zip(lin, coords)])
-        telemetry["conv1"] = (torch.stack([p.n_resid for p in plans]),
-                              plans[0].resid_rows.shape[0])
+        plans = self._subm_plans(0, lin, coords, grid, telemetry, "conv1")
         feats = self.conv_input(feats, valid, plans)
         feats = self.conv1_1(self.conv1_0(feats, valid, plans), valid, plans)
         multi_scale["conv1"] = ((feats, coords, valid), grid)
         feats, coords, lin, valid, grid, plans = self.conv2_down(feats, coords, lin)
         telemetry["conv2_down"] = (torch.stack([p.n_resid for p in plans]),
                                    self.win_resid_budget)
-        return feats, coords, valid, grid
+        return feats, coords, lin, valid, grid
 
     def forward(self, voxel_features, coords):
         coords = coords.to(torch.int32)
@@ -635,23 +671,35 @@ class SpMiddleResNetFHD(_DenseStages):
         if self.engine == "gather":
             return self._gather_forward(feats, coords, valid0, grid, multi_scale)
 
+        x = mask = None
         if self.dfs == 0:
             x, mask = self._dense_stream(feats, coords, valid0, grid)
             x = self._dense(self.conv_input, x, mask)
             x = self._dense(self.conv1_1, self._dense(self.conv1_0, x, mask), mask)
             multi_scale["conv1"] = (x, grid)
-        else:
-            feats, coords, valid, grid = self._window_stages(feats, coords, grid, telemetry,
-                                                             multi_scale)
-            x, mask = self._dense_stream(feats, coords, valid, grid)
-
         for k, (name, _, stride, pad, ksz) in enumerate(_STAGES, start=1):
+            blocks = (getattr(self, f"{name}_0"), getattr(self, f"{name}_1"))
             if k > self.dfs:
                 x, mask = self._dense(getattr(self, f"{name}_down"), x, mask)
                 grid = conv_out_grid(grid, stride, pad, ksz)
-            x = self._dense(getattr(self, f"{name}_0"), x, mask)
-            x = self._dense(getattr(self, f"{name}_1"), x, mask)
-            multi_scale[name] = (x, grid)
+            else:
+                if k == 1:
+                    feats, coords, lin, valid, grid = self._window_stages(
+                        feats, coords, grid, telemetry, multi_scale)
+                else:
+                    feats, coords, lin, valid, grid, plans = getattr(self, f"{name}_down")(
+                        feats, coords, lin)
+                    telemetry[f"{name}_down"] = (torch.stack([p.n_resid for p in plans]),
+                                                 self.win_resid_budget)
+                if k == self.dfs:
+                    x, mask = self._dense_stream(feats, coords, valid, grid)
+            if x is None:
+                plans = self._subm_plans(k, lin, coords, grid, telemetry, name)
+                feats = blocks[1](blocks[0](feats, valid, plans), valid, plans)
+                multi_scale[name] = ((feats, coords, valid), grid)
+            else:
+                x = self._dense(blocks[1], self._dense(blocks[0], x, mask), mask)
+                multi_scale[name] = (x, grid)
         x, mask = self._dense(self.extra_conv, x, mask)
         return dense_to_bev(x), multi_scale, telemetry
 
@@ -733,8 +781,8 @@ class SpMiddleResNetFHD(_DenseStages):
         plane convs over the batch flattened to (B * T1p) plane rows, with
         the strided transitions and extra_conv in the chunk-planes layout."""
         out_dtype = feats.dtype
-        feats, coords, valid, grid = self._window_stages(feats, coords, grid, telemetry,
-                                                         multi_scale)
+        feats, coords, _, valid, grid = self._window_stages(feats, coords, grid, telemetry,
+                                                            multi_scale)
         cd = self.cd or feats.dtype
         b = feats.shape[0]
         counts = {k: torch.zeros(b, dtype=torch.int32, device=feats.device)
@@ -753,6 +801,8 @@ class SpMiddleResNetFHD(_DenseStages):
                 state, mask, sets, grid = self._plane_down(k, name, state, mask, sets, grid,
                                                            counts)
             plan = PK.make_plane_plan_batched(sets, t1p, *self.plane_wins[k])
+            if self.training:  # the train-mode blocks' backward reads the neighbour table
+                plan = plan._replace(nbr=PK.flat_neighbor_ranks(sets, t1p))
             counts["planek_miss"] += plan.n_miss
             state = getattr(self, f"{name}_0")(state, mask, plan)
             state = getattr(self, f"{name}_1")(state, mask, plan)
@@ -860,15 +910,17 @@ class SpMiddleFHD(_DenseStages):
       -> (bev NHWC (B, H/8, W/8, 64*2), conv4, telemetry)
     where conv4 is the last subm stage's output with its grid, ((features,
     coords, valid), grid) while it is sparse, else (dense NCDHW, grid); and
-    telemetry, on the window engine, maps "subm0" (its subm plans) and
-    "down1" (its strided plans) to their residual rows a sample and their
+    telemetry, on the window engine, maps each sparse subm stage ("subm0",
+    "subm1": its subm plans) and strided conv ("down1", "down2": its strided
+    plans) to their residual rows a sample and their
     budget. The result is exact while every count is within its budget.
 
     ``engine="gather"`` (the reference's default) runs the stages before
     ``dense_from_stage`` (any; past 4 also ``extra_conv``) as gather-GEMM
     convs, ``engine="window"`` as windowed convs (the window pass, the
     hand-written CUDA kernel on the card); ``dense_from_stage`` 1 (the
-    shipped setting) runs subm0 and down1 sparse, 0 every stage dense. The
+    shipped setting) runs subm0 and down1 sparse, 2 also subm1 and down2, 0
+    every stage dense. The
     later stages are masked dense 3D convs, rematerialised in training
     unless ``remat_dense`` is False. The parameters do not depend on the
     engine, so one checkpoint serves both.
@@ -886,10 +938,11 @@ class SpMiddleFHD(_DenseStages):
         if engine not in ("gather", "window"):
             raise NotImplementedError(
                 f"engine={engine!r}: SpMiddleFHD runs engine='gather' and 'window' in this port")
-        if engine == "window" and dfs not in (0, 1):
+        if engine == "window" and dfs not in (0, 1, 2):
             raise NotImplementedError(
-                f"dense_from_stage={dense_from_stage}: sparse stages past down1 need a window "
-                "kernel for 64 channels, a later slice")
+                f"dense_from_stage={dense_from_stage}: sparse stages past down2 need the window "
+                "kernel at 64->64 channels (weights streamed through shared memory), a later "
+                "slice")
         super().__init__(remat_dense, dense_compute_dtype)
         self.engine, self.dfs = engine, dfs
         self.sparse_shape = tuple(sparse_shape)
@@ -920,14 +973,6 @@ class SpMiddleFHD(_DenseStages):
         else:
             self.extra_conv = DenseDownsample(64, 64, (2, 1, 1), (0, 0, 0), (3, 1, 1),
                                               compute_dtype=cd)
-
-    def _subm_plans(self, k, lin, coords, grid, telemetry, name):
-        """The window plans of subm stage k, with their residual rows."""
-        plans = _for_autograd([WC.make_subm_plan_presorted(l, c, grid, window=self.wins[k])
-                               for l, c in zip(lin, coords)])
-        telemetry[name] = (torch.stack([p.n_resid for p in plans]),
-                           plans[0].resid_rows.shape[0])
-        return plans
 
     def forward(self, voxel_features, coords):
         coords = coords.to(torch.int32)

@@ -15,12 +15,18 @@ neighbour rank outside both windows is written as ``SENTINEL`` and counted in
 conv itself (``plane_kernel.plane_subm``: a CUDA kernel on the card, the
 plain version below on the CPU) reads neighbour planes straight from the
 state rows by ``tgt``; it needs none of the TPU kernel's export arrays.
+
+In training the conv runs under autograd (``pk_subm_conv_train``,
+``plane_kernel.PlaneConv``): the forward as above with an identity
+epilogue, the backward the float32 VJP of the reference formula over the
+batch's neighbour table (``flat_neighbor_ranks``, ``plane_conv_grad``).
 """
 from __future__ import annotations
 
 from typing import List, NamedTuple, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from . import tile_conv as TC
 
@@ -142,6 +148,7 @@ class PKPlan(NamedTuple):
     ws: torch.Tensor      # (nb, 3, 2) int32 window starts / GRAN
     tgt: torch.Tensor     # (nb, 32, 128) int32 neighbour ranks, SENTINEL pad
     n_miss: torch.Tensor  # () int32 targets dropped (outside both windows); (B,) batched
+    nbr: Optional[torch.Tensor] = None  # (B * T1p, 26) flat_neighbor_ranks, for the backward
 
 
 _DIR_IDX = {d: i for i, d in enumerate(TC.DIRS)}
@@ -202,6 +209,20 @@ def make_plane_plan_batched(sets: Sequence[TC.TileSet], t1p: int, w0: int, wy: i
              for b, ts in enumerate(sets)]
     return PKPlan(torch.cat([p.ws for p in plans]), torch.cat([p.tgt for p in plans]),
                   torch.stack([p.n_miss for p in plans]))
+
+
+def flat_neighbor_ranks(sets: Sequence[TC.TileSet], t1p: int) -> torch.Tensor:
+    """Plane sets of a batch -> (B * T1p, 26) global neighbour ranks in
+    ``tile_conv.DIRS`` order for the batch-flattened plane state; an absent
+    neighbour, and every row past a set's budget, points at the sample's
+    first always-zero row (rank ``budget``)."""
+    out = []
+    for b, ts in enumerate(sets):
+        budget = ts.nbr.shape[0]
+        n = torch.cat([ts.nbr.clamp(max=budget),
+                       ts.nbr.new_full((t1p - budget, 26), budget)])
+        out.append(n + b * t1p)
+    return torch.cat(out).to(_I32)
 
 
 # ---------------------------------------------------------------------------
@@ -310,6 +331,95 @@ def plane_subm_plain(state: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor,
     return (y * mask16.float()).to(state.dtype)
 
 
+def _rows_of_nbr(nbr: torch.Tensor) -> torch.Tensor:
+    """(28, N) source plane of each plan row from an (N, 26) neighbour table
+    in ``tile_conv.DIRS`` order (``flat_neighbor_ranks``)."""
+    n = nbr.shape[0]
+    rows = torch.full((28, n), n, dtype=torch.long, device=nbr.device)
+    for d, i in _DIR_IDX.items():
+        rows[dir_row(*d)] = nbr[:, i].long()
+    rows[27] = torch.arange(n, device=nbr.device)
+    return rows
+
+
+# the halo of a 4x4 plane: for a tile offset (-1, 0 or +1 along y or x),
+# the rows (columns) of the neighbour tile it gives and where they land in
+# the 6x6 halo
+_HALO = {-1: (slice(3, 4), slice(0, 1)), 0: (slice(0, 4), slice(1, 5)),
+         1: (slice(0, 1), slice(5, 6))}
+
+
+def _halos(x: torch.Tensor, rows: torch.Tensor):
+    """The reference formula's halos, one dz at a time: yields (kz, (N, 6, 6,
+    C) float32) with the plane, or its dz neighbour, in the centre and the
+    edge cells of the 8 (dy, dx) neighbours around it (zero where absent).
+    x (N, 16, C); rows (28, N) in [0, N] (N reads zero). Each piece of a
+    plane that a halo takes is cut out once (its "export") and gathered by
+    plane rank, so no cell is read more often than the halos hold it."""
+    n, _, c = x.shape
+    xz = torch.cat([x.float(), x.new_zeros((1, 16, c), dtype=torch.float32)]).view(n + 1, 4, 4, c)
+    exports = {(dyb, dxb): xz[:, ys, xs].contiguous()
+               for dyb, (ys, _) in _HALO.items() for dxb, (xs, _) in _HALO.items()}
+    for kz in range(3):
+        h = xz.new_empty((n, 6, 6, c))
+        for dyb, (_, yd) in _HALO.items():
+            for dxb, (_, xd) in _HALO.items():
+                r = rows[27] if (kz, dyb, dxb) == (1, 0, 0) else rows[dir_row(kz - 1, dyb, dxb)]
+                h[:, yd, xd] = exports[dyb, dxb].index_select(0, r)
+        yield kz, h.permute(0, 3, 1, 2)                                   # (N, C, 6, 6)
+
+
+def _halo_conv(x: torch.Tensor, rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The linear plane conv as the reference formula computes it: one VALID
+    3x3 2D conv a dz over the halos (:func:`_halos`), float32. x (N, 16, C),
+    rows (28, N), w (27, C, Co) z-major taps -> (N, 16, Co)."""
+    n, _, c = x.shape
+    co = w.shape[2]
+    wk = w.float().reshape(3, 3, 3, c, co).permute(0, 4, 3, 1, 2)       # (kz, Co, C, ky, kx)
+    out = sum(F.conv2d(h, wk[kz]) for kz, h in _halos(x, rows))        # (N, Co, 4, 4)
+    return out.permute(0, 2, 3, 1).reshape(n, 16, co)
+
+
+def _halo_conv_weight(x: torch.Tensor, rows: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """(27, C, Co) weight gradient of :func:`_halo_conv` for the output
+    gradient g (N, 16, Co): a dz, the 2D conv's weight gradient over the
+    halos; float32."""
+    n, _, c = x.shape
+    co = g.shape[2]
+    gy = g.float().reshape(n, 4, 4, co).permute(0, 3, 1, 2)
+    dw = torch.stack([torch.nn.grad.conv2d_weight(h, (co, c, 3, 3), gy)
+                      for _, h in _halos(x, rows)])                     # (kz, Co, C, ky, kx)
+    return dw.permute(0, 3, 4, 2, 1).reshape(27, c, co)
+
+
+def plane_conv_grad(state: torch.Tensor, w: torch.Tensor, nbr: torch.Tensor,
+                    grad: torch.Tensor, need_state: bool = True):
+    """(d state or None, d w) of the linear plane conv over the neighbour
+    table ``nbr`` ((N, 26) ``flat_neighbor_ranks``; the reference's
+    ``plane_subm_reference``: the conv and the output mask, no bias, BN or
+    ReLU) for the output gradient ``grad`` (N, 16Co), already masked, in
+    float32 (cuDNN's TF32 off): its VJP with no scatter, on the reference
+    formula's halos (:func:`_halos`). The plane neighbour relation is
+    symmetric (q is p's neighbour in direction d iff p is q's in -d), so d
+    state is the same plane conv of the gradient with the taps mirrored
+    (tap k reads what tap 26 - k wrote) and transposed (Co x C); d w is the
+    weight gradient of each dz's 2D conv over the state's halos. Rows that
+    no plane reads (the samples' always-zero rows, which absent neighbours
+    name) get no gradient: they are zero in every state."""
+    n, c16 = state.shape
+    co = w.shape[2]
+    rows = _rows_of_nbr(nbr)
+    g = grad.float().reshape(n, 16, co)
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        dw = _halo_conv_weight(state.reshape(n, 16, c16 // 16), rows, g).to(w.dtype)
+        if not need_state:
+            return None, dw
+        wt = w.to(state.dtype).float().flip(0).transpose(1, 2)
+        return _halo_conv(g, rows, wt).reshape(n, c16).to(state.dtype), dw
+
+
 def pk_subm_conv(state, plan: PKPlan, w, scale16, shift16, mask16, residual=None,
                  relu=True) -> torch.Tensor:
     """Fused plane subm conv + epilogue; w (27, C, Co) z-major taps. On CUDA
@@ -317,6 +427,18 @@ def pk_subm_conv(state, plan: PKPlan, w, scale16, shift16, mask16, residual=None
     from .plane_kernel import plane_subm
 
     return plane_subm(state, plan.tgt, w, scale16, shift16, mask16, residual, relu)
+
+
+def pk_subm_conv_train(state, plan: PKPlan, w, mask16) -> torch.Tensor:
+    """Trainable plane subm conv: the masked linear conv only (the caller
+    adds the bias, train-mode BatchNorm, ReLU and residual), w (27, C, Co)
+    z-major taps; ``plan.nbr`` holds the batch's ``flat_neighbor_ranks``.
+    The fused conv forward (the kernel on CUDA tensors), the float32 VJP of
+    the plain formula backward (``plane_kernel.PlaneConv``,
+    :func:`plane_conv_grad`)."""
+    from .plane_kernel import PlaneConv
+
+    return PlaneConv.apply(state, w, mask16, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -357,7 +479,7 @@ def planes_to_plane_state(p: torch.Tensor, prank_rows: torch.Tensor, t1p: int) -
     plane rows (absent planes read a zero row)."""
     n, ty, tx, c = p.shape
     rows = torch.cat([p.reshape(n, 16 * c), p.new_zeros((1, 16 * c))])
-    out = rows[prank_rows.long().clamp(max=n)]
+    out = TC.take_rows(rows, prank_rows.long().clamp(max=n), n)
     return torch.cat([out, out.new_zeros((t1p - out.shape[0], 16 * c))])
 
 
@@ -367,4 +489,5 @@ def plane_state_to_planes(state: torch.Tensor, plane_of_chunk: torch.Tensor,
     chunk planes (T1_tile * tz, 4, 4, C)."""
     t1p, c16 = state.shape
     rows = torch.cat([state, state.new_zeros((1, c16))])
-    return rows[plane_of_chunk.reshape(-1).long().clamp(max=t1p)].reshape(-1, 4, 4, c16 // 16)
+    return TC.take_rows(rows, plane_of_chunk.reshape(-1).long().clamp(max=t1p),
+                        t1p).reshape(-1, 4, 4, c16 // 16)

@@ -8,6 +8,7 @@ through ctypes on PyTorch's current stream.
 :func:`plane_subm` takes the plain version (``plane_conv.plane_subm_plain``)
 for tensors on the CPU, and launches the kernel for CUDA tensors or raises:
 there is no fallback. ``launches`` counts the kernel launches.
+:class:`PlaneConv` runs it under autograd in training.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Optional
 import torch
 
 from . import cuda_build
-from .plane_conv import BLK, plane_subm_plain
+from .plane_conv import BLK, PKPlan, plane_conv_grad, plane_subm_plain
 
 SOURCE = os.path.join(cuda_build.CSRC, "plane_subm.cu")
 LIBRARY = os.path.join(cuda_build.BUILD_DIR, "libplane_subm.so")
@@ -117,3 +118,34 @@ def plane_subm(state: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor,
     if state.device.type == "cpu":
         return plane_subm_plain(state, tgt, w, scale16, shift16, mask16, residual, relu)
     return plane_subm_cuda(state, tgt, w, scale16, shift16, mask16, residual, relu)
+
+
+class PlaneConv(torch.autograd.Function):
+    """The linear plane conv under autograd (the reference's ``_plane_core``
+    custom VJP): ``apply(state (N, 16C), w (27, C, Co) z-major taps, mask16
+    (N, 16Co), plan)`` -> mask16 * conv(state) in the state's dtype. The
+    forward is :func:`plane_subm` with an identity epilogue (scale 1, shift
+    0, no residual, no ReLU): the kernel on CUDA tensors. The backward is
+    the float32 VJP of the plain formula over ``plan.nbr``
+    (``plane_conv.plane_conv_grad``), whichever forward ran, as the
+    reference's recomputes its reference formula: gradients to the state
+    and the taps, none to the mask or the plan. No TPU kernel has a
+    backward."""
+
+    @staticmethod
+    def forward(ctx, state, w, mask16, plan: PKPlan):
+        if plan.nbr is None:
+            raise ValueError("PlaneConv needs the plan's neighbour table "
+                             "(plan._replace(nbr=plane_conv.flat_neighbor_ranks(...)))")
+        ctx.save_for_backward(state, w, mask16)
+        ctx.nbr = plan.nbr
+        ones = torch.ones((1, 16 * w.shape[2]), dtype=torch.float32, device=state.device)
+        return plane_subm(state, plan.tgt, w, ones, torch.zeros_like(ones), mask16,
+                          residual=None, relu=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        state, w, mask16 = ctx.saved_tensors
+        ds, dw = plane_conv_grad(state, w, ctx.nbr, grad.float() * mask16.float(),
+                                 need_state=ctx.needs_input_grad[0])
+        return ds, dw, None, None

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 BIG = 2 ** 30      # key of an absent tile
 _I32 = torch.int32
@@ -139,6 +140,16 @@ def _z_sources(pzn: int, pz: int, tz: int):
     return [tuple(g) for g in groups]
 
 
+def take_rows(rows: torch.Tensor, idx: torch.Tensor, zero: int) -> torch.Tensor:
+    """rows[idx] for a (R, D) table whose row ``zero`` is always zero (the
+    index of an absent tile or plane), by ``F.embedding`` with that row as
+    its padding index: the backward sums an index's duplicates in parallel
+    and skips the zero row, where an indexed gather's backward adds
+    duplicates one after another (the absent neighbours of a frame all name
+    the one zero row)."""
+    return F.embedding(idx.long(), rows, padding_idx=zero)
+
+
 def tiles_to_dense(interior: torch.Tensor, ts: TileSet, grid: Sequence[int],
                    tz: int) -> torch.Tensor:
     """(T+1, tz, ty, tx, C) -> dense (D, H, W, C) by one rank gather per
@@ -147,6 +158,6 @@ def tiles_to_dense(interior: torch.Tensor, ts: TileSet, grid: Sequence[int],
     t1, tzi, ty, tx, c = interior.shape
     assert tzi == tz
     nbz, nby, nbx = tile_counts(grid, ty, tx, tz)
-    g = interior[ts.tmap[:nbz * nby * nbx].long()]
+    g = take_rows(interior.reshape(t1, -1), ts.tmap[:nbz * nby * nbx], t1 - 1)
     g = g.reshape(nbz, nby, nbx, tz, ty, tx, c).permute(0, 3, 1, 4, 2, 5, 6)
     return g.reshape(nbz * tz, nby * ty, nbx * tx, c)[:d, :h, :w, :]

@@ -111,8 +111,9 @@ def downsample(y: torch.Tensor, mask: torch.Tensor, ts: TC.TileSet, grid: Sequen
     cell = t_(i_of)[:, None] * tx + t_(i_of)[None, :]
     rows = (rk * tz + t_(zr)[:, None, None]) * (ty * tx) + cell      # (T, pzn, 2ty+2, 2tx+2)
     src = torch.cat([y, mask.to(y.dtype)], -1).reshape(n * ty * tx, cin + 1)
-    src = torch.cat([src, src.new_zeros((tz * ty * tx, cin + 1))])    # the zero tile t1
-    both = src[rows]
+    src = torch.cat([src, src.new_zeros((1, cin + 1))])               # a zero row
+    zero = n * ty * tx
+    both = TC.take_rows(src, torch.where(rk == t1, zero, rows), zero)
     patch, mpatch = _cast(both[..., :cin], compute_dtype), both[..., cin:].to(mask.dtype)
 
     # ---- stride-2 VALID conv, one 2D conv per z tap ---------------------

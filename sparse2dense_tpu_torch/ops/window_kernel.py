@@ -25,7 +25,8 @@ from .window_conv import ConvPlan, reader_table, window_pass_grad, window_pass_p
 SOURCE = os.path.join(cuda_build.CSRC, "window_pass.cu")
 LIBRARY = os.path.join(cuda_build.BUILD_DIR, "libwindow_pass.so")
 BLOCK = 128
-COUTS = (16, 32)           # output widths the kernel is instantiated for
+# (cin_pad, Cout) pairs the kernel is instantiated for (Cin <= 16 pads to 16)
+WIDTHS = ((16, 16), (16, 32), (32, 16), (32, 32), (32, 64))
 SMEM_LIMIT = 232448        # dynamic shared memory a Hopper block may use
 
 launches = 0               # kernel launches since the caller last reset it
@@ -93,10 +94,9 @@ def unsupported(block: int, cin: int, cout: int, window: int) -> Optional[str]:
     widths, or None if it does."""
     if block != BLOCK:
         return f"plan block {block} (the kernel takes {BLOCK})"
-    if cout not in COUTS:
-        return f"Cout {cout} (the kernel is built for Cout {COUTS})"
-    if not (0 < cin <= 16 or cin == 32):
-        return f"Cin {cin} (the kernel is built for Cin <= 16 and 32)"
+    if (cin_pad(cin), cout) not in WIDTHS:
+        return (f"Cin {cin} -> Cout {cout} (the kernel is built for Cin <= 16 or 32 -> "
+                f"Cout 16 or 32, and Cin 32 -> Cout 64)")
     # 4 KB kept for the block's table of a byte a plan block it takes
     if window % 128 or smem_bytes(cin, cout, window) + 4096 > SMEM_LIMIT:
         return f"window {window} x Cin {cin} (a multiple of 128 within shared memory)"

@@ -3,12 +3,16 @@ time and memory go.
 
     python3 -m sparse2dense_tpu_torch.tools.profile_train_step [--batch 1]
         [--warmup 2] [--steps 4] [--no-remat] [--profile] [--config PATH]
+        [--engine window|plane|gather] [--dense-from-stage N]
 
 Builds the flagship's VoxelNet teacher and KD_VoxelNet + S2D_RPN student,
 or the teacher and student of the recipe config ``--config`` names (such as
 the SECOND one, ``configs/waymo_second_3x_distill_interval_5.py``)
 (``engine="window", dense_from_stage=1``, bf16 dense stages; seeded random
-weights: the recipe's teacher checkpoint is not in the repository), a
+weights: the recipe's teacher checkpoint is not in the repository), with
+``--engine`` and ``--dense-from-stage`` applied to teacher and student alike
+(``--engine plane`` at ``utils.config.FRAME_BUDGETS``, ``--dense-from-stage
+2`` at ``DFS2_FRAME_SETTINGS``, which the frame needs), a
 training batch of ``--batch`` synthetic frames (the bench's frame: 170k
 points, 32 objects, 150k voxels, seeds 0, 1, ...; with the head's
 targets and the distillation streams), and runs ``TS_Trainer.step`` at
@@ -16,7 +20,8 @@ PyTorch's defaults, the student's dense backbone stages rematerialised
 unless ``--no-remat`` is given. Prints one JSON line: each step's stages
 (teacher forward, student forward + losses, backward, optimizer; the device
 synchronised at each boundary), the peak memory of each stage (the peak
-counter reset at each boundary) and window-pass (B1) launches, the medians
+counter reset at each boundary) and window-pass (B1) and plane-conv (B2)
+launches, the medians
 of the timed steps, the last step's metrics and the peak memory. With
 ``--profile``, a second line: a torch.profiler trace of one step (device
 busy time, idle share, launches, the kernels with the most time).
@@ -36,10 +41,30 @@ STAGES = ("teacher_forward", "student_forward", "backward", "optimizer")
 FRAME = dict(max_voxels=150000, n_points=170000, n_obj=32)
 
 
-def train_setup(batch_size: int, total_steps: int, remat: bool = True, config: str = None):
+def engine_settings(engine: str = "window", dense_from_stage=None) -> dict:
+    """Backbone overrides of a training run on ``engine`` (the recipe's own
+    for "window" with no ``dense_from_stage``): the reference bench's
+    override, for the plane engine at ``FRAME_BUDGETS``, for the window
+    engine at ``dense_from_stage=2`` with ``DFS2_FRAME_SETTINGS`` (the
+    bench's frame needs both)."""
+    from ..utils.config import DFS2_FRAME_SETTINGS, FRAME_BUDGETS
+
+    out = {} if engine == "window" else dict(engine=engine)
+    if engine == "plane":
+        out.update(FRAME_BUDGETS)
+    if dense_from_stage is not None:
+        out["dense_from_stage"] = dense_from_stage
+    if engine == "window" and dense_from_stage == 2:
+        out.update(DFS2_FRAME_SETTINGS)
+    return out
+
+
+def train_setup(batch_size: int, total_steps: int, remat: bool = True, config: str = None,
+                backbone: dict = None):
     """(batch, trainer) of the flagship (or of the recipe config at
     ``config``) on the card; ``remat`` is the student backbone's
-    ``remat_dense``."""
+    ``remat_dense``; ``backbone`` (``engine_settings``) updates teacher and
+    student backbones alike."""
     from ..models import build_detector
     from ..solver.optim import OneCycleAdam
     from ..training.synthetic import make_batch
@@ -47,6 +72,8 @@ def train_setup(batch_size: int, total_steps: int, remat: bool = True, config: s
     from ..utils.config import FLAGSHIP, ConfigDict
 
     cfg = ConfigDict.fromfile(config or FLAGSHIP)
+    for key in ("model", "S_model"):
+        cfg[key]["backbone"].update(backbone or {})
     cfg.S_model.backbone["remat_dense"] = remat
     kw = dict(test_cfg=cfg.test_cfg, voxel_generator=cfg.voxel_generator, device="cuda")
     teacher = build_detector(cfg.model, generator=torch.Generator().manual_seed(0), **kw)
@@ -61,15 +88,16 @@ def train_setup(batch_size: int, total_steps: int, remat: bool = True, config: s
 def run_steps(trainer, batch, steps: int):
     """``steps`` calls of ``trainer.step``: per step its host-clock ms, the
     ms and the peak GiB of each stage (device synchronised, peak counter
-    read and reset at the boundaries), the step's peak and the B1
-    launches; and the last step's metrics. Counts B1 launches from 0. A
+    read and reset at the boundaries), the step's peak and the B1 and B2
+    launches; and the last step's metrics. Counts launches from 0. A
     step that runs out of device memory raises with the stages it finished
     (``stages_ms``, ``stages_peak_gb``) and the peak of the one it did not
     (``failed_peak_gb``) on the error."""
+    from ..ops import plane_kernel as PKK
     from ..ops import window_kernel as WK
 
     rows, metrics = [], None
-    WK.launches = 0
+    WK.launches = PKK.launches = 0
     for _ in range(steps):
         stages, peaks, clock = {}, {}, [0.0]
 
@@ -81,7 +109,7 @@ def run_steps(trainer, batch, steps: int):
             torch.cuda.reset_peak_memory_stats()
             clock[0] = now
 
-        before = WK.launches
+        before, before2 = WK.launches, PKK.launches
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = clock[0] = time.perf_counter()
@@ -95,7 +123,8 @@ def run_steps(trainer, batch, steps: int):
         torch.cuda.synchronize()
         rows.append(dict(step_ms=(time.perf_counter() - t0) * 1e3, stages=stages,
                          peak_gb=peaks, step_peak_gb=max(peaks.values()),
-                         window_pass_launches=WK.launches - before))
+                         window_pass_launches=WK.launches - before,
+                         plane_subm_launches=PKK.launches - before2))
     return rows, metrics
 
 
@@ -123,13 +152,17 @@ def main():
     ap.add_argument("--config", default=None,
                     help="a recipe config whose teacher and student train (default: the "
                          "flagship's)")
+    ap.add_argument("--engine", default="window", choices=("window", "plane", "gather"))
+    ap.add_argument("--dense-from-stage", dest="dfs", type=int, default=None)
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    backbone = engine_settings(args.engine, args.dfs)
     batch, trainer = train_setup(args.batch, args.warmup + args.steps + args.profile,
-                                 args.remat, args.config)
+                                 args.remat, args.config, backbone)
     rows, metrics = run_steps(trainer, batch, args.warmup + args.steps)
-    print(json.dumps(dict(gpu=smi, config=args.config, batch=args.batch, remat=args.remat,
+    print(json.dumps(dict(gpu=smi, config=args.config, backbone=backbone, batch=args.batch,
+                          remat=args.remat,
                           **summary(rows[args.warmup:]),
                           peak_all_steps_gb=max(r["step_peak_gb"] for r in rows),
                           steps=rows, metrics={k: float(v) for k, v in metrics.items()})),

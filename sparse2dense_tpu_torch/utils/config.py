@@ -135,6 +135,18 @@ FRAME_BUDGETS = dict(plane_budgets=(90000, 37000, 8700),
 # T1p by the plan) costs it nothing and leaves out no tap.
 TILE_FRAME_BUDGETS = dict(tile_budgets=(73000, 90000, 43000, 2400), tilek_window=10 ** 6)
 
+# window-engine knobs at dense_from_stage=2 for the same frame (teacher and
+# student alike). Its conv3_down output holds 218,369 active cells: the
+# recipe's stage budget of 210,000 drops 8,369 of them (in the reference as
+# in the port), so stage 3's is 240,000 here. Its strided plan leaves 39,552
+# rows to the residual pass at a window of 384 and 30,208 at 512, past the
+# recipe's residual budget of 16,384: conv3_down takes a window of 512 (the
+# widest the window kernel holds at 32->64) and the residual budget is
+# 32,768. The conv2 blocks' subm plans leave no row at 384. Counted from the
+# frame's coordinates on the CPU (``ops/window_conv.py``).
+DFS2_FRAME_SETTINGS = dict(win_window=(384, 384, 512, 384), win_resid_budget=32768,
+                           stage_budgets=(320000, 240000, 90000, 48000))
+
 
 def flagship(engine: str = "window", budgets=None, path: str = FLAGSHIP) -> ConfigDict:
     """The flagship config (or the recipe config at ``path``, such as

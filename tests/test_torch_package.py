@@ -79,9 +79,9 @@ def test_other_engines_raise():
     with pytest.raises(NotImplementedError, match="column"):
         SpMiddleResNetFHD(engine="column", **kw)
     with pytest.raises(NotImplementedError, match="dense_from_stage"):
-        SpMiddleResNetFHD(engine="window", dense_from_stage=2, **kw)
+        SpMiddleResNetFHD(engine="window", dense_from_stage=3, **kw)
     for engine in ("plane", "tile", "column"):
         with pytest.raises(NotImplementedError, match=engine):
             SpMiddleFHD(engine=engine, **kw)
     with pytest.raises(NotImplementedError, match="dense_from_stage"):
-        SpMiddleFHD(engine="window", dense_from_stage=2, **kw)
+        SpMiddleFHD(engine="window", dense_from_stage=3, **kw)

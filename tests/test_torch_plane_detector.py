@@ -16,7 +16,8 @@ from sparse2dense_tpu.training.synthetic import make_batch as jax_make_batch
 from sparse2dense_tpu.utils import Config
 from sparse2dense_tpu_torch.convert import from_flax
 from sparse2dense_tpu_torch.models import build_detector
-from sparse2dense_tpu_torch.models.backbones.scn import SpMiddleResNetFHD
+from sparse2dense_tpu_torch.models.backbones.scn import SpMiddleResNetFHD, TileKBlock
+from sparse2dense_tpu_torch.ops import plane_conv as PK
 from sparse2dense_tpu_torch.training.synthetic import make_batch
 from sparse2dense_tpu_torch.utils.config import ConfigDict
 
@@ -96,10 +97,27 @@ def test_plane_parameters_match_the_window_engine(run):
 
 
 def test_plane_blocks_are_inference_only(run):
+    """The plane block trains (batch statistics, a gradient on its weights);
+    the tile block, which shares its code, still runs inference only."""
     block = run["tmodel"].backbone.conv2_0
+    saved = {k: v.clone() for k, v in block.state_dict().items()}
     block.train()
     try:
-        with pytest.raises(NotImplementedError, match="training slice"):
-            block(torch.zeros(128, 512), torch.zeros(128, 16), None)
+        sets = [PK.build_plane_set(torch.tensor([[0, 0, 0], [0, 0, 1], [1, 0, 4]]),
+                                   (21, 16, 16), 10)[0]]
+        plan = PK.make_plane_plan_batched(sets, 128, 128, 128)._replace(
+            nbr=PK.flat_neighbor_ranks(sets, 128))
+        mask = torch.zeros(128, 16)
+        mask[:2, 0] = 1
+        state = (torch.randn(128, 512) * mask.repeat_interleave(32, -1)).requires_grad_(True)
+        out = block(state, mask, plan)
+        out.sum().backward()
+        assert out.shape == (128, 512) and block.conv1_weight.grad.abs().max() > 0
+        assert not torch.equal(block.bn1.running_mean, saved["bn1.running_mean"])
     finally:
         block.eval()
+        block.load_state_dict(saved)
+        block.zero_grad(set_to_none=True)
+    tile = TileKBlock(32, 32).train()
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tile(torch.zeros(4, 128, 512), torch.zeros(4, 128, 16), None)
