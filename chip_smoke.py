@@ -49,7 +49,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      then, for each of the four (C, Co) pairs at tz 8, 4, 2 and 6, in both
      types, on targets set to SENTINEL, masked planes (groups of 4, single
      planes, columns whose only live plane is z = 0 or z = tz - 1), a padded
-     last plan block, and no residual with no ReLU;
+     last plan block, and no residual with no ReLU; then B3 under autograd
+     (``tile_kernel.TileConv``, the tile engine's training conv) at conv1
+     (16, tz 8), conv2 (32, tz 4), conv3 (64, tz 2) and conv4 (128, tz 6):
+     its forward against the plain version and its d state and d taps
+     against autograd through the plain formula, with B2's tolerances (in
+     float32), its forward and backward timed in bf16 (the tile backward's
+     ms a step at ``dense_from_stage`` 2 and 99, beside its bound);
    and times kernel (L2-warm: back to back, queued behind a sleep kernel;
    L2-cold: a 256 MB buffer written and read back before each call), plain
    version and the layer's bf16 cuDNN ``F.conv3d`` on the densified grid (a
@@ -147,8 +153,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    plane-conv launches a step (dense_from_stage 2: 33 B1 a sample; plane:
    18 B1 a sample and 36 B2 a step), every loss finite, a gradient on the
    engine's convs, every backbone run's counters within their budgets;
+   then the tile engine (``tile_backend="pallas"``, which trains as "xla"
+   does) at ``TILE_FRAME_BUDGETS`` the same way (its frame is phase 6's),
+   at ``dense_from_stage`` 2 (batch 1 and 3; 27 B3 launches a step: the
+   student's 9 under autograd, the teacher's two streams' 18) and 99 (batch
+   1; 51 B3 launches: B3 at all four widths under autograd, and
+   ``TileZConv``); its counters must be 0;
 11. agreement: the tiny distillation model on the card against the same model
-   on the CPU (plain versions only), window, plane and tile engines; and one
+   on the CPU (plain versions only), window, plane and tile engines; the
+   tiny tile backbone's train-mode forward and backward on the card (B3
+   under autograd) against the CPU: BEV and every gradient within
+   ``TINY_TOL["tile"]`` of the largest; and one
    teacher-student step of the tiny pair (window engine) on the card against
    the same step on the CPU with its window pass on bf16-rounded inputs (as
    the kernel multiplies): every metric, the student gradient as a whole and
@@ -920,6 +935,95 @@ def _tile_edge_rows(stages, gen):
     return rows
 
 
+# the student's tile convs under autograd a training step, by stage: conv_input
+# and the conv1 blocks' 4, then each block stage's 4; dense_from_stage 2 runs
+# conv1 and conv2 on tiles, 99 all four
+TILE_CONVS_A_STEP = {"conv1": 5, "conv2": 4, "conv3": 4, "conv4": 4}
+TILE_STEP_STAGES = {2: ("conv1", "conv2"), 99: ("conv1", "conv2", "conv3", "conv4")}
+
+
+def _tile_backward_rows(stages, gen):
+    """B3 under autograd (``tile_kernel.TileConv``, the tile engine's
+    training conv) at conv1..conv4's tile states, masks and plans: its
+    forward (the kernel, float32) against ``tile_subm_plain`` (identity
+    epilogue) and its d state and d taps against autograd through the plain
+    version, within 1e-4 + 1e-4*|p|, for the d taps 1e-4 * max|p| +
+    1e-4*|p| (the gradient of a linear map; a tap sums every live cell);
+    then its forward (bf16, as training runs it) and its backward
+    (``tile_kernel.tile_conv_grad``: bf16 state, float32 sums) timed
+    L2-warm, the backward beside its bound: the state, the gradient and d
+    state of the live (z, tile) planes once each, the targets, the taps and
+    d taps, over 3.35 TB/s, or its two products (d state, d taps) at its
+    (output cell, source cell) pairs over 989 TFLOP/s."""
+    import torch
+
+    from sparse2dense_tpu_torch.ops import tile_kernel as TKK
+    from sparse2dense_tpu_torch.tools.bench_tile_subm import TILE_STAGES
+
+    rows, per_stage = [], {}
+    for (name, c, _), (state, mask, sets, grid, plan) in zip(TILE_STAGES, stages):
+        tz, t1p = state.shape[:2]
+        w = torch.randn((27, c, c), device="cuda", generator=gen) * (27 * c) ** -0.5
+        cot = torch.randn((tz, t1p, 16 * c), device="cuda", generator=gen)
+        m16 = TKK.expand_mask(mask, c).float()
+        ones = torch.ones((1, 16 * c), device="cuda")
+        grads = []
+        for function in (True, False):
+            x, wt = state.float().clone().requires_grad_(True), w.clone().requires_grad_(True)
+            out = (TKK.tk_subm_conv_train(x, plan, wt, m16) if function else
+                   TKK.tile_subm_plain(x, plan.tgt, wt, ones, torch.zeros_like(ones), m16,
+                                       relu=False))
+            (out * cot).sum().backward()
+            grads.append((out.detach(), x.grad, wt.grad))
+            del out, x, wt
+        torch.cuda.synchronize()
+        planes = int((mask.reshape(-1, 16) > 0).any(-1).sum())
+        row = dict(kernel="tile_subm", case=f"backward {name} {c}->{c} tz {tz}", tz=tz,
+                   t1p=t1p, planes=planes, n_miss=int(plan.n_miss.sum()), per_frame=0)
+        for key, got, want in zip(("forward", "d_state", "d_weights"), *grads):
+            err = (got - want).abs()
+            floor = TOL_ABS * (float(want.abs().max()) if key == "d_weights" else 1.0)
+            row[f"{key}_max_abs_err"] = float(err.max())
+            row[f"{key}_max_abs_ref"] = float(want.abs().max())
+            row[f"{key}_n_bad"] = int((err > floor + TOL_REL * want.abs()).sum())
+        row["max_abs_err"] = max(row[f"{k}_max_abs_err"]
+                                 for k in ("forward", "d_state", "d_weights"))
+        del grads
+        sb, mb = state.to(torch.bfloat16), m16.to(torch.bfloat16)
+        g = cot.to(torch.bfloat16)
+        fwd = cuda_ms(lambda: TKK.TileConv.apply(sb, w, mb, plan), reps=10)
+        bwd = cuda_ms(lambda: TKK.tile_conv_grad(sb, w, plan.tgt, g, mb), reps=3, warmup=1)
+        hits = float(TKK.tile_subm_plain(
+            mask.float(), plan.tgt, torch.ones((27, 1, 1), device="cuda"),
+            torch.ones((1, 16), device="cuda"), torch.zeros((1, 16), device="cuda"),
+            mask.float(), relu=False).sum())
+        nbytes = 3 * planes * 16 * c * 2 + t1p * 26 * 4 + 27 * c * c * (2 + 4)
+        flops = 2 * 2.0 * hits * c * c
+        bound_ms, bound_by = bound(nbytes, flops)
+        row.update(forward_ms=fwd, backward_ms=bwd, backward_bound_ms=bound_ms,
+                   backward_bound_by=bound_by, hits=hits, bytes=nbytes, flops=flops,
+                   per_step=TILE_CONVS_A_STEP[name])
+        per_stage[name] = (bwd, bound_ms)
+        print("[kernels] " + json.dumps(row), flush=True)
+        if row["forward_n_bad"] or row["d_state_n_bad"] or row["d_weights_n_bad"]:
+            raise AssertionError(f"tile under autograd {name}: beyond {TOL_ABS} + "
+                                 f"{TOL_REL}*|p| of the plain version")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    step = dict(kernel="tile_subm", case="backward a step", per_frame=0, max_abs_err=0.0)
+    for dfs, names in TILE_STEP_STAGES.items():
+        step[f"tile_backward_ms_dfs{dfs}"] = sum(TILE_CONVS_A_STEP[n] * per_stage[n][0]
+                                                for n in names)
+        step[f"tile_backward_bound_ms_dfs{dfs}"] = sum(TILE_CONVS_A_STEP[n] * per_stage[n][1]
+                                                      for n in names)
+        print(f"[kernels] tile backward a training step at dense_from_stage {dfs} (the "
+              f"student's {sum(TILE_CONVS_A_STEP[n] for n in names)} tile convs): "
+              f"{step[f'tile_backward_ms_dfs{dfs}']:.3f} ms, bound "
+              f"{step[f'tile_backward_bound_ms_dfs{dfs}']:.3f} ms", flush=True)
+    rows.append(step)
+    return rows
+
+
 def phase_kernels():
     """The sparse-conv kernels against their plain versions at the flagship's
     data (after building all four sources); returns per-case rows."""
@@ -963,6 +1067,7 @@ def phase_kernels():
     del model
     rows += _tile_rows(stages, gen)
     rows += _tile_edge_rows(stages, gen)
+    rows += _tile_backward_rows(stages, gen)
     return rows
 
 
@@ -1674,12 +1779,23 @@ def phase_second():
 # plane state, so each of the nine convs from conv2 on sees up to one more
 # bf16 rounding (2^-8 relative) of its input on one side (as SECOND_BEV_TOL)
 ENGINE_WARMUP, ENGINE_STEPS = 1, 3
+_TILE_WEIGHTS = ("backbone.conv_input.conv_0_weight", "backbone.conv1_0.conv1_weight",
+                 "backbone.conv2_down.conv_weight", "backbone.conv2_1.conv2_weight")
 ENGINE_WEIGHTS = {
     "window_dfs2": ("backbone.conv2_down.conv_weight", "backbone.conv2_0.conv1_weight",
                     "backbone.conv2_1.conv2_weight", "backbone.conv3_down.conv_weight"),
     "plane": ("backbone.conv2_down.conv_weight", "backbone.conv2_0.conv1_weight",
               "backbone.conv3_down.conv_weight", "backbone.conv4_1.conv2_weight",
-              "backbone.extra_conv.conv_weight")}
+              "backbone.extra_conv.conv_weight"),
+    "tile": _TILE_WEIGHTS,
+    "tile_dfs99": _TILE_WEIGHTS + ("backbone.conv3_down.conv_weight",
+                                   "backbone.conv4_1.conv2_weight",
+                                   "backbone.extra_conv.conv_weight")}
+# (B1 a sample, B2 a step, B3 a step) of a teacher-student step: the
+# teacher's two streams and the student each run the frame's kernels once
+# (B2 and B3 take the batch flattened)
+ENGINE_LAUNCHES = {"window_dfs2": (3 * 11, 0, 0), "plane": (3 * 6, 3 * 12, 0),
+                   "tile": (0, 0, 3 * 9), "tile_dfs99": (0, 0, 3 * 17)}
 ENGINE_BEV_TOL = 9 * 2.0 ** -8
 
 
@@ -1742,14 +1858,14 @@ def _engine_agreement(batch, settings):
     return res
 
 
-def _engine_steps(tag, settings, batch_size, expected):
+def _engine_steps(tag, settings, batch_size):
     """Teacher-student steps on the engine ``settings`` names, teacher and
     student alike: batch 1 ``ENGINE_WARMUP`` + ``ENGINE_STEPS``, batch 3
-    ``BIG_WARMUP`` + ``BIG_STEPS``; medians by stage, peaks, the B1 and B2
-    launches a step (``expected`` at batch 1 a sample for B1, a batch for
-    B2), every loss finite, a gradient on ``ENGINE_WEIGHTS[tag]``, and every
-    backbone run's counters (the teacher's two streams, the student) within
-    their budgets."""
+    ``BIG_WARMUP`` + ``BIG_STEPS``; medians by stage, peaks, the B1, B2 and
+    B3 launches a step (``ENGINE_LAUNCHES[tag]``: a sample for B1, a batch
+    for B2 and B3), every loss finite, a gradient on ``ENGINE_WEIGHTS[tag]``,
+    and every backbone run's counters (the teacher's two streams, the
+    student) within their budgets."""
     import gc
 
     import torch
@@ -1760,10 +1876,12 @@ def _engine_steps(tag, settings, batch_size, expected):
                                                                            BIG_STEPS)
     batch, trainer = PT.train_setup(batch_size, warmup + steps, backbone=settings)
     rows, metrics = PT.run_steps(trainer, batch, warmup + steps)
-    got = [(r["window_pass_launches"], r["plane_subm_launches"]) for r in rows]
-    want = (expected[0] * batch_size, expected[1])
+    got = [(r["window_pass_launches"], r["plane_subm_launches"], r["tile_subm_launches"])
+           for r in rows]
+    b1, b2, b3 = ENGINE_LAUNCHES[tag]
+    want = (b1 * batch_size, b2, b3)
     if got != [want] * len(rows):
-        raise AssertionError(f"{tag} batch {batch_size}: (B1, B2) launches a step {got}, "
+        raise AssertionError(f"{tag} batch {batch_size}: (B1, B2, B3) launches a step {got}, "
                              f"expected {want}")
     metrics = {k: float(v) for k, v in metrics.items()}
     _check_metrics(f"{tag} batch {batch_size}", metrics)
@@ -1782,33 +1900,37 @@ def _engine_steps(tag, settings, batch_size, expected):
     return res
 
 
-def phase_engines(plane_frame):
+def phase_engines(plane_frame, tile_frame):
     """The flagship's training on the engines past the shipped one: the
-    window engine at ``dense_from_stage=2`` (``DFS2_FRAME_SETTINGS``) and
-    the plane engine at ``FRAME_BUDGETS``, teacher and student alike: the
-    inference frame (phase 4's way; the plane engine's is phase 5's), the
-    teacher-student step at batch 1 and at the recipe's 3
-    (``_engine_steps``), and the student's train-mode BEV against the
+    window engine at ``dense_from_stage=2`` (``DFS2_FRAME_SETTINGS``), the
+    plane engine at ``FRAME_BUDGETS`` and the tile engine at
+    ``TILE_FRAME_BUDGETS`` (``dense_from_stage`` 2 and 99), teacher and
+    student alike: the inference frame (phase 4's way; the plane and tile
+    engines' are phases 5 and 6), the teacher-student step at batch 1 and at
+    the recipe's 3 (the tile engine at ``dense_from_stage`` 99 at batch 1
+    only; ``_engine_steps``), and the student's train-mode BEV against the
     shipped window engine on the same weights (``_engine_agreement``)."""
     from sparse2dense_tpu_torch.tools import profile_train_step as PT
     from sparse2dense_tpu_torch.training.synthetic import make_batch
     from sparse2dense_tpu_torch.utils.config import flagship
 
     res = {}
-    for tag, settings, expected in (
-            ("window_dfs2", PT.engine_settings("window", 2),
-             (3 * EXPECTED_LAUNCHES["window_dfs2"][0], 0)),
-            ("plane", PT.engine_settings("plane"), (3 * EXPECTED_LAUNCHES["plane"][0],
-                                                    3 * EXPECTED_LAUNCHES["plane"][1]))):
-        frame = (phase_main_path("window", overrides=settings, tag=tag)
-                 if tag == "window_dfs2" else plane_frame)
+    for tag, settings, frame, batches in (
+            ("window_dfs2", PT.engine_settings("window", 2), None, (1, BIG_BATCH)),
+            ("plane", PT.engine_settings("plane"), plane_frame, (1, BIG_BATCH)),
+            ("tile", PT.engine_settings("tile"), tile_frame, (1, BIG_BATCH)),
+            ("tile_dfs99", PT.engine_settings("tile", 99), None, (1,))):
+        if tag == "window_dfs2":
+            frame = phase_main_path("window", overrides=settings, tag=tag)
         batch = make_batch(flagship(), 1, max_voxels=150000, n_points=170000, n_obj=32,
                            device="cuda")
         r = dict(settings=settings, frame=frame, agreement=_engine_agreement(batch, settings))
         print(f"[engines] {tag} student in train mode against the shipped engine: "
               + json.dumps(r["agreement"]), flush=True)
+        if tag.startswith("tile") and not r["agreement"]["exact"]:
+            raise AssertionError(f"{tag}: a tile counter is above 0: {r['agreement']}")
         del batch
-        r["steps"] = {b: _engine_steps(tag, settings, b, expected) for b in (1, BIG_BATCH)}
+        r["steps"] = {b: _engine_steps(tag, settings, b) for b in batches}
         res[tag] = r
     return res
 
@@ -1861,8 +1983,56 @@ def phase_agreement():
             raise AssertionError(f"tiny {engine} model disagrees with its CPU run: {worst}")
         if not n_det["cuda"] or not bool(torch.isfinite(dets["cuda"]["box3d_lidar"]).all()):
             raise AssertionError(f"predict on the card gave no finite detections ({engine})")
+    worst["tile_train"] = _tiny_tile_train_agreement()
     worst["ts_step"] = _ts_step_agreement()
     return worst
+
+
+def _tiny_tile_train_agreement():
+    """The tiny tile student's backbone in train mode (B3 under autograd,
+    ``TileConv``) on the card against the same weights and batch on the
+    CPU: its BEV and the gradient of sum(BEV^2) on every backbone weight,
+    each within ``TINY_TOL["tile"]`` of the largest CPU value (float32 tile
+    convs on both sides)."""
+    import torch
+
+    from sparse2dense_tpu_torch.models import build_detector
+    from sparse2dense_tpu_torch.ops import tile_block_kernel as TBK
+    from sparse2dense_tpu_torch.training.synthetic import make_batch
+    from sparse2dense_tpu_torch.utils.config import ConfigDict
+
+    cfg = ConfigDict.fromfile(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                           "configs", "tests", "distill_tiny.py"))
+    cfg["S_model"]["backbone"].update(TINY_ENGINES["tile"])
+    bevs, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = build_detector(cfg["S_model"], test_cfg=cfg["test_cfg"],
+                               voxel_generator=cfg["voxel_generator"], device=dev,
+                               generator=torch.Generator().manual_seed(3))
+        model.train()
+        batch = make_batch(cfg, 1, max_voxels=512, n_points=3000, n_obj=6, device=dev)
+        TBK.launches = 0
+        feats = model.reader(batch["voxels"], batch["num_points"])
+        bev, _, tele = model.backbone(feats, batch["coordinates"])
+        bev.float().square().sum().backward()
+        if dev == "cuda" and TBK.launches != 9:
+            raise AssertionError(f"tiny tile train: {TBK.launches} B3 launches, expected 9")
+        if any(int(v[0].max()) for v in tele.values()):
+            raise AssertionError(f"tiny tile train: counters above 0: {tele}")
+        bevs[dev] = bev.detach().float().cpu()
+        grads[dev] = {n: p.grad.cpu() for n, p in model.backbone.named_parameters()
+                      if p.grad is not None}
+    ref = grads["cpu"]
+    errs = dict(bev=float((bevs["cuda"] - bevs["cpu"]).abs().max()
+                          / bevs["cpu"].abs().max()),
+                gradients=max(float((grads["cuda"][n] - g).abs().max()) for n, g in ref.items())
+                / max(float(g.abs().max()) for g in ref.values()))
+    print(f"[agreement] tiny tile backbone in train mode, cuda vs cpu: max |diff| / max "
+          f"|ref| {json.dumps(errs)}; {len(ref)} gradients", flush=True)
+    if sorted(grads["cuda"]) != sorted(ref) or max(errs.values()) > TINY_TOL["tile"]:
+        raise AssertionError(f"tiny tile backbone in train mode disagrees with its CPU run: "
+                             f"{errs} > {TINY_TOL['tile']}")
+    return max(errs.values())
 
 
 @contextlib.contextmanager
@@ -1983,7 +2153,7 @@ def main() -> int:
     train = phase_train()
     cli = phase_cli()
     second = phase_second()
-    engines = phase_engines(plane)
+    engines = phase_engines(plane, tile)
     with no_tf32():
         phase_agreement()
 
@@ -1995,15 +2165,17 @@ def main() -> int:
                 "second": second["frame"]["launches"], "second_train": second["train_launches"],
                 "second_cli": second["cli"]["launches"]}
     b2_paths = {"plane": plane["launches"]["plane_subm"]}
+    b3_paths = {"tile": tile["launches"]["tile_subm"]}
     for tag, r in engines.items():
         if tag == "window_dfs2":
             b1_paths[tag] = r["frame"]["launches"]["window_pass"]
         for b, st in r["steps"].items():
             key = f"{tag}_train" + ("" if b == 1 else f"_batch{b}")
-            b1_paths[key] = st["launches"][0]
-            if tag == "plane":
-                b2_paths[key] = st["launches"][1]
+            for paths, n in zip((b1_paths, b2_paths, b3_paths), st["launches"]):
+                if n:
+                    paths[key] = n
     b2_bwd = [r for r in prows if "plane_backward_ms" in r][0]
+    b3_bwd = [r for r in trows if "tile_backward_ms_dfs2" in r][0]
     record = {"kernels": [
         dict(_record("window_pass", "sparse2dense_tpu_torch/csrc/window_pass.cu",
                      "sparse2dense_tpu/ops/pallas/window_kernel.py:69",
@@ -2014,9 +2186,10 @@ def main() -> int:
                      sum(b2_paths.values()), prows), launches_by_path=b2_paths,
              backward_ms_per_step=b2_bwd["plane_backward_ms"],
              backward_bound_ms_per_step=b2_bwd["plane_backward_bound_ms"]),
-        _record("tile_subm", "sparse2dense_tpu_torch/csrc/tile_subm.cu",
-                "sparse2dense_tpu/ops/pallas/tile_block_kernel.py:156",
-                tile["launches"]["tile_subm"], trows),
+        dict(_record("tile_subm", "sparse2dense_tpu_torch/csrc/tile_subm.cu",
+                     "sparse2dense_tpu/ops/pallas/tile_block_kernel.py:156",
+                     sum(b3_paths.values()), trows), launches_by_path=b3_paths,
+             **{k: v for k, v in b3_bwd.items() if k.startswith("tile_backward")}),
     ] + [_probe_record(row) for row in probe_rows]}
     for name, krows in zip(("window_pass", "plane_subm", "tile_subm"), (wrows, prows, trows)):
         frame = [r for r in krows if r["per_frame"]]
@@ -2045,16 +2218,20 @@ def main() -> int:
           f"{record['kernels'][0]['dfs2_frame']['ms']:.4f} ms, L2-cold "
           f"{record['kernels'][0]['dfs2_frame']['cold_ms']:.4f} ms; plane backward a training "
           f"step {b2_bwd['plane_backward_ms']:.3f} ms (bound "
-          f"{b2_bwd['plane_backward_bound_ms']:.3f})", flush=True)
+          f"{b2_bwd['plane_backward_bound_ms']:.3f}); tile backward a training step "
+          f"{b3_bwd['tile_backward_ms_dfs2']:.3f} ms at dense_from_stage 2 (bound "
+          f"{b3_bwd['tile_backward_bound_ms_dfs2']:.3f}), {b3_bwd['tile_backward_ms_dfs99']:.3f} "
+          f"ms at 99 (bound {b3_bwd['tile_backward_bound_ms_dfs99']:.3f})", flush=True)
     for tag, r in engines.items():
-        print(f"[engines] {tag}: frame median {r['frame']['frame_ms_median']:.1f} ms; student "
-              f"train-mode BEV against the shipped engine {r['agreement']['rel_to_max']:.3e} "
-              f"of its largest value ({'judged' if r['agreement']['exact'] else 'not judged'})",
-              flush=True)
+        frame = (f"frame median {r['frame']['frame_ms_median']:.1f} ms" if r["frame"] else
+                 "no frame")
+        print(f"[engines] {tag}: {frame}; student train-mode BEV against the shipped engine "
+              f"{r['agreement']['rel_to_max']:.3e} of its largest value "
+              f"({'judged' if r['agreement']['exact'] else 'not judged'})", flush=True)
         for b, t in r["steps"].items():
             print(f"[engines] {tag} teacher-student step, batch {b}: median {t['step_ms']:.1f} "
                   f"ms ({', '.join(f'{k} {v:.1f}' for k, v in t['stages_ms'].items())}); peak "
-                  f"{t['peak_mem_gb']:.2f} GiB; (B1, B2) launches a step "
+                  f"{t['peak_mem_gb']:.2f} GiB; (B1, B2, B3) launches a step "
                   f"{t['launches_per_step'][0]}", flush=True)
     print(f"[cli] dense teacher -> load_from -> distil at batch {BIG_BATCH} -> resume: "
           f"{cli['seconds']:.1f} s; distillation steps (time hook) median "

@@ -14,11 +14,11 @@ z-decomposed TPU convs compute. With ``engine="plane"``, conv2 to conv4 run as
 fused submanifold convs over the occupied (by, bx, z) planes of 4x4 BEV tiles
 (``ops/plane_conv.py``; the conv is the hand-written CUDA kernel on the
 card), and the strided transitions and ``extra_conv`` in the chunk-planes
-layout (``ops/tile_planes.py``). With ``engine="tile"`` (``tile_backend=
-"pallas"``), every stage before ``dense_from_stage`` runs on z-chunked 4x4
-BEV tiles: the subm convs as fused tile convs (``ops/tile_kernel.py``; the
-conv is the hand-written CUDA kernel on the card), the strided convs in the
-chunk-planes layout; the rest is dense. Rows are (B, V, C); dense tensors
+layout (``ops/tile_planes.py``). With ``engine="tile"``, every stage before
+``dense_from_stage`` runs on z-chunked 4x4 BEV tiles: the subm convs as
+fused tile convs (``ops/tile_kernel.py``; the conv is the hand-written CUDA
+kernel on the card; in training under autograd, ``TileConv``), the strided
+convs in the chunk-planes layout; the rest is dense. Rows are (B, V, C); dense tensors
 are NCDHW with a (B, 1, D, H, W) occupancy mask; plane state is (B * T1p,
 16C), tile state (tz, B * T1p, 16C). 3D conv weights are stored as Conv3d
 weights (Cout, Cin, kz, ky, kx) in every stage, so the names and shapes of
@@ -291,12 +291,14 @@ class PlaneKBlock(nn.Module):
     the occupancy mask fold into the conv's epilogue. In training each conv
     is the masked linear conv under autograd (``plane_conv.pk_subm_conv_train``:
     the kernel forward, a plain VJP backward over ``plan.nbr``), followed by
-    the bias, masked BatchNorm over (T, 16 cells, C) with batch statistics,
-    a cast to the state's dtype and ReLU times the mask, in the reference's
-    order."""
+    the bias, masked BatchNorm over (..., 16 cells, C) with batch
+    statistics, a cast to the state's dtype and ReLU times the mask, in the
+    reference's order."""
 
     engine = "plane"
     conv = staticmethod(PK.pk_subm_conv)
+    conv_train = staticmethod(PK.pk_subm_conv_train)
+    remat_epilogue = False
 
     def __init__(self, cin: int, planes: int):
         super().__init__()
@@ -323,35 +325,53 @@ class PlaneKBlock(nn.Module):
                          residual=state, relu=True)
 
     def _train_forward(self, state, mask, mask16, plan):
-        t, p = state.shape[0], self.planes
-        cells = mask.reshape(t, 16, 1)
+        cells = mask.reshape(*state.shape[:-1], 16, 1)
 
-        def bn(x, bias, norm):
-            x = x + bias.repeat(16).to(x.dtype)
-            return norm(x.reshape(t, 16, p), mask=cells).reshape(t, 16 * p).to(state.dtype)
+        def epilogue(x, bias, norm, residual=None):
+            x = _masked_bn(x + bias.repeat(16).to(x.dtype), norm, cells, self.planes)
+            return F.relu(x if residual is None else x + residual) * mask16
 
-        out = PK.pk_subm_conv_train(state, plan, _taps(self.conv1_weight), mask16)
-        out = F.relu(bn(out, self.conv1_bias, self.bn1)) * mask16
-        out = PK.pk_subm_conv_train(out, plan, _taps(self.conv2_weight), mask16)
-        return F.relu(bn(out, self.conv2_bias, self.bn2) + state) * mask16
+        post = partial(_remat_epilogue, epilogue) if self.remat_epilogue else epilogue
+        out = self.conv_train(state, plan, _taps(self.conv1_weight), mask16)
+        out = post(out, self.conv1_bias, self.bn1)
+        out = self.conv_train(out, plan, _taps(self.conv2_weight), mask16)
+        return post(out, self.conv2_bias, self.bn2, state)
+
+
+def _masked_bn(x, norm, cells, c):
+    """BatchNorm ``norm`` over (..., 16 cells, c) of the cells ``cells``
+    marks, on state rows (..., 16c), in the state's dtype."""
+    lead = x.shape[:-1]
+    return norm(x.reshape(*lead, 16, c), mask=cells).reshape(*lead, 16 * c).to(x.dtype)
+
+
+def _remat_epilogue(fn, *args):
+    """``fn(*args)``, a train-mode epilogue (bias, BatchNorm, residual, ReLU,
+    mask), rematerialised: its float32 BatchNorm intermediates over the
+    whole tile state are rebuilt in the backward, not kept."""
+    return remat(fn, *args, name="tile epilogue")
 
 
 class TileKBlock(PlaneKBlock):
     """Residual block of two fused tile subm convs on z-major tile state
-    (tz, B * T1p, 16C) (names of DenseBasicBlock); inference only."""
+    (tz, B * T1p, 16C) (names of DenseBasicBlock); in training each conv is
+    ``TileConv`` (``tile_kernel.tk_subm_conv_train``), as the reference's
+    ``TileBasicBlock`` orders it."""
 
     engine = "tile"
     conv = staticmethod(TKK.tk_subm_conv)
-
-    def _train_forward(self, state, mask, mask16, plan):
-        raise NotImplementedError(
-            "TileKBlock runs inference only; the tile engine's training half (the XLA tile "
-            "engine) comes with the training slice")
+    conv_train = staticmethod(TKK.tk_subm_conv_train)
+    # the tile state holds every z plane of a chunk (~6x the live planes at
+    # conv1 of the flagship frame): without this the recipe's batch of 3
+    # does not fit in training
+    remat_epilogue = True
 
 
 class TileKStage(nn.Module):
     """n x [fused tile subm conv (no bias) + BN + ReLU] (names of
-    WinSubMStage); inference only. The weights keep the true input width;
+    WinSubMStage); in training the conv is ``TileConv`` followed by masked
+    BatchNorm with batch statistics and ReLU times the mask (the
+    reference's ``TileSubMStage``). The weights keep the true input width;
     their taps get zero rows for the state's channel padding."""
 
     def __init__(self, cin: int, channels: Sequence[int]):
@@ -359,22 +379,25 @@ class TileKStage(nn.Module):
         self.channels = tuple(channels)
         for i, ch in enumerate(channels):
             setattr(self, f"conv_{i}_weight", _kernel(cin, ch))
-            setattr(self, f"norm_{i}", BatchNorm(ch))
+            setattr(self, f"norm_{i}", BatchNorm(ch, channel_dim=-1))
             cin = ch
 
     def forward(self, state, mask, plan: TKK.TKPlan):
-        if self.training:
-            raise NotImplementedError(
-                "TileKStage runs inference only; the tile engine's training half (the XLA "
-                "tile engine) comes with the training slice")
+        cells = mask.reshape(*state.shape[:-1], 16, 1)
         for i, ch in enumerate(self.channels):
             w = _taps(getattr(self, f"conv_{i}_weight"))
             w = F.pad(w, (0, 0, 0, state.shape[-1] // 16 - w.shape[1]))
             bn = getattr(self, f"norm_{i}")
+            mask16 = TKK.expand_mask(mask, ch).to(state.dtype)
+            if self.training:
+                x = TKK.tk_subm_conv_train(state, plan, w, mask16)
+                state = _remat_epilogue(  # ch bound now: the recompute runs later
+                    lambda x, norm, m16, c=ch: F.relu(_masked_bn(x, norm, cells, c)) * m16,
+                    x, bn, mask16)
+                continue
             sc, sh = PK.fold_epilogue(ch, bn_scale=bn.weight, bn_bias=bn.bias,
                                       bn_mean=bn.running_mean, bn_var=bn.running_var,
                                       eps=bn.eps)
-            mask16 = TKK.expand_mask(mask, ch).to(state.dtype)
             state = TKK.tk_subm_conv(state, plan, w, sc, sh, mask16, relu=True)
         return state
 
@@ -528,12 +551,17 @@ class SpMiddleResNetFHD(_DenseStages):
     the reference's plane knobs: per-stage z-chunk heights ``tile_tz``, chunk
     budgets ``tile_budgets``, plane budgets ``plane_budgets`` (conv2..conv4)
     and plan windows ``plane_window`` (an int, or per stage an int or a
-    (w0, wy) pair); ``dense_from_stage`` is not read. ``engine="tile"`` with
-    ``tile_backend="pallas"`` (inference only) runs the stages before
-    ``dense_from_stage`` (1 to 4; above 4 also ``extra_conv``) on z-chunked
+    (w0, wy) pair); ``dense_from_stage`` is not read. ``engine="tile"`` runs
+    the stages before ``dense_from_stage`` (above 4 also ``extra_conv``; at
+    0 it densifies the conv1 tiles and every stage is dense) on z-chunked
     4x4 BEV tiles (``tile_size``) of per-stage heights ``tile_tz`` within
-    the tile budgets ``tile_budgets``, with plan windows ``tilek_window`` (an
-    int, or per stage (conv1..conv4) an int or a (w0, wz) pair).
+    the tile budgets ``tile_budgets``. ``tile_backend="xla"`` (the
+    reference's default) reads every tap, in inference and in training;
+    ``"pallas"`` does so in training and, in inference, keeps the plan
+    windows ``tilek_window`` (an int, or per stage (conv1..conv4) an int or
+    a (w0, wz) pair), whose dropped targets ``tilek_miss`` counts, as the
+    reference's fused kernel does. Both run the same modules (in training
+    the tile conv under autograd, ``TileConv``).
 
     In training, the gather and window engines' dense modules
     (``DenseSubMStage``, ``DenseBasicBlock``, ``DenseDownsample``) run
@@ -558,15 +586,8 @@ class SpMiddleResNetFHD(_DenseStages):
             raise NotImplementedError(
                 f"engine={engine!r}: this port runs engine='gather', 'window', 'plane' and "
                 "'tile'; 'column' (the reference's column oracle) comes in a later slice")
-        if engine == "tile" and tile_backend != "pallas":
-            raise NotImplementedError(
-                f"tile_backend={tile_backend!r}: this port runs the tile engine's fused "
-                "inference backend 'pallas'; the trainable XLA tile engine comes with the "
-                "training slice")
-        if engine == "tile" and dfs <= 0:
-            raise NotImplementedError(
-                "dense_from_stage=0 with the tile engine (a dense conv1 fed from the tile "
-                "state) comes in a later slice")
+        if engine == "tile" and tile_backend not in ("xla", "pallas"):
+            raise ValueError(f"tile_backend={tile_backend!r}: 'xla' or 'pallas'")
         if engine == "tile" and tuple(tile_size) != (4, 4):
             raise ValueError(f"the tile kernel needs 4x4 BEV tiles, got {tile_size}")
         if engine == "window" and dfs not in (0, 1, 2):
@@ -581,17 +602,18 @@ class SpMiddleResNetFHD(_DenseStages):
         self.dfs = 1 if engine == "plane" else dfs
         self.wins, self.win_resid_budget = _win_windows(win_window), win_resid_budget
         self.tile_tz, self.tile_budgets = tuple(tile_tz), tuple(tile_budgets)
-        self.tile_wins = _stage_wins(tilek_window, 4)
+        self.tile_backend, self.tile_wins = tile_backend, _stage_wins(tilek_window, 4)
         self.plane_budgets = tuple(plane_budgets)
         self.plane_wins = _stage_wins(plane_window, 3)
         cd = dense_compute_dtype
         cin = num_input_features
         if engine == "tile":
             _check_tile_chain(self.sparse_shape, self.tile_tz)
+        if engine == "tile" and self.dfs > 0:
             self.conv_input = TileKStage(cin, (16,))
             self.conv1_0 = TileKBlock(16, 16)
             self.conv1_1 = TileKBlock(16, 16)
-        elif self.dfs == 0:
+        elif self.dfs <= 0:
             self.conv_input = DenseSubMStage(cin, (16,), compute_dtype=cd)
             self.conv1_0 = DenseBasicBlock(16, 16, compute_dtype=cd)
             self.conv1_1 = DenseBasicBlock(16, 16, compute_dtype=cd)
@@ -818,23 +840,38 @@ class SpMiddleResNetFHD(_DenseStages):
         return dense_to_bev(dense.to(out_dtype).permute(0, 4, 1, 2, 3)), multi_scale, telemetry
 
     def _tile_stage(self, k, state, mask, sets, counts, modules):
-        """Subm convs of stage k on tile state (tz, B * T1p, 16C)."""
-        plan = TKK.make_block_plan_batched(sets, TKK.t1p_of(self.tile_budgets[k]),
-                                           *self.tile_wins[k])
+        """Subm convs of stage k on tile state (tz, B * T1p, 16C). The fused
+        inference backend ("pallas", not training) plans with the stage's
+        windows; otherwise the plan's window is the whole state, so it
+        misses no target (``tilek_miss`` is 0), as the reference's XLA tile
+        path reads every tap."""
+        t1p = TKK.t1p_of(self.tile_budgets[k])
+        windowed = self.tile_backend == "pallas" and not self.training
+        plan = TKK.make_block_plan_batched(sets, t1p,
+                                           *(self.tile_wins[k] if windowed else (t1p, t1p)))
         counts["tilek_miss"] += plan.n_miss
         for mod in modules:
             state = mod(state, mask, plan)
         return state
 
+    def _tile_down(self, down, *args):
+        """``down(*args)``, a strided conv in the chunk-planes layout; in
+        training rematerialised: its patches (conv2_down's hold ~80 million
+        cells of the flagship frame) are gathered again in the backward, not
+        kept."""
+        if self.training and torch.is_grad_enabled():
+            return remat(down, *args, name=type(down).__name__)
+        return down(*args)
+
     def _tile_forward(self, feats, coords, grid, telemetry, multi_scale):
         """Stages before ``dense_from_stage`` on z-chunked tiles: fused subm
         convs on tile state over the batch flattened to (B * T1p) tile rows,
         strided convs (and, past stage 4, ``extra_conv``) in the
-        chunk-planes layout; densify at the transition."""
+        chunk-planes layout; densify at the transition (at 0, the conv1
+        tiles). The dense modules run rematerialised in training, as the
+        window engine's."""
         out_dtype = feats.dtype
         feats = feats.to(self.cd or feats.dtype)
-        if feats.shape[-1] < 16:  # the state's channels are padded to 16
-            feats = F.pad(feats, (0, 16 - feats.shape[-1]))
         b, dev = feats.shape[0], feats.device
         tzs, tbud, dfs = self.tile_tz, self.tile_budgets, self.dfs
         counts = {k: torch.zeros(b, dtype=torch.int32, device=dev)
@@ -852,23 +889,35 @@ class SpMiddleResNetFHD(_DenseStages):
 
         sets = [TLC.build_tile_set(c, grid, 4, 4, tzs[0], tbud[0])[0] for c in coords]
         counts["conv1_tile_drop"] += torch.stack([t.n_drop for t in sets])
-        state, mask = TKK.build_state_batched(feats, coords, sets, grid, 4, 4, tzs[0],
-                                              TKK.t1p_of(tbud[0]))
-        state = self._tile_stage(0, state, mask, sets, counts,
-                                 (self.conv_input, self.conv1_0, self.conv1_1))
-        p, mk = to_planes(state, mask, 0)
-        multi_scale["conv1"] = ((p, mk, sets), grid)
-
         x = dmask = None
+        if dfs <= 0:
+            # the dense conv1 stage sees the input's true channels, so that
+            # conv_input's weights keep the reference's shape
+            p, mk = to_planes(*TKK.build_state_batched(feats, coords, sets, grid, 4, 4, tzs[0],
+                                                       TKK.t1p_of(tbud[0])), 0)
+            x, dmask = densify_tiles(p, mk, sets, grid, tzs[0])
+            x = self._dense(self.conv_input, x, dmask)
+            x = self._dense(self.conv1_1, self._dense(self.conv1_0, x, dmask), dmask)
+            multi_scale["conv1"] = (x, grid)
+        else:
+            if feats.shape[-1] < 16:  # the state's channels are padded to 16
+                feats = F.pad(feats, (0, 16 - feats.shape[-1]))
+            state, mask = TKK.build_state_batched(feats, coords, sets, grid, 4, 4, tzs[0],
+                                                  TKK.t1p_of(tbud[0]))
+            state = self._tile_stage(0, state, mask, sets, counts,
+                                     (self.conv_input, self.conv1_0, self.conv1_1))
+            p, mk = to_planes(state, mask, 0)
+            multi_scale["conv1"] = ((p, mk, sets), grid)
+
         for k, (name, _, stride, pad, ksz) in enumerate(_STAGES, start=1):
             down = getattr(self, f"{name}_down")
             if k <= dfs:
-                p, mk, sets, grid = down(p, mk, sets, grid)
+                p, mk, sets, grid = self._tile_down(down, p, mk, sets, grid)
                 counts["down_drop"] += torch.stack([t.n_drop for t in sets])
                 if k == dfs:
                     x, dmask = densify_tiles(p, mk, sets, grid, tzs[k])
             else:
-                x, dmask = down(x, dmask)
+                x, dmask = self._dense(down, x, dmask)
                 grid = conv_out_grid(grid, stride, pad, ksz)
             blocks = (getattr(self, f"{name}_0"), getattr(self, f"{name}_1"))
             if x is None:
@@ -879,7 +928,7 @@ class SpMiddleResNetFHD(_DenseStages):
                                   mask, k)
                 multi_scale[name] = ((p, mk, sets), grid)
             else:
-                x = blocks[1](blocks[0](x, dmask), dmask)
+                x = self._dense(blocks[1], self._dense(blocks[0], x, dmask), dmask)
                 multi_scale[name] = (x, grid)
         telemetry.update({k: (v, 0) for k, v in counts.items()})
 
@@ -892,7 +941,7 @@ class SpMiddleResNetFHD(_DenseStages):
         else:
             if x is None:
                 x, dmask = densify_tiles(p, mk, sets, grid, tzs[3])
-            x, _ = self.extra_conv(x, dmask)
+            x, _ = self._dense(self.extra_conv, x, dmask)
         return dense_to_bev(x.to(out_dtype)), multi_scale, telemetry
 
 

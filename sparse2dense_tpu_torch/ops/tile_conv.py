@@ -140,14 +140,43 @@ def _z_sources(pzn: int, pz: int, tz: int):
     return [tuple(g) for g in groups]
 
 
+# index entries a chunk of the gather's backward handles at once
+_TAKE_CHUNK = 2 ** 23
+
+
+class _TakeRows(torch.autograd.Function):
+    """``rows[idx]`` whose backward adds each entry's gradient into its row
+    in float32 (``index_add_``) and skips the entries of the zero row. A
+    source row is named a few times (the patches and halos that hold it),
+    the zero row by every absent neighbour of a frame, so leaving it out
+    keeps the adds from queueing on one row; a sorting backward
+    (``F.embedding``'s) costs far more on the tens of millions of entries
+    of a frame's patches."""
+
+    @staticmethod
+    def forward(ctx, rows, idx, zero):
+        ctx.save_for_backward(idx)
+        ctx.rows_shape, ctx.rows_dtype, ctx.zero = rows.shape, rows.dtype, zero
+        return F.embedding(idx, rows, padding_idx=zero)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        g = grad.reshape(flat.shape[0], -1)
+        out = g.new_zeros(ctx.rows_shape, dtype=torch.float32)
+        for i in range(0, flat.shape[0], _TAKE_CHUNK):
+            fi, gi = flat[i:i + _TAKE_CHUNK], g[i:i + _TAKE_CHUNK]
+            named = fi != ctx.zero
+            out.index_add_(0, fi[named], gi[named].float())
+        return out.to(ctx.rows_dtype), None, None
+
+
 def take_rows(rows: torch.Tensor, idx: torch.Tensor, zero: int) -> torch.Tensor:
     """rows[idx] for a (R, D) table whose row ``zero`` is always zero (the
-    index of an absent tile or plane), by ``F.embedding`` with that row as
-    its padding index: the backward sums an index's duplicates in parallel
-    and skips the zero row, where an indexed gather's backward adds
-    duplicates one after another (the absent neighbours of a frame all name
-    the one zero row)."""
-    return F.embedding(idx.long(), rows, padding_idx=zero)
+    index of an absent tile or plane); its backward (:class:`_TakeRows`)
+    adds the gradients in float32 and skips the zero row."""
+    return _TakeRows.apply(rows, idx.long(), zero)
 
 
 def tiles_to_dense(interior: torch.Tensor, ts: TileSet, grid: Sequence[int],

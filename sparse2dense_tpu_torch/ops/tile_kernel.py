@@ -14,12 +14,18 @@ conv leaves that tap out, as the TPU kernel does. The conv itself
 below on the CPU) reads neighbour planes straight from the state by ``tgt``;
 it needs none of the TPU kernel's weight matrices or export arrays. Every
 integer field (plans, states) is bit-exact against the reference.
+
+In training the conv runs under autograd as :class:`TileConv`: the same
+conv forward with an identity epilogue, and the float32 VJP of the plain
+formula backward (:func:`tile_conv_grad`), as the reference's tile training
+is plain differentiable XLA.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from . import tile_conv as TC
 
@@ -223,17 +229,21 @@ def tile_subm_plain(state: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor,
     c, co = c16 // 16, w.shape[2]
     dev = state.device
     sv = torch.cat([state.float().reshape(tz, t1p, 16, c),
-                    state.new_zeros((tz, 1, 16, c), dtype=torch.float32)], 1)
-    tg = tgt.permute(1, 0, 2).reshape(32, t1p).long()
-    tg = torch.where((tg >= 0) & (tg < t1p), tg, t1p)
-    src_rows = torch.cat([tg[:27], torch.arange(t1p, device=dev)[None]])   # (28, T1p)
+                    state.new_zeros((tz, 1, 16, c), dtype=torch.float32)], 1).reshape(-1, c)
+    # only tiles with a live output cell: the mask zeroes every other row
+    live = mask16.reshape(tz, t1p, -1).ne(0).any(2).any(0).nonzero()[:, 0]
+    src_rows = _source_rows(tgt, t1p)[:, live]                          # (28, L)
     wf = w.to(state.dtype).float()
     zsrc, rows, cells = (torch.tensor(a, device=dev) for a in _tap_sources(tz))
-    acc = state.new_zeros((tz, t1p, 16, co), dtype=torch.float32)
+    acc = state.new_zeros((tz * live.shape[0] * 16, co), dtype=torch.float32)
     for k in range(27):
-        r = src_rows[rows[k]].permute(0, 2, 1)                            # (tz, T1p, 16)
-        acc += sv[zsrc[k][:, None, None], r, cells[k][None, None, :]] @ wf[k]
-    y = acc.reshape(tz, t1p, 16 * co) * scale16.float() + shift16.float()
+        r = src_rows[rows[k]].permute(0, 2, 1)                            # (tz, L, 16)
+        # the source cell's row in sv, flat (z, tile, cell)
+        i = (zsrc[k][:, None, None] * (t1p + 1) + r) * 16 + cells[k][None, None, :]
+        acc += sv.index_select(0, i.reshape(-1)) @ wf[k]
+    y = state.new_zeros((tz, t1p, 16 * co), dtype=torch.float32)
+    y[:, live] = acc.reshape(tz, -1, 16 * co)
+    y = y * scale16.float() + shift16.float()
     if residual is not None:
         y = y + residual.float()
     if relu:
@@ -248,3 +258,188 @@ def tk_subm_conv(state, plan: TKPlan, w, scale16, shift16, mask16, residual=None
     from .tile_block_kernel import tile_subm
 
     return tile_subm(state, plan.tgt, w, scale16, shift16, mask16, residual, relu)
+
+
+# ---------------------------------------------------------------------------
+# the trainable tile conv: identity epilogue forward, float32 VJP backward
+# ---------------------------------------------------------------------------
+
+def _source_rows(tgt: torch.Tensor, n: int) -> torch.Tensor:
+    """(28, N) source tile of each plan row of a (N // 128, 32, 128) target
+    block, N (reads zero) where it names none; row 27 is the tile itself."""
+    tg = tgt.permute(1, 0, 2).reshape(32, n).long()
+    tg = torch.where((tg >= 0) & (tg < n), tg, n)
+    return torch.cat([tg[:27], torch.arange(n, device=tgt.device)[None]])
+
+
+def _readers(src: torch.Tensor) -> torch.Tensor:
+    """The transpose of (28, N) source rows (N reads zero): row
+    ``dir_row(-d)`` of tile s names the tile t whose row ``dir_row(d)``
+    names s (N if none). On a plan that misses no target these are the
+    source rows themselves (the tile neighbour relation is symmetric); on a
+    windowed plan they leave out exactly the taps the plan drops."""
+    n = src.shape[1]
+    out = torch.full((28, n + 1), n, dtype=torch.long, device=src.device)
+    ar = torch.arange(n, device=src.device)
+    for dz, dy, dx in _DIR_IDX:
+        # each tile is named at most once a direction; absent ones land in column n
+        out[dir_row(-dz, -dy, -dx)].scatter_(0, src[dir_row(dz, dy, dx)], ar)
+    out[27, :n] = ar
+    return out[:, :n]
+
+
+# the halo of a chunk of n planes (rows, columns) along one axis: for a tile
+# offset (-1, 0 or +1), the planes of the neighbour tile it gives and where
+# they land in the n + 2 of the halo'd tile
+def _halo_axis(n: int):
+    return {-1: (slice(n - 1, n), slice(0, 1)), 0: (slice(0, n), slice(1, n + 1)),
+            1: (slice(0, 1), slice(n + 1, n + 2))}
+
+
+def _tile_halos(x: torch.Tensor, rows: torch.Tensor, z_first: bool = False) -> torch.Tensor:
+    """Halo'd tiles (N, C, tz + 2, 6, 6), or (N, tz + 2, C, 6, 6) with
+    ``z_first``, float32: each tile in the centre, the planes, rows and
+    cells its 26 neighbours give around it (zero where absent). x (tz, N,
+    16, C); rows (28, N) in [0, N] (N reads zero). Each piece is cut once
+    from every tile and gathered by rank."""
+    tz, n, _, c = x.shape
+    xz = torch.cat([x.float(), x.new_zeros((tz, 1, 16, c), dtype=torch.float32)], 1)
+    if z_first:
+        xz = xz.permute(1, 0, 3, 2).reshape(n + 1, tz, c, 4, 4)
+        h = xz.new_empty((n, tz + 2, c, 6, 6))
+    else:
+        xz = xz.permute(1, 3, 0, 2).reshape(n + 1, c, tz, 4, 4)
+        h = xz.new_empty((n, c, tz + 2, 6, 6))
+    at = ((lambda z, y, x_: (slice(None), z, slice(None), y, x_)) if z_first else
+          (lambda z, y, x_: (slice(None), slice(None), z, y, x_)))
+    hz, hy = _halo_axis(tz), _halo_axis(4)
+    for dz, (zs, zd) in hz.items():
+        for dy, (ys, yd) in hy.items():
+            for dx, (xs, xd) in hy.items():
+                if (dz, dy, dx) == (0, 0, 0):
+                    h[at(zd, yd, xd)] = xz[:n]
+                else:
+                    h[at(zd, yd, xd)] = xz[at(zs, ys, xs)].index_select(
+                        0, rows[dir_row(dz, dy, dx)])
+    return h
+
+
+def _halo_conv(x: torch.Tensor, rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The linear tile conv as one VALID 3x3x3 conv over the halo'd tiles,
+    float32: x (tz, N, 16, C), rows (28, N), w (27, C, Co) z-major taps ->
+    (tz, N, 16, Co)."""
+    tz, n, _, c = x.shape
+    co = w.shape[2]
+    wk = w.float().reshape(3, 3, 3, c, co).permute(4, 3, 0, 1, 2)
+    out = F.conv3d(_tile_halos(x, rows), wk)                          # (N, Co, tz, 4, 4)
+    return out.reshape(n, co, tz, 16).permute(2, 0, 3, 1)
+
+
+# the weight gradient's products: live planes a chunk, and planes whose
+# 16 cells a batched product sums at once (its reduction length / 16)
+_GRAD_PLANES, _GRAD_GROUP = 8192, 64
+
+
+def _halo_weight_grad(layers: torch.Tensor, g: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """(27, C, Co) weight gradient of the linear tile conv, float32: for
+    each z tap and each live output plane, the 3x3 patches of its source
+    layer (of the halo'd tiles ``layers`` (L, tz + 2, C, 6, 6))
+    times the plane's gradient (g (tz, L, 16, Co)), summed by batched
+    products over groups of ``_GRAD_GROUP`` planes, a chunk of
+    ``_GRAD_PLANES`` planes at a time (one long product would leave the GPU
+    a single reduction). ``live`` (tz, L): the planes with a live output
+    cell (g is 0 on the others)."""
+    n, tz2, c = layers.shape[:3]
+    tz, co = tz2 - 2, g.shape[3]
+    layers = layers.reshape(n * tz2, c, 6, 6)
+    gflat = g.permute(1, 0, 2, 3).reshape(n * tz, 16, co)
+    lz = live.t().nonzero()                                           # (P, 2): tile, z
+    dw = g.new_zeros((3, c * 9, co))
+    for i in range(0, lz.shape[0], _GRAD_PLANES):
+        t, z = lz[i:i + _GRAD_PLANES].unbind(1)
+        pad = (0, 0, 0, 0, 0, -t.shape[0] % _GRAD_GROUP)             # whole groups
+        gp = F.pad(gflat.index_select(0, t * tz + z), pad).reshape(-1, _GRAD_GROUP * 16, co)
+        for kz in range(3):
+            src = layers.index_select(0, t * tz2 + z + kz)            # (Pc, C, 6, 6)
+            # (Pc, 16 cells, C * 9): a view of the 3x3 windows, copied once
+            # (``F.unfold`` on CUDA launches a kernel a plane)
+            patches = src.unfold(2, 3, 1).unfold(3, 3, 1).permute(0, 2, 3, 1, 4, 5)
+            patches = F.pad(patches.reshape(-1, 16, c * 9), pad)
+            patches = patches.reshape(-1, _GRAD_GROUP * 16, c * 9)
+            dw[kz] += torch.bmm(patches.transpose(1, 2), gp).sum(0)
+    return dw.reshape(3, c, 3, 3, co).permute(0, 2, 3, 1, 4).reshape(27, c, co)
+
+
+def tile_conv_grad(state: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor,
+                   grad: torch.Tensor, mask16: torch.Tensor, need_state: bool = True):
+    """(d state or None, d w) of the linear tile conv over the plan targets
+    ``tgt`` (the plain formula of :func:`tile_subm_plain` with an identity
+    epilogue: the conv and the output mask ``mask16``) for the output
+    gradient ``grad`` (tz, N, 16Co), in float32 (cuDNN's TF32 off). It runs
+    over the tiles with a live output cell and those a target names; every
+    other tile's d state is zero. d w sums the live output planes' source
+    patches times their gradient over the state's halo'd tiles (T, tz + 2,
+    C, 6, 6) (:func:`_halo_weight_grad`); d state is the same conv of the
+    masked gradient with the taps mirrored (tap k reads what tap 26 - k
+    wrote) and transposed (Co x C), one 3x3x3 cuDNN conv over the halos of
+    the plan's readers (:func:`_readers`), with no scatter."""
+    tz, n, c16 = state.shape
+    c, co = c16 // 16, w.shape[2]
+    dev = state.device
+    src = _source_rows(tgt, n)
+    named = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    named[src[:27].reshape(-1)] = True
+    live = mask16.reshape(tz, n, 16, co)[..., 0].ne(0).any(2)          # (tz, N) planes
+    keep = (live.any(0) | named[:n]).nonzero()[:, 0]
+    remap = torch.full((n + 1,), keep.shape[0], dtype=torch.long, device=dev)
+    remap[keep] = torch.arange(keep.shape[0], device=dev)
+    rows = remap[src[:, keep]]                                        # (28, L) in [0, L]
+    g = (grad.float() * mask16.float()).reshape(tz, n, 16, co)[:, keep]
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        h = _tile_halos(state.reshape(tz, n, 16, c)[:, keep], rows, z_first=True)
+        dw = _halo_weight_grad(h, g, live[:, keep]).to(w.dtype)
+        del h
+        if not need_state:
+            return None, dw
+        wt = w.to(state.dtype).float().flip(0).transpose(1, 2)
+        ds = state.new_zeros((tz, n, 16, c))
+        ds[:, keep] = _halo_conv(g, _readers(rows), wt).to(state.dtype)
+        return ds.reshape(tz, n, c16), dw
+
+
+class TileConv(torch.autograd.Function):
+    """The linear tile conv under autograd: ``apply(state (tz, N, 16C), w
+    (27, C, Co) z-major taps, mask16 (tz, N, 16Co), plan)`` -> mask16 *
+    conv(state) in the state's dtype. The forward is
+    ``tile_block_kernel.tile_subm`` with an identity epilogue (scale 1, shift
+    0, no residual, no ReLU): the kernel on CUDA tensors, the plain version
+    on CPU tensors. The backward is the float32 VJP of the plain formula
+    (:func:`tile_conv_grad`) whichever forward ran: gradients to the state
+    and the taps, none to the mask or the plan. No TPU kernel has a
+    backward; the reference's tile training is plain differentiable XLA."""
+
+    @staticmethod
+    def forward(ctx, state, w, mask16, plan: TKPlan):
+        from .tile_block_kernel import tile_subm
+
+        ctx.save_for_backward(state, w, mask16)
+        ctx.tgt = plan.tgt
+        ones = torch.ones((1, 16 * w.shape[2]), dtype=torch.float32, device=state.device)
+        return tile_subm(state, plan.tgt, w, ones, torch.zeros_like(ones), mask16,
+                         residual=None, relu=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        state, w, mask16 = ctx.saved_tensors
+        ds, dw = tile_conv_grad(state, w, ctx.tgt, grad, mask16,
+                                need_state=ctx.needs_input_grad[0])
+        return ds, dw, None, None
+
+
+def tk_subm_conv_train(state, plan: TKPlan, w, mask16) -> torch.Tensor:
+    """Trainable tile subm conv: the masked linear conv only (the caller
+    adds the bias, train-mode BatchNorm, ReLU and residual), w (27, C, Co)
+    z-major taps (:class:`TileConv`)."""
+    return TileConv.apply(state, w, mask16, plan)

@@ -3,7 +3,7 @@ time and memory go.
 
     python3 -m sparse2dense_tpu_torch.tools.profile_train_step [--batch 1]
         [--warmup 2] [--steps 4] [--no-remat] [--profile] [--config PATH]
-        [--engine window|plane|gather] [--dense-from-stage N]
+        [--engine window|plane|tile|gather] [--dense-from-stage N]
 
 Builds the flagship's VoxelNet teacher and KD_VoxelNet + S2D_RPN student,
 or the teacher and student of the recipe config ``--config`` names (such as
@@ -11,8 +11,10 @@ the SECOND one, ``configs/waymo_second_3x_distill_interval_5.py``)
 (``engine="window", dense_from_stage=1``, bf16 dense stages; seeded random
 weights: the recipe's teacher checkpoint is not in the repository), with
 ``--engine`` and ``--dense-from-stage`` applied to teacher and student alike
-(``--engine plane`` at ``utils.config.FRAME_BUDGETS``, ``--dense-from-stage
-2`` at ``DFS2_FRAME_SETTINGS``, which the frame needs), a
+(``--engine plane`` at ``utils.config.FRAME_BUDGETS``, ``--engine tile`` at
+``TILE_FRAME_BUDGETS`` with ``tile_backend="pallas"`` and, unless given,
+the reference's ``dense_from_stage`` 2, the window engine's
+``--dense-from-stage 2`` at ``DFS2_FRAME_SETTINGS``: the frame needs them), a
 training batch of ``--batch`` synthetic frames (the bench's frame: 170k
 points, 32 objects, 150k voxels, seeds 0, 1, ...; with the head's
 targets and the distillation streams), and runs ``TS_Trainer.step`` at
@@ -20,8 +22,8 @@ PyTorch's defaults, the student's dense backbone stages rematerialised
 unless ``--no-remat`` is given. Prints one JSON line: each step's stages
 (teacher forward, student forward + losses, backward, optimizer; the device
 synchronised at each boundary), the peak memory of each stage (the peak
-counter reset at each boundary) and window-pass (B1) and plane-conv (B2)
-launches, the medians
+counter reset at each boundary) and window-pass (B1), plane-conv (B2) and
+tile-conv (B3) launches, the medians
 of the timed steps, the last step's metrics and the peak memory. With
 ``--profile``, a second line: a torch.profiler trace of one step (device
 busy time, idle share, launches, the kernels with the most time).
@@ -44,14 +46,18 @@ FRAME = dict(max_voxels=150000, n_points=170000, n_obj=32)
 def engine_settings(engine: str = "window", dense_from_stage=None) -> dict:
     """Backbone overrides of a training run on ``engine`` (the recipe's own
     for "window" with no ``dense_from_stage``): the reference bench's
-    override, for the plane engine at ``FRAME_BUDGETS``, for the window
-    engine at ``dense_from_stage=2`` with ``DFS2_FRAME_SETTINGS`` (the
-    bench's frame needs both)."""
-    from ..utils.config import DFS2_FRAME_SETTINGS, FRAME_BUDGETS
+    override, for the plane engine at ``FRAME_BUDGETS``, for the tile engine
+    (``tile_backend="pallas"``, which trains as "xla" does) at
+    ``TILE_FRAME_BUDGETS`` and the reference's ``dense_from_stage`` 2 unless
+    one is given, for the window engine at ``dense_from_stage=2`` with
+    ``DFS2_FRAME_SETTINGS`` (the bench's frame needs these budgets)."""
+    from ..utils.config import DFS2_FRAME_SETTINGS, FRAME_BUDGETS, TILE_FRAME_BUDGETS
 
     out = {} if engine == "window" else dict(engine=engine)
     if engine == "plane":
         out.update(FRAME_BUDGETS)
+    if engine == "tile":
+        out.update(TILE_FRAME_BUDGETS, tile_backend="pallas", dense_from_stage=2)
     if dense_from_stage is not None:
         out["dense_from_stage"] = dense_from_stage
     if engine == "window" and dense_from_stage == 2:
@@ -88,16 +94,17 @@ def train_setup(batch_size: int, total_steps: int, remat: bool = True, config: s
 def run_steps(trainer, batch, steps: int):
     """``steps`` calls of ``trainer.step``: per step its host-clock ms, the
     ms and the peak GiB of each stage (device synchronised, peak counter
-    read and reset at the boundaries), the step's peak and the B1 and B2
-    launches; and the last step's metrics. Counts launches from 0. A
+    read and reset at the boundaries), the step's peak and the B1, B2 and
+    B3 launches; and the last step's metrics. Counts launches from 0. A
     step that runs out of device memory raises with the stages it finished
     (``stages_ms``, ``stages_peak_gb``) and the peak of the one it did not
     (``failed_peak_gb``) on the error."""
     from ..ops import plane_kernel as PKK
+    from ..ops import tile_block_kernel as TBK
     from ..ops import window_kernel as WK
 
     rows, metrics = [], None
-    WK.launches = PKK.launches = 0
+    WK.launches = PKK.launches = TBK.launches = 0
     for _ in range(steps):
         stages, peaks, clock = {}, {}, [0.0]
 
@@ -109,7 +116,7 @@ def run_steps(trainer, batch, steps: int):
             torch.cuda.reset_peak_memory_stats()
             clock[0] = now
 
-        before, before2 = WK.launches, PKK.launches
+        before, before2, before3 = WK.launches, PKK.launches, TBK.launches
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = clock[0] = time.perf_counter()
@@ -124,7 +131,8 @@ def run_steps(trainer, batch, steps: int):
         rows.append(dict(step_ms=(time.perf_counter() - t0) * 1e3, stages=stages,
                          peak_gb=peaks, step_peak_gb=max(peaks.values()),
                          window_pass_launches=WK.launches - before,
-                         plane_subm_launches=PKK.launches - before2))
+                         plane_subm_launches=PKK.launches - before2,
+                         tile_subm_launches=TBK.launches - before3))
     return rows, metrics
 
 
@@ -152,7 +160,7 @@ def main():
     ap.add_argument("--config", default=None,
                     help="a recipe config whose teacher and student train (default: the "
                          "flagship's)")
-    ap.add_argument("--engine", default="window", choices=("window", "plane", "gather"))
+    ap.add_argument("--engine", default="window", choices=("window", "plane", "tile", "gather"))
     ap.add_argument("--dense-from-stage", dest="dfs", type=int, default=None)
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

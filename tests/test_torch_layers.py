@@ -231,7 +231,7 @@ def test_backbone_dense_from_stage_0():
     jm, tm = jscn.SpMiddleResNetFHD(**kw), tscn.SpMiddleResNetFHD(**kw)
     v = rand_variables(lambda: jm.init(jax.random.PRNGKey(0), feats, coords, False))
     tm = load(tm, v)
-    want = np.asarray(jm.apply(v, feats, coords, False)[0])
+    want = np.asarray(jax.jit(lambda v, f, c: jm.apply(v, f, c, False)[0])(v, feats, coords))
     with torch.no_grad():
         bev, _, telemetry = tm(torch.from_numpy(feats), torch.from_numpy(coords))
     assert telemetry == {}

@@ -71,10 +71,12 @@ def test_other_engines_raise():
     assert isinstance(plane.conv4_1, PlaneKBlock)
     tile = SpMiddleResNetFHD(engine="tile", tile_backend="pallas", **kw)
     assert isinstance(tile.conv2_1, TileKBlock) and not isinstance(tile.conv3_1, TileKBlock)
-    with pytest.raises(NotImplementedError, match="xla"):
-        SpMiddleResNetFHD(engine="tile", **kw)   # the reference's default backend
-    with pytest.raises(NotImplementedError, match="dense_from_stage=0"):
-        SpMiddleResNetFHD(engine="tile", tile_backend="pallas", dense_from_stage=0, **kw)
+    xla = SpMiddleResNetFHD(engine="tile", **kw)   # the reference's default backend
+    assert xla.tile_backend == "xla" and isinstance(xla.conv2_1, TileKBlock)
+    dense_conv1 = SpMiddleResNetFHD(engine="tile", tile_backend="pallas", dense_from_stage=0,
+                                    **kw)
+    assert not isinstance(dense_conv1.conv1_0, TileKBlock)
+    assert dense_conv1.conv_input.conv_0_weight.shape == (16, 5, 3, 3, 3)
     assert SpMiddleResNetFHD(engine="gather", **kw).engine == "gather"
     with pytest.raises(NotImplementedError, match="column"):
         SpMiddleResNetFHD(engine="column", **kw)

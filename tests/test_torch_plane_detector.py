@@ -18,6 +18,7 @@ from sparse2dense_tpu_torch.convert import from_flax
 from sparse2dense_tpu_torch.models import build_detector
 from sparse2dense_tpu_torch.models.backbones.scn import SpMiddleResNetFHD, TileKBlock
 from sparse2dense_tpu_torch.ops import plane_conv as PK
+from sparse2dense_tpu_torch.ops import tile_kernel as TTK
 from sparse2dense_tpu_torch.training.synthetic import make_batch
 from sparse2dense_tpu_torch.utils.config import ConfigDict
 
@@ -98,7 +99,7 @@ def test_plane_parameters_match_the_window_engine(run):
 
 def test_plane_blocks_are_inference_only(run):
     """The plane block trains (batch statistics, a gradient on its weights);
-    the tile block, which shares its code, still runs inference only."""
+    so does the tile block, which shares its code."""
     block = run["tmodel"].backbone.conv2_0
     saved = {k: v.clone() for k, v in block.state_dict().items()}
     block.train()
@@ -119,5 +120,15 @@ def test_plane_blocks_are_inference_only(run):
         block.load_state_dict(saved)
         block.zero_grad(set_to_none=True)
     tile = TileKBlock(32, 32).train()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tile(torch.zeros(4, 128, 512), torch.zeros(4, 128, 16), None)
+    for weight in (tile.conv1_weight, tile.conv2_weight):
+        torch.nn.init.normal_(weight, std=0.05, generator=torch.Generator().manual_seed(2))
+    tmask = torch.zeros(4, 128, 16)
+    tmask[:, :2, 0] = 1
+    tstate = (torch.randn(4, 128, 512) * tmask.repeat_interleave(32, -1)).requires_grad_(True)
+    tplan = TTK.TKPlan(torch.zeros(1, 9, dtype=torch.int32),
+                       torch.full((1, 32, 128), TTK.SENTINEL, dtype=torch.int32),
+                       torch.zeros((), dtype=torch.int32))
+    tout = tile(tstate, tmask, tplan)
+    tout.sum().backward()
+    assert tout.shape == (4, 128, 512) and tile.conv2_weight.grad.abs().max() > 0
+    assert float(tile.bn2.running_mean.abs().max()) > 0

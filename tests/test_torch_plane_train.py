@@ -34,6 +34,7 @@ from sparse2dense_tpu_torch.models import build_detector
 from sparse2dense_tpu_torch.models.backbones.scn import (PlaneKBlock, SpMiddleResNetFHD,
                                                          TileKBlock, TileKStage)
 from sparse2dense_tpu_torch.ops import plane_conv as TPK
+from sparse2dense_tpu_torch.ops import tile_kernel as TTK
 from sparse2dense_tpu_torch.solver.optim import OneCycleAdam
 from sparse2dense_tpu_torch.training.synthetic import make_batch
 from sparse2dense_tpu_torch.training.trainer import TS_Trainer
@@ -128,10 +129,14 @@ def test_plane_conv_backward_matches_jax_vjp_and_autograd(conv_case, co):
     mask16 = TPK.expand_mask(conv_case["mask"], co)
     g = rng.randn(n, 16 * co).astype(np.float32)
 
-    jout, vjp = jax.vjp(lambda s, wt: JPK.plane_subm_reference(s, conv_case["jnbr"], wt,
-                                                               jnp.asarray(mask16.numpy())),
-                        jnp.asarray(state.numpy()), jnp.asarray(w))
-    jds, jdw = (np.asarray(x) for x in vjp(jnp.asarray(g)))
+    def out_and_vjp(s, wt, m, cot):
+        out, vjp = jax.vjp(lambda s_, w_: JPK.plane_subm_reference(s_, conv_case["jnbr"], w_, m),
+                           s, wt)
+        return (out,) + vjp(cot)
+
+    jout, jds, jdw = (np.asarray(x) for x in jax.jit(out_and_vjp)(
+        jnp.asarray(state.numpy()), jnp.asarray(w), jnp.asarray(mask16.numpy()),
+        jnp.asarray(g)))
 
     grads = {}
     for name in ("function", "plain"):
@@ -170,7 +175,8 @@ def test_plane_conv_needs_the_neighbour_table(conv_case):
 
 def test_plane_block_trains_and_the_tile_blocks_do_not(conv_case):
     """Train-mode PlaneKBlock: batch statistics, a gradient on every weight;
-    TileKBlock and TileKStage still raise in training."""
+    TileKBlock and TileKStage train too (an output, a weight gradient and
+    moved BN statistics)."""
     torch.manual_seed(0)
     block = PlaneKBlock(16, 16).train()
     for name in ("conv1_weight", "conv2_weight"):
@@ -183,10 +189,22 @@ def test_plane_block_trains_and_the_tile_blocks_do_not(conv_case):
     assert float(block.bn1.running_mean.abs().max()) > 0
     for name, p in block.named_parameters():
         assert p.grad is not None and float(p.grad.abs().max()) > 0, name
-    for mod, args in ((TileKBlock(16, 16), (torch.zeros(4, 128, 256),) * 2 + (None,)),
-                      (TileKStage(16, (16,)), (torch.zeros(4, 128, 256),) * 2 + (None,))):
-        with pytest.raises(NotImplementedError, match="training slice"):
-            mod.train()(*args)
+    tmask = (torch.rand(4, 128, 16, generator=torch.Generator().manual_seed(1)) < 0.3).float()
+    tstate = torch.randn(4, 128, 256) * tmask.repeat_interleave(16, -1)
+    tplan = TTK.TKPlan(torch.zeros(1, 9, dtype=torch.int32),
+                       torch.full((1, 32, 128), TTK.SENTINEL, dtype=torch.int32),
+                       torch.zeros((), dtype=torch.int32))
+    for mod in (TileKBlock(16, 16), TileKStage(16, (16,))):
+        mod.train()
+        convs = [p for p in mod.parameters() if p.dim() == 5]
+        for weight in convs:
+            torch.nn.init.normal_(weight, std=0.05)
+        out = mod(tstate.clone().requires_grad_(True), tmask, tplan)
+        out.square().sum().backward()
+        assert out.shape == tstate.shape
+        assert all(float(weight.grad.abs().max()) > 0 for weight in convs)
+        stats = [b for n, b in mod.named_buffers() if n.endswith("running_mean")]
+        assert float(stats[0].abs().max()) > 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,14 @@
 """The tile-engine slice end to end against JAX: distill_tiny's KD_VoxelNet
-student with ``engine="tile", tile_backend="pallas"`` at the reference
-bench's ``dense_from_stage=2`` (conv1 and conv2 as fused tile convs, the
-conv2_down and conv3_down strided convs in the chunk-planes layout, dense
-from conv3; float32) on the same synthetic frame and the same (seeded
-random) weights. The budgets cover the whole key space of every stage and
-the plan window covers every tile, so no tile drops and no tap is missed:
-the reference is exact. JAX runs init shapes, apply and predict once for
-the module (its tile kernel in interpret mode)."""
+student with ``engine="tile"`` and the reference's default backend
+``tile_backend="xla"`` at the reference bench's ``dense_from_stage=2``
+(conv1 and conv2 as tile convs, the conv2_down and conv3_down strided convs
+in the chunk-planes layout, dense from conv3; float32) on the same
+synthetic frame and the same (seeded random) weights. The budgets cover the
+whole key space of every stage, so no tile drops and no tap is missed: the
+reference is exact. JAX runs init shapes, apply and predict once for the
+module. The fused backend (``"pallas"``, the reference's tile kernel in
+interpret mode) is held against JAX at every stage by
+``tests/test_torch_tile_backbone.py``."""
 import numpy as np
 import pytest
 
@@ -28,7 +30,7 @@ CFG = "configs/tests/distill_tiny.py"
 FRAME = dict(max_voxels=512, n_points=3000, n_obj=6, seed=0)
 # grid (41, 32, 32): chunk tiles of tz 8 / 4 / 2 / 6 on the conv1..conv4
 # grids (41, 32, 32), (21, 16, 16), (11, 8, 8), (5, 4, 4) -> 384, 96, 24, 1 keys
-ENGINE = dict(engine="tile", tile_backend="pallas", dense_from_stage=2,
+ENGINE = dict(engine="tile", tile_backend="xla", dense_from_stage=2,
               dense_compute_dtype=None, tile_budgets=(384, 96, 24, 4), tilek_window=10 ** 6)
 TOL = dict(rtol=1e-4, atol=1e-4)
 COUNTERS = ("conv1_tile_drop", "tilek_miss", "down_drop")
@@ -108,11 +110,26 @@ def test_tile_parameters_match_the_window_engine(run):
 
 
 def test_tile_blocks_are_inference_only(run):
+    """The tile block of the detector trains: batch statistics and a
+    gradient on its weights (its state restored after)."""
+    from sparse2dense_tpu_torch.ops import tile_conv as TTC
+    from sparse2dense_tpu_torch.ops import tile_kernel as TTK
+
     block = run["tmodel"].backbone.conv2_0
     assert isinstance(block, TileKBlock)
+    saved = {k: v.clone() for k, v in block.state_dict().items()}
     block.train()
     try:
-        with pytest.raises(NotImplementedError, match="training slice"):
-            block(torch.zeros(4, 128, 512), torch.zeros(4, 128, 16), None)
+        coords = torch.tensor([[0, 0, 0], [0, 0, 1], [1, 0, 4], [5, 9, 9]])
+        sets = [TTC.build_tile_set(coords, (8, 16, 16), 4, 4, 4, 10)[0]]
+        plan = TTK.make_block_plan_batched(sets, 128, 128, 128)
+        state, mask = TTK.build_state_batched(torch.randn(1, 4, 32), coords[None], sets,
+                                              (8, 16, 16), 4, 4, 4, 128)
+        out = block(state.requires_grad_(True), mask, plan)
+        out.sum().backward()
+        assert out.shape == (4, 128, 512) and block.conv1_weight.grad.abs().max() > 0
+        assert not torch.equal(block.bn1.running_mean, saved["bn1.running_mean"])
     finally:
         block.eval()
+        block.load_state_dict(saved)
+        block.zero_grad(set_to_none=True)

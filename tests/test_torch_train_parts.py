@@ -155,7 +155,7 @@ def test_s2d_rpn_train_pcr_generators():
     jm, tm = js2d.S2D_RPN(**NECK), ts2d.S2D_RPN(**NECK)
     v = rand_variables(lambda: jm.init(jax.random.PRNGKey(0), x, True))
     tm = load(tm, v).train()
-    want, mutated = jm.apply(v, x, True, mutable=["batch_stats"])
+    want, mutated = jax.jit(lambda v, x: jm.apply(v, x, True, mutable=["batch_stats"]))(v, x)
     with torch.no_grad():
         got = tm(t(x))
     assert got[1].shape == (2, 3, 20, 32, 32) and got[4].shape == (2, 1, 10, 16, 16)
@@ -193,7 +193,7 @@ def test_backbone_train_all_dense():
                                  coords, True, mutable=["batch_stats"])
         return jnp.sum(bev * proj), (bev, mut["batch_stats"])
 
-    (_, (want, bs)), grads = jax.value_and_grad(jfun, has_aux=True)(v["params"])
+    (_, (want, bs)), grads = jax.jit(jax.value_and_grad(jfun, has_aux=True))(v["params"])
     bev, _, _ = tm(t(feats), t(coords))
     (bev * t(proj)).sum().backward()
     np.testing.assert_allclose(bev.detach().numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)

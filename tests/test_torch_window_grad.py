@@ -115,7 +115,8 @@ def test_window_conv_grad_matches_jax(case):
                               ksize=ksize)
         return jnp.sum(out * cot)
 
-    jdf, jdw, jdb = jax.grad(jloss, argnums=(0, 1, 2))(jf, jnp.asarray(wz), jnp.asarray(bias))
+    jdf, jdw, jdb = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(jf, jnp.asarray(wz),
+                                                                 jnp.asarray(bias))
     f = tf.clone().requires_grad_(True)
     w5 = torch.from_numpy(w).requires_grad_(True)
     b = torch.from_numpy(bias).requires_grad_(True)
