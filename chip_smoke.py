@@ -159,7 +159,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    student's 9 under autograd, the teacher's two streams' 18) and 99 (batch
    1; 51 B3 launches: B3 at all four widths under autograd, and
    ``TileZConv``); its counters must be 0;
-11. agreement: the tiny distillation model on the card against the same model
+11. pp: the pillar recipe (``configs/waymo_centerpoint_pp_two_pfn_stride1_3x_*``:
+   PointPillars teacher, KD_PointPillars student with the S2D scatter, the
+   "pp" distillation branch) at full width (468x468 grid, PFN [64, 64], RPN
+   [3, 5, 5] x [64, 128, 256]) on the bench's cloud voxelized by the
+   recipe's pillar generator: the frame's pillars kept and dropped at the
+   train (32,000) and test (60,000) budgets; the teacher's and the
+   student's inference frames at the test budget (3 warm-up, 8 timed;
+   finite maps and detections); the teacher-student step at batch 1 (1 + 3)
+   and the recipe's 3 (1 + 2) at the train budget: medians by stage, peaks,
+   every loss finite, ``grad_norm`` > 0, a gradient on the pillar net, the
+   S2D scatter's encoder and PCR generator, the neck and the head; the tiny
+   pp step on the card against the CPU (``PP_TINY_TOL``); the CLI chain of
+   phase 8 for the two pillar configs (distillation at batch 3). No B1, B2
+   or B3 launch on any of these paths;
+12. agreement: the tiny distillation model on the card against the same model
    on the CPU (plain versions only), window, plane and tile engines; the
    tiny tile backbone's train-mode forward and backward on the card (B3
    under autograd) against the CPU: BEV and every gradient within
@@ -170,9 +184,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    each window-engine conv weight's gradient within 2e-2 (the tiny step is
    ill-conditioned: ``_ts_step_agreement`` says how much).
 
-TF32 is switched off for cuDNN and matmuls in phases 2, 11 and the gather
-comparison of 9, which compare against float32 plain versions; the rest of
-phases 3 to 10 run at PyTorch's defaults
+TF32 is switched off for cuDNN and matmuls in phases 2, 12, the gather
+comparison of 9 and the tiny step of 11, which compare against float32
+plain versions or the CPU; the rest of phases 3 to 11 run at PyTorch's
+defaults
 (TF32 on in cuDNN convs, off in matmuls). With TF32 off cuDNN picks an FFT
 algorithm for the neck's 3x3 convs that costs ~200 ms a frame on an H100
 (``sparse2dense_tpu_torch/tools/profile_flagship.py``). The second-to-last
@@ -1464,7 +1479,8 @@ def phase_cli(recipe="flagship"):
     (``--load_from``) and trains 1 epoch of 5 steps at the config's batch
     (the flagship's 3, SECOND's 4); a run with ``--resume_from latest
     --epochs 1`` restores the model, BN buffers and optimizer exactly and
-    takes no step; ``--epochs 2`` takes the second epoch's steps."""
+    takes no step; ``--epochs 2`` takes the second epoch's steps. The
+    pillar recipe ("pp", batch 3) must launch none of B1, B2, B3."""
     import gc
     import tempfile
 
@@ -1473,11 +1489,11 @@ def phase_cli(recipe="flagship"):
     from sparse2dense_tpu_torch.ops import window_kernel as WK
     from sparse2dense_tpu_torch.tools import train as cli
     from sparse2dense_tpu_torch.training.checkpoint import load_checkpoint
-    from sparse2dense_tpu_torch.utils.config import (DENSE_TEACHER, FLAGSHIP, SECOND,
-                                                     SECOND_DENSE, ConfigDict)
+    from sparse2dense_tpu_torch.utils.config import (DENSE_TEACHER, FLAGSHIP, PP, PP_DENSE,
+                                                     SECOND, SECOND_DENSE, ConfigDict)
 
-    dense_cfg, distil_cfg = ((DENSE_TEACHER, FLAGSHIP) if recipe == "flagship" else
-                             (SECOND_DENSE, SECOND))
+    dense_cfg, distil_cfg = {"flagship": (DENSE_TEACHER, FLAGSHIP),
+                             "second": (SECOND_DENSE, SECOND), "pp": (PP_DENSE, PP)}[recipe]
     batch = ConfigDict.fromfile(distil_cfg).data["samples_per_gpu"]
     frames = CLI_STEPS * batch
 
@@ -1487,7 +1503,7 @@ def phase_cli(recipe="flagship"):
         torch.cuda.empty_cache()
 
     res, t0 = {}, time.perf_counter()
-    WK.launches = 0
+    _zero_sparse_launches()
     with tempfile.TemporaryDirectory() as tmp, _LogLines("sparse2dense_tpu_torch") as log:
         dense, distil = os.path.join(tmp, "dense"), os.path.join(tmp, "distill")
         trainer = cli.main([dense_cfg, "--work_dir", dense, "--synthetic", "2",
@@ -1531,8 +1547,10 @@ def phase_cli(recipe="flagship"):
                  "loaded teacher checkpoint", "resumed from"):
         if not any(want in line for line in log):
             raise AssertionError(f"cli: no log line with {want!r}")
+    if recipe == "pp" and any(_sparse_launches()):
+        raise AssertionError(f"cli pp: (B1, B2, B3) launches {_sparse_launches()}")
     res.update(recipe=recipe, batch=batch, launches=WK.launches,
-               seconds=time.perf_counter() - t0,
+               sparse_launches=list(_sparse_launches()), seconds=time.perf_counter() - t0,
                text_log_lines=[line for line in log if line.startswith("epoch [")])
     print(f"[cli] {recipe} " + json.dumps(res), flush=True)
     return res
@@ -1769,6 +1787,259 @@ def phase_second():
     cli = phase_cli("second")
     return dict(frame=frame, agreement=agreement, steps=steps, cli=cli,
                 train_launches=sum(r.get("launches", 0) for r in steps.values()))
+
+
+# the pillar recipe (phase "pp"): the bench's cloud (170k points, 32
+# objects, seed 0) voxelized by the recipe's pillar generator; its eval
+# frames at the test budget of 60,000 pillars, its steps at the train budget
+# of 32,000 (``utils.config.frame_voxels``); the TS step at batch 1 and the
+# recipe's 3; the weights whose gradients must be nonzero: the pillar net,
+# the S2D scatter's encoder and PCR generator, the neck and the head
+PP_FRAME = dict(n_points=170000, n_obj=32)
+PP_BATCHES = (1, 3)
+PP_WEIGHTS = ("reader.pfn_0.linear.weight", "backbone.encoder_1a.conv.weight",
+              "backbone.generator_a.conv.weight", "neck.block_0.down.conv.weight",
+              "bbox_head.task_0.hm_out.weight")
+# the tiny pp pair on the card against the CPU (float32, TF32 off): every
+# metric relative to its CPU value and the whole student gradient relative to
+# its largest CPU value, as the window engine's tiny step (``TINY_TOL``).
+# The tiny pp step is ill-conditioned (ReLUs, the max over points and the
+# max-pools put kinks within float32 rounding of its data; which kinks a run
+# meets depends on each build's rounding): one float32 rounding step on the
+# student's weights moved one CPU build's gradient by ~1e-3 of its largest
+# value with one point a pillar and by ~0.4 with pp_tiny's 8 point slots
+# (``python -m tests.test_torch_pp`` prints the reference's own spread), so
+# the comparison is judged with one point a pillar and printed with 8; each
+# run also prints each device's own spread beside it
+PP_TINY_TOL = 2e-2
+
+
+def _sparse_launches():
+    """(B1, B2, B3) launch counts."""
+    from sparse2dense_tpu_torch.ops import plane_kernel as PKK
+    from sparse2dense_tpu_torch.ops import tile_block_kernel as TBK
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+
+    return WK.launches, PKK.launches, TBK.launches
+
+
+def _zero_sparse_launches():
+    from sparse2dense_tpu_torch.ops import plane_kernel as PKK
+    from sparse2dense_tpu_torch.ops import tile_block_kernel as TBK
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+
+    WK.launches = PKK.launches = TBK.launches = 0
+
+
+def _pp_frames(cfg, key, batch):
+    """Inference frames of the pp recipe's ``key`` model (teacher "model",
+    student "S_model"), heatmap bias -6 as the flagship's: medians of
+    ``TIMED_FRAMES`` after ``WARMUP_FRAMES``, finite maps and boxes, no
+    sparse-engine launch."""
+    import copy
+
+    import torch
+
+    from sparse2dense_tpu_torch.models import build_detector
+
+    mcfg = copy.deepcopy(cfg[key])
+    mcfg["bbox_head"]["init_bias"] = -6.0
+    model = build_detector(mcfg, test_cfg=cfg["test_cfg"], voxel_generator=cfg["voxel_generator"],
+                           device="cuda", generator=torch.Generator().manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    _zero_sparse_launches()
+    for i in range(WARMUP_FRAMES + TIMED_FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = model(batch)
+            det = model.predict(out)
+        torch.cuda.synchronize()
+        if i >= WARMUP_FRAMES:
+            times.append((time.perf_counter() - t0) * 1e3)
+    launches = _sparse_launches()
+    if any(launches):
+        raise AssertionError(f"pp {key}: (B1, B2, B3) launches {launches} on the pillar path")
+    maps = [v for pd in out["preds"] for v in pd.values()]
+    if not all(bool(torch.isfinite(m).all()) for m in maps):
+        raise AssertionError(f"pp {key}: non-finite head maps")
+    if tuple(maps[0].shape[1:3]) != model.backbone.grid_shape:
+        raise AssertionError(f"pp {key}: head map shape {tuple(maps[0].shape)}")
+    valid = det["valid"]
+    if not bool(torch.isfinite(det["box3d_lidar"][valid]).all()):
+        raise AssertionError(f"pp {key}: non-finite boxes")
+    res = dict(model=type(model).__name__, frame_ms_median=sorted(times)[len(times) // 2],
+               frame_ms_min=min(times), frame_ms_max=max(times), frame_ms=times,
+               sparse_launches=list(launches), detections=int(valid.sum()),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del model, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def _pp_steps(batch_size):
+    """pp teacher-student steps at ``batch_size`` (batch 1: 1 + 3 steps, the
+    recipe's 3: 1 + 2): medians by stage (synchronised) and peaks, every
+    loss finite, grad_norm > 0, a nonzero gradient on ``PP_WEIGHTS``, no
+    sparse-engine launch."""
+    import gc
+
+    import torch
+
+    from sparse2dense_tpu_torch.tools import profile_train_step as PT
+    from sparse2dense_tpu_torch.utils.config import PP
+
+    warmup, steps = (TRAIN_WARMUP, TRAIN_STEPS) if batch_size == 1 else (BIG_WARMUP, BIG_STEPS)
+    batch, trainer = PT.train_setup(batch_size, warmup + steps, config=PP)
+    if trainer.branch != "pp":
+        raise AssertionError(f"pp: the trainer's branch is {trainer.branch!r}")
+    rows, metrics = PT.run_steps(trainer, batch, warmup + steps)
+    launches = [(r["window_pass_launches"], r["plane_subm_launches"], r["tile_subm_launches"])
+                for r in rows]
+    if any(any(n) for n in launches):
+        raise AssertionError(f"pp batch {batch_size}: (B1, B2, B3) launches a step {launches}")
+    metrics = {k: float(v) for k, v in metrics.items()}
+    _check_metrics(f"pp batch {batch_size}", metrics)
+    params = dict(trainer.model.named_parameters())
+    for name in PP_WEIGHTS:
+        g = params[name].grad
+        if g is None or not bool(g.abs().max() > 0):
+            raise AssertionError(f"pp batch {batch_size}: {name} got no gradient")
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    res = dict(PT.summary(rows[warmup:]), batch=batch_size, launches_per_step=launches,
+               metrics=metrics, card_gb=card_gb, steps=rows,
+               pillars=int((batch["num_points"] > 0).sum()))
+    print(f"[pp] train batch {batch_size} " + json.dumps(res), flush=True)
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _pp_tiny_cfg(points):
+    """The tiny pp distillation pair from ``configs/tests/pp_tiny.py``:
+    teacher pp_tiny, student KD_PointPillars with the S2D scatter, both
+    pillar nets ending at 64 channels (the S2D scatter's width), ``points``
+    points a pillar."""
+    import copy
+
+    from sparse2dense_tpu_torch.utils.config import ConfigDict
+
+    cfg = ConfigDict.fromfile(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                           "configs", "tests", "pp_tiny.py"))
+    teacher = cfg["S_model"]
+    teacher["reader"]["num_filters"] = [32, 64]
+    teacher["backbone"]["num_input_features"] = 64
+    teacher["neck"]["num_input_features"] = 64
+    student = copy.deepcopy(teacher)
+    student["type"], student["backbone"]["type"] = "KD_PointPillars", "PointPillarsScatter_S2D"
+    cfg["model"], cfg["S_model"], cfg["distillation"] = teacher, student, True
+    cfg["voxel_generator"]["max_points_in_voxel"] = points
+    return cfg
+
+
+def _pp_tiny_step(cfg, dev, perturb=False):
+    """(metrics, student gradients) of one tiny pp teacher-student step on
+    ``dev``; with ``perturb``, the student's weights times (1 + 2^-23 N(0, 1))."""
+    import torch
+
+    from sparse2dense_tpu_torch.models import build_detector
+    from sparse2dense_tpu_torch.solver.optim import OneCycleAdam
+    from sparse2dense_tpu_torch.training.synthetic import make_batch
+    from sparse2dense_tpu_torch.training.trainer import TS_Trainer
+
+    kw = dict(test_cfg=cfg["test_cfg"], voxel_generator=cfg["voxel_generator"], device=dev)
+    teacher = build_detector(cfg["model"], generator=torch.Generator().manual_seed(4), **kw)
+    student = build_detector(cfg["S_model"], generator=torch.Generator().manual_seed(5), **kw)
+    if perturb:
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for p in student.parameters():
+                p.mul_(1 + 2.0 ** -23 * torch.randn(p.shape, generator=gen).to(p.device))
+    batch = make_batch(cfg, 1, max_voxels=256, n_points=3000, n_obj=6, device=dev,
+                       with_targets=True, distillation=True)
+    opt = OneCycleAdam(student.parameters(), cfg["optimizer"], cfg["lr_config"], 10,
+                       cfg["optimizer_config"]["grad_clip"])
+    step = TS_Trainer(teacher, student, opt, cfg["model"]).step(batch)
+    return ({k: float(v) for k, v in step.items()},
+            {n: p.grad.cpu() for n, p in student.named_parameters() if p.grad is not None})
+
+
+def _pp_tiny_agreement():
+    """One tiny pp teacher-student step on the card against the same step
+    on the CPU (float32 both, TF32 off), and each device's own spread on
+    ulp-perturbed weights: judged within ``PP_TINY_TOL`` with one point a
+    pillar, printed with 8 (see ``PP_TINY_TOL``)."""
+
+    def errs(got, want):
+        (gm, gg), (wm, wg) = got, want
+        top = max(float(g.abs().max()) for g in wg.values())
+        return dict(metrics=max(abs(v - wm[k]) / max(abs(wm[k]), 1e-6) for k, v in gm.items()),
+                    gradients=max(float((gg[n] - g).abs().max()) for n, g in wg.items()) / top,
+                    worst_module=_module_scaled_diff(gg, wg))
+
+    res = {}
+    for points in (1, 8):
+        cfg = _pp_tiny_cfg(points)
+        cuda, cpu = _pp_tiny_step(cfg, "cuda"), _pp_tiny_step(cfg, "cpu")
+        got = errs(cuda, cpu)
+        spread = {dev: errs(_pp_tiny_step(cfg, dev, perturb=True), ref)
+                  for dev, ref in (("cpu", cpu), ("cuda", cuda))}
+        res[f"points_{points}"] = dict(cuda_vs_cpu=got, ulp_spread=spread)
+        judged = points == 1
+        print(f"[pp] tiny teacher-student step, {points} point(s) a pillar, cuda vs cpu: "
+              f"{json.dumps(got)} ({'judged' if judged else 'not judged'}: metrics and "
+              f"gradients within {PP_TINY_TOL}); each device on ulp-perturbed weights "
+              f"against itself: {json.dumps(spread)}", flush=True)
+        if sorted(cuda[1]) != sorted(cpu[1]) or \
+                (judged and max(got["metrics"], got["gradients"]) > PP_TINY_TOL):
+            raise AssertionError(f"tiny pp step disagrees with its CPU run: {got} > "
+                                 f"{PP_TINY_TOL}")
+    return res
+
+
+def phase_pp():
+    """The pillar recipe on the card at full width (468x468, PFN [64, 64],
+    RPN [3, 5, 5] x [64, 128, 256]): the frame's pillars kept and dropped at
+    the train and test budgets; the teacher's (PointPillars) and the
+    student's (KD_PointPillars) inference frames; the "pp" teacher-student
+    step at batch 1 and 3 (``_pp_steps``); the tiny pair on the card against
+    the CPU (``_pp_tiny_agreement``); and the CLI chain
+    (``phase_cli("pp")``). No sparse-engine kernel (B1, B2, B3) may launch
+    on any of these paths: each count is set to 0 just before and read just
+    after."""
+    import math
+
+    import torch
+
+    from sparse2dense_tpu_torch.models.builder import pillar_grid_from_reader_cfg
+    from sparse2dense_tpu_torch.training.synthetic import make_batch
+    from sparse2dense_tpu_torch.utils.config import PP, ConfigDict, frame_voxels
+
+    t0 = time.perf_counter()
+    cfg = ConfigDict.fromfile(PP)
+    grid = math.prod(pillar_grid_from_reader_cfg(cfg["S_model"]["reader"]))
+    every = make_batch(cfg, 1, max_voxels=grid, device="cpu", **PP_FRAME)
+    n_pillars = int((every["num_points"] > 0).sum())
+    del every
+    budgets = {str(b): dict(kept=min(n_pillars, b), dropped=max(n_pillars - b, 0))
+               for b in cfg["voxel_generator"]["max_voxel_num"]}
+    print(f"[pp] the frame's pillars: {n_pillars} occupied of {grid} cells; by budget "
+          f"{json.dumps(budgets)}", flush=True)
+    batch = make_batch(cfg, 1, max_voxels=frame_voxels(cfg, train=False), device="cuda",
+                       **PP_FRAME)
+    frames = {role: _pp_frames(cfg, key, batch)
+              for role, key in (("teacher", "model"), ("student", "S_model"))}
+    print("[pp] frames " + json.dumps(frames), flush=True)
+    del batch
+    torch.cuda.empty_cache()
+    steps = {b: _pp_steps(b) for b in PP_BATCHES}
+    with no_tf32():
+        tiny = _pp_tiny_agreement()
+    cli = phase_cli("pp")
+    return dict(pillars=n_pillars, budgets=budgets, frames=frames, steps=steps, tiny=tiny,
+                cli=cli, seconds=time.perf_counter() - t0)
 
 
 # phase 10: teacher-student steps a run at batch 1 (the recipe's batch 3:
@@ -2154,6 +2425,7 @@ def main() -> int:
     cli = phase_cli()
     second = phase_second()
     engines = phase_engines(plane, tile)
+    pp = phase_pp()
     with no_tf32():
         phase_agreement()
 
@@ -2258,6 +2530,18 @@ def main() -> int:
     print(f"[second] cli: dense teacher -> load_from -> distil at batch {second['cli']['batch']} "
           f"-> resume: {second['cli']['seconds']:.1f} s, peak "
           f"{second['cli']['distill']['peak_gb']:.2f} GiB", flush=True)
+    for role, f in pp["frames"].items():
+        print(f"[pp] {role} ({f['model']}) frame: median {f['frame_ms_median']:.1f} ms, min "
+              f"{f['frame_ms_min']:.1f}, max {f['frame_ms_max']:.1f}; peak "
+              f"{f['peak_mem_gb']:.2f} GiB; {f['detections']} detections", flush=True)
+    for b, t in pp["steps"].items():
+        print(f"[pp] teacher-student step, batch {b} ({t['pillars']} pillars): median "
+              f"{t['step_ms']:.1f} ms ({', '.join(f'{k} {v:.1f}' for k, v in t['stages_ms'].items())}"
+              f"); peak {t['peak_mem_gb']:.2f} GiB (by stage: "
+              f"{', '.join(f'{k} {v:.2f}' for k, v in t['stages_peak_gb'].items())})", flush=True)
+    print(f"[pp] cli: dense teacher -> load_from -> distil at batch {pp['cli']['batch']} -> "
+          f"resume: {pp['cli']['seconds']:.1f} s; phase pp {pp['seconds']:.1f} s; (B1, B2, B3) "
+          f"launches 0 on every pp path", flush=True)
     print(f"[main] chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' build "
           f"included", flush=True)
     print(json.dumps(record))

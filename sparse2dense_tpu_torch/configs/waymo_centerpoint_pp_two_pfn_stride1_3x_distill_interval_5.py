@@ -1,0 +1,73 @@
+# CenterPoint-Pillar on Waymo, the Sparse2Dense distillation: the second
+# stage of the pillar recipe. Copied from the reference zoo entry
+# (sparse2dense_tpu/zoo.py: _pp_model, _centerhead, the assigner, train_cfg,
+# test_cfg, voxel_generator, the data block's batch and _runtime of waymo_pp
+# "distill_interval_5"): the frozen dense teacher PointPillars (model) and
+# the student KD_PointPillars (S_model) with the pillar scatter's S2D
+# densification and PCR generators (PointPillarsScatter_S2D) on a 468x468
+# grid of 0.32 m, the three-level RPN and a CenterHead, trained by the "pp"
+# distillation branch for 30 epochs at samples_per_gpu=3.
+import itertools
+
+tasks = [dict(num_class=3, class_names=["VEHICLE", "PEDESTRIAN", "CYCLIST"])]
+class_names = list(itertools.chain(*[t["class_names"] for t in tasks]))
+target_assigner = dict(tasks=tasks)
+
+
+def _pp(student):
+    return dict(
+        type="KD_PointPillars" if student else "PointPillars",
+        pretrained=None,
+        reader=dict(type="PillarFeatureNet", num_filters=[64, 64], num_input_features=5,
+                    with_distance=False, voxel_size=(0.32, 0.32, 6.0),
+                    pc_range=(-74.88, -74.88, -2, 74.88, 74.88, 4.0)),
+        backbone=dict(type="PointPillarsScatter_S2D" if student else "PointPillarsScatter",
+                      ds_factor=1),
+        neck=dict(type="RPN", layer_nums=[3, 5, 5], ds_layer_strides=[1, 2, 2],
+                  ds_num_filters=[64, 128, 256], us_layer_strides=[1, 2, 4],
+                  us_num_filters=[128, 128, 128], num_input_features=64),
+        bbox_head=dict(type="CenterHead", in_channels=384, tasks=tasks, dataset="waymo",
+                       weight=2, code_weights=[1.0] * 8,
+                       common_heads={"reg": (2, 2), "height": (1, 2), "dim": (3, 2),
+                                     "rot": (2, 2)}),
+    )
+
+
+model = _pp(student=False)
+S_model = _pp(student=True)
+
+assigner = dict(target_assigner=target_assigner, out_size_factor=1, dense_reg=1,
+                gaussian_overlap=0.1, max_objs=500, min_radius=2)
+train_cfg = dict(assigner=assigner)
+
+test_cfg = dict(
+    post_center_limit_range=[-80, -80, -10.0, 80, 80, 10.0],
+    nms=dict(nms_pre_max_size=4096, nms_post_max_size=500, nms_iou_threshold=0.7),
+    score_threshold=0.1, pc_range=[-74.88, -74.88], out_size_factor=1,
+    voxel_size=[0.32, 0.32],
+)
+
+# max_voxel_num: (train, test)
+voxel_generator = dict(range=[-74.88, -74.88, -2, 74.88, 74.88, 4.0],
+                       voxel_size=[0.32, 0.32, 6.0], max_points_in_voxel=20,
+                       max_voxel_num=[32000, 60000], distillation=True)
+
+optimizer_config = dict(grad_clip=dict(max_norm=35, norm_type=2))
+optimizer = dict(type="adam", amsgrad=0.0, wd=0.01, fixed_wd=True, moving_average=False)
+lr_config = dict(type="one_cycle", lr_max=0.003, moms=[0.95, 0.85], div_factor=10.0,
+                 pct_start=0.4)
+# the reference's data block; its dataset entries wait for the data layer
+data = dict(samples_per_gpu=3, workers_per_gpu=4)
+checkpoint_config = dict(interval=1)
+log_config = dict(interval=5, hooks=[dict(type="TextLoggerHook")])
+total_epochs = 30
+log_level = "INFO"
+work_dir = None
+# the recipe loads its dense teacher's last checkpoint,
+# ./work_dirs/waymo_centerpoint_pp_two_pfn_stride1_3x_dense_interval_5/latest.pth
+# in the reference; none is in the repository, so the teacher keeps seeded
+# random weights unless tools/train.py --load_from names one
+load_from = None
+resume_from = None
+workflow = [("train", 1)]
+distillation = True

@@ -25,10 +25,13 @@ import numpy as np
 import torch
 from torch import nn
 
-# train-only PCR generator subtrees of S2D_RPN: the reference creates them
-# only in training, so a tree from an eval-mode init has none of them
-_PCR = {"out_conv", "generator_1a", "generator_1b", "generator_2a", "generator_2b",
-        "gen_out_2", "gen_mask_2", "gen_out_4", "gen_mask_4"}
+# train-only PCR generator subtrees, by the top module that holds them:
+# S2D_RPN's (the neck) and PointPillarsScatter_S2D's (the backbone). The
+# reference creates them only in training, so a tree from an eval-mode init
+# has none of them
+_PCR = {"neck": {"out_conv", "generator_1a", "generator_1b", "generator_2a", "generator_2b",
+                 "gen_out_2", "gen_mask_2", "gen_out_4", "gen_mask_4"},
+        "backbone": {"generator_a", "generator_b", "gen_out", "gen_mask_a", "gen_mask_b"}}
 
 
 def _leaves(tree, path=()):
@@ -43,8 +46,8 @@ def from_flax(variables: Dict[str, dict], model: nn.Module) -> Dict[str, torch.T
     """``variables``: {"params": ..., "batch_stats": ...} nested dicts of
     arrays. ``model`` is the port's twin, read for the target shapes and for
     which kernels belong to transposed convs. Raises on a Flax leaf with no
-    counterpart. S2D_RPN's PCR generators that the tree lacks (an eval-mode
-    init) keep the model's own values."""
+    counterpart. The PCR generators (S2D_RPN's, the pillar S2D scatter's)
+    that the tree lacks (an eval-mode init) keep the model's own values."""
     target = model.state_dict()
     modules = dict(model.named_modules())
     out = {}
@@ -77,6 +80,6 @@ def from_flax(variables: Dict[str, dict], model: nn.Module) -> Dict[str, torch.T
             out[key] = t
     for key, value in target.items():
         parts = key.split(".")
-        if key not in out and parts[0] == "neck" and parts[1] in _PCR:
+        if key not in out and len(parts) > 1 and parts[1] in _PCR.get(parts[0], ()):
             out[key] = value
     return out

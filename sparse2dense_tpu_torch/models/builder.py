@@ -11,20 +11,26 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from .backbones.scatter import PointPillarsScatter, PointPillarsScatter_S2D
 from .backbones.scn import SpMiddleFHD, SpMiddleResNetFHD
-from .detectors.kd import KD_VoxelNet
+from .detectors.kd import KD_PointPillars, KD_VoxelNet
+from .detectors.point_pillars import PointPillars
 from .detectors.voxelnet import VoxelNet
 from .heads.center_head import CenterHead, SepHead
 from .heads.mg_head import MultiGroupHead
 from .necks.rpn import RPN
 from .necks.s2d_rpn import S2D_RPN
-from .readers.pillar_encoder import VoxelFeatureExtractorV3
+from .readers.pillar_encoder import PillarFeatureNet, VoxelFeatureExtractorV3
 
-READERS = {"VoxelFeatureExtractorV3": VoxelFeatureExtractorV3}
-BACKBONES = {"SpMiddleResNetFHD": SpMiddleResNetFHD, "SpMiddleFHD": SpMiddleFHD}
+READERS = {"VoxelFeatureExtractorV3": VoxelFeatureExtractorV3,
+           "PillarFeatureNet": PillarFeatureNet}
+BACKBONES = {"SpMiddleResNetFHD": SpMiddleResNetFHD, "SpMiddleFHD": SpMiddleFHD,
+             "PointPillarsScatter": PointPillarsScatter,
+             "PointPillarsScatter_S2D": PointPillarsScatter_S2D}
 NECKS = {"RPN": RPN, "S2D_RPN": S2D_RPN}
 HEADS = {"CenterHead": CenterHead, "MultiGroupHead": MultiGroupHead}
-DETECTORS = {"KD_VoxelNet": KD_VoxelNet, "VoxelNet": VoxelNet}
+DETECTORS = {"KD_VoxelNet": KD_VoxelNet, "VoxelNet": VoxelNet,
+             "PointPillars": PointPillars, "KD_PointPillars": KD_PointPillars}
 
 
 def _plain(cfg):
@@ -54,6 +60,13 @@ def sparse_shape_from_voxel_cfg(voxel_generator) -> tuple:
     return (int(grid[2]) + 1, int(grid[1]), int(grid[0]))
 
 
+def pillar_grid_from_reader_cfg(reader) -> tuple:
+    """(ny, nx) BEV grid of a pillar scatter from its reader's voxel size
+    and range."""
+    vs, pr = reader["voxel_size"], reader["pc_range"]
+    return (int(round((pr[4] - pr[1]) / vs[1])), int(round((pr[3] - pr[0]) / vs[0])))
+
+
 def _trunc_normal_(t: torch.Tensor, fan_in: int, scale: float, gen: torch.Generator):
     """Flax variance_scaling(scale, "fan_in", "truncated_normal")."""
     std = math.sqrt(scale / fan_in) / 0.87962566103423978
@@ -63,9 +76,9 @@ def _trunc_normal_(t: torch.Tensor, fan_in: int, scale: float, gen: torch.Genera
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """The reference's initialisers, drawn from ``generator``: lecun-normal
-    2D convs (he-normal in the CenterHead), fan-in-uniform 3D conv kernels (the
-    PCR generators' too), zero biases, the heatmap output bias at
-    ``init_bias``, unit BN scales."""
+    2D convs (he-normal in the CenterHead) and linear layers, fan-in-uniform
+    3D conv kernels (the PCR generators' too), zero biases, the heatmap
+    output bias at ``init_bias``, unit BN scales."""
     head_mods = {id(m) for h in model.modules() if isinstance(h, CenterHead)
                  for m in h.modules()}
     for mod in model.modules():
@@ -76,6 +89,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                            2.0 if id(mod) in head_mods else 1.0, generator)
             if mod.bias is not None:
                 mod.bias.zero_()
+        elif isinstance(mod, nn.Linear):
+            _trunc_normal_(mod.weight, mod.weight.shape[1], 1.0, generator)
     for name, p in model.named_parameters():
         if p.dim() == 5:  # 3D conv kernels (Cout, Cin, kz, ky, kx)
             limit = math.sqrt(3.0 / p[0].numel())
@@ -93,12 +108,16 @@ def build_detector(cfg, test_cfg=None, voxel_generator=None, device=None,
     """Build a detector from a reference-schema model config, initialise it
     from ``generator`` (seed 0 if None) and move it to ``device`` (CUDA
     unless given) in eval mode. ``voxel_generator`` (the config's top-level
-    dict) supplies the sparse grid."""
+    dict) supplies the sparse grid; a pillar scatter takes its grid and width
+    from the reader's config."""
     device = resolve_device(device)
     cfg = _plain(dict(cfg))
     bb = cfg.pop("backbone")
     bb.pop("ds_factor", None)
-    if voxel_generator is not None:
+    if bb["type"].startswith("PointPillarsScatter"):
+        bb.setdefault("grid_shape", pillar_grid_from_reader_cfg(cfg["reader"]))
+        bb.setdefault("num_input_features", cfg["reader"].get("num_filters", [64])[-1])
+    elif voxel_generator is not None:
         bb.setdefault("sparse_shape", sparse_shape_from_voxel_cfg(voxel_generator))
     backbone = _build(bb, BACKBONES, "backbone")
     # the neck takes the backbone's BEV width (Flax infers it from the input;
@@ -107,7 +126,7 @@ def build_detector(cfg, test_cfg=None, voxel_generator=None, device=None,
     parts = dict(reader=_build(cfg.pop("reader"), READERS, "reader"), backbone=backbone,
                  neck=_build(neck, NECKS, "neck"),
                  bbox_head=_build(cfg.pop("bbox_head"), HEADS, "head"))
-    if cfg["type"] == "KD_VoxelNet" and voxel_generator is not None:
+    if cfg["type"] in ("KD_VoxelNet", "KD_PointPillars") and voxel_generator is not None:
         cfg.setdefault("pc_range_full", tuple(float(v) for v in voxel_generator["range"]))
     model = _build(cfg, DETECTORS, "detector", test_cfg=_plain(test_cfg), **parts)
     init_weights(model, generator if generator is not None

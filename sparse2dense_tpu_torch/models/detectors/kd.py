@@ -1,12 +1,15 @@
-"""KD_VoxelNet, the Sparse2Dense student (counterpart of
-``sparse2dense_tpu/models/detectors/kd.py:38-238``): reader -> sparse
-backbone -> S2D_RPN -> CenterHead (or SECOND's MultiGroupHead), decode +
-rotated NMS in :meth:`predict`, and its losses. The PCR targets are the
-``reconstruction_*_{2,4}`` voxel streams rasterized as mean-point grids at
-1/2 and 1/4 of the grid (spconv's ``SparseConvTensor.dense()`` of det3d),
-held against the generators' occupancy logits and point offsets. The
-reference computes the same targets and losses z-folded (a TPU layout);
-here they are 5D."""
+"""The Sparse2Dense students (counterpart of
+``sparse2dense_tpu/models/detectors/kd.py:38-313``). KD_VoxelNet: reader ->
+sparse backbone -> S2D_RPN -> CenterHead (or SECOND's MultiGroupHead),
+decode + rotated NMS in :meth:`predict`, and its losses. Its PCR targets
+are the ``reconstruction_*_{2,4}`` voxel streams rasterized as mean-point
+grids at 1/2 and 1/4 of the grid (spconv's ``SparseConvTensor.dense()`` of
+det3d), held against the generators' occupancy logits and point offsets.
+KD_PointPillars: pillar reader -> ``PointPillarsScatter_S2D`` (scatter,
+S2D, and the PCR generators at the full grid, depth 1) -> RPN -> head; its
+PCR target is the ``reconstruction_*`` stream's mean points (the first 5
+features) on that depth-1 grid. The reference computes the same targets
+and losses z-folded (a TPU layout); here they are 5D."""
 from __future__ import annotations
 
 from typing import Any, Optional, Sequence, Tuple
@@ -106,3 +109,27 @@ class KD_VoxelNet(nn.Module):
         if isinstance(self.bbox_head, MultiGroupHead):
             return mg_head_predict(self.bbox_head, preds, example, cfg)
         return center_head_predict(preds, cfg, self.bbox_head.num_classes)
+
+
+class KD_PointPillars(KD_VoxelNet):
+    def forward(self, example):
+        """example: {"voxels" (B, V, P, C), "num_points" (B, V),
+        "coordinates" (B, V, 3)} -> {"preds", "f_s_a", "f_s_b" (NHWC),
+        "gen_offset" (B, 3, 1, H, W), "gen_mask" (B, 1, 1, H, W) (None in
+        eval), "telemetry" (none)}."""
+        coords = example["coordinates"]
+        feats = self.reader(example["voxels"], example["num_points"], coords)
+        f_s_a, f_s_b, gen_offset, gen_mask = self.backbone(feats, coords)
+        return {"preds": self.bbox_head(self.neck(f_s_a)), "f_s_a": f_s_a, "f_s_b": f_s_b,
+                "gen_offset": gen_offset, "gen_mask": gen_mask, "telemetry": {}}
+
+    def pcr_loss(self, out, example):
+        """(mask_loss, offset_loss) on the full grid at depth 1."""
+        offset = out["gen_offset"].permute(0, 2, 3, 4, 1)
+        mask = out["gen_mask"].permute(0, 2, 3, 4, 1)
+        shape = tuple(mask.shape[1:4])
+        gt = rasterize_mean_points(example["reconstruction_voxels"][..., :5],
+                                   example["reconstruction_num_points"],
+                                   example["reconstruction_coordinates"], shape)
+        return mask_offset_loss(offset, mask, gt,
+                                world_grid(shape, self.pc_range_full, mask.device))

@@ -64,16 +64,18 @@ class ConvNeXtBlock(nn.Module):
         return self.pw2(gelu(self.pw1(self.norm(self.dwconv(x)))))
 
 
-class Conv3dBNRelu(nn.Module):
-    """1x1x1 Conv3d + BN + ReLU (the reference's ``Conv3dBNAct``)."""
+class Conv3dBNAct(nn.Module):
+    """1x1x1 Conv3d + BN + ReLU, or GELU with ``act="gelu"`` (the pillar
+    generators')."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, act: str = "relu"):
         super().__init__()
         self.conv = nn.Conv3d(cin, features, 1)
         self.norm = BatchNorm(features)
+        self.act = F.relu if act == "relu" else gelu
 
     def forward(self, x):
-        return F.relu(self.norm(self.conv(x)))
+        return self.act(self.norm(self.conv(x)))
 
 
 class ConvT3dBNRelu(nn.Module):
@@ -110,11 +112,11 @@ class S2D_RPN(RPN):
         self.fusion_dense = ConvBNGelu(c_in, c_in, kernel=1, padding=0)
         self.fusion_sparse = ConvBNGelu(c_in, c_in, kernel=1, padding=0)
         self.out_conv = ConvBNGelu(c_in, 640, kernel=1, padding=0)
-        self.generator_1a = Conv3dBNRelu(128, 32)
+        self.generator_1a = Conv3dBNAct(128, 32)
         self.generator_1b = ConvT3dBNRelu(32, 32)
         self.gen_out_4 = nn.Conv3d(32, 3, 1)
         self.gen_mask_4 = nn.Conv3d(32, 1, 1)
-        self.generator_2a = Conv3dBNRelu(32, 16)
+        self.generator_2a = Conv3dBNAct(32, 16)
         self.generator_2b = ConvT3dBNRelu(16, 3)
         self.gen_out_2 = nn.Conv3d(3, 3, 1)
         self.gen_mask_2 = nn.Conv3d(3, 1, 1)

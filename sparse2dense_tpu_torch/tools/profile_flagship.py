@@ -7,7 +7,10 @@ Runs the flagship KD_VoxelNet + S2D_RPN (random weights from a seeded
 generator, heatmap bias -6 as in chip_smoke.py), or the student of the
 recipe config ``--config`` names (such as the SECOND one,
 ``sparse2dense_tpu_torch/configs/waymo_second_3x_distill_interval_5.py``:
-window and gather engines), on a 150k-voxel synthetic Waymo frame, on the
+window and gather engines; or a pillar one: the distillation config's
+KD_PointPillars, the dense config's PointPillars, on the same cloud
+voxelized to at most the recipe's 60,000 test pillars), on a 150k-voxel
+synthetic Waymo frame, on the
 window engine (the config as it is), the gather engine (the engine set
 alone), the plane engine (the reference bench's override, with the plane
 and tile budgets ``utils.config.FRAME_BUDGETS`` that this frame needs to
@@ -22,7 +25,9 @@ prints one JSON line per measurement:
   the device synchronised at every module boundary; ``glue`` is what lies
   between the modules (row sort, window plans, densify, BEV reshape; with
   the plane engine: plane and chunk sets, plane plans, layout permutations;
-  with the tile engine: tile sets, tile state, block plans, layouts);
+  with the tile engine: tile sets, tile state, block plans, layouts); a
+  pillar model reports its reader, backbone (the scatter, with S2D for the
+  student), neck (RPN) and head whole;
 - ``device``: a torch.profiler trace of one frame: device-busy time (sum of
   GPU kernel time), the frame's wall time, the idle share, and the ten GPU
   kernels with the most time.
@@ -42,7 +47,8 @@ def _flagship(engine: str, config: str = None):
     from sparse2dense_tpu_torch.models import build_detector
     from sparse2dense_tpu_torch.training.synthetic import make_batch
     from sparse2dense_tpu_torch.utils.config import (FLAGSHIP, FRAME_BUDGETS,
-                                                     TILE_FRAME_BUDGETS, flagship)
+                                                     TILE_FRAME_BUDGETS, flagship,
+                                                     frame_voxels)
 
     budgets = {"plane": FRAME_BUDGETS, "tile": TILE_FRAME_BUDGETS}.get(engine)
     cfg = flagship(engine, budgets, config or FLAGSHIP)
@@ -51,7 +57,8 @@ def _flagship(engine: str, config: str = None):
     model = build_detector(cfg["S_model"], test_cfg=cfg["test_cfg"],
                            voxel_generator=cfg["voxel_generator"], device="cuda",
                            generator=torch.Generator().manual_seed(0))
-    batch = make_batch(cfg, 1, max_voxels=150000, n_points=170000, n_obj=32, device="cuda")
+    batch = make_batch(cfg, 1, max_voxels=frame_voxels(cfg, train=False), n_points=170000,
+                       n_obj=32, device="cuda")
     return model, batch
 
 
@@ -62,8 +69,11 @@ def _frame(model, batch):
 
 def stage_times(model, batch, frames: int):
     """Median wall ms per module, device synchronised at module boundaries."""
-    mods = {f"{part}.{n}": m for part in ("backbone", "neck")
-            for n, m in getattr(model, part).named_children()}
+    if type(model.backbone).__name__.startswith("PointPillarsScatter"):
+        mods = dict(backbone=model.backbone, neck=model.neck)
+    else:
+        mods = {f"{part}.{n}": m for part in ("backbone", "neck")
+                for n, m in getattr(model, part).named_children()}
     mods.update(reader=model.reader, head=model.bbox_head)
     spans = defaultdict(list)
     start = {}

@@ -7,7 +7,10 @@ time and memory go.
 
 Builds the flagship's VoxelNet teacher and KD_VoxelNet + S2D_RPN student,
 or the teacher and student of the recipe config ``--config`` names (such as
-the SECOND one, ``configs/waymo_second_3x_distill_interval_5.py``)
+the SECOND one, ``configs/waymo_second_3x_distill_interval_5.py``, or the
+pillar one, ``configs/waymo_centerpoint_pp_two_pfn_stride1_3x_distill_interval_5.py``:
+PointPillars teacher, KD_PointPillars student, the "pp" branch; no sparse
+engine, so ``--engine`` and ``--dense-from-stage`` do not apply)
 (``engine="window", dense_from_stage=1``, bf16 dense stages; seeded random
 weights: the recipe's teacher checkpoint is not in the repository), with
 ``--engine`` and ``--dense-from-stage`` applied to teacher and student alike
@@ -17,7 +20,8 @@ the reference's ``dense_from_stage`` 2, the window engine's
 ``--dense-from-stage 2`` at ``DFS2_FRAME_SETTINGS``: the frame needs them), a
 training batch of ``--batch`` synthetic frames (the bench's frame: 170k
 points, 32 objects, 150k voxels, seeds 0, 1, ...; with the head's
-targets and the distillation streams), and runs ``TS_Trainer.step`` at
+targets and the distillation streams; the pillar recipe's frame keeps its
+training budget of 32,000 pillars), and runs ``TS_Trainer.step`` at
 PyTorch's defaults, the student's dense backbone stages rematerialised
 unless ``--no-remat`` is given. Prints one JSON line: each step's stages
 (teacher forward, student forward + losses, backward, optimizer; the device
@@ -40,7 +44,7 @@ import torch
 from .profile_flagship import device_trace
 
 STAGES = ("teacher_forward", "student_forward", "backward", "optimizer")
-FRAME = dict(max_voxels=150000, n_points=170000, n_obj=32)
+FRAME = dict(n_points=170000, n_obj=32)   # voxels: ``utils.config.frame_voxels``
 
 
 def engine_settings(engine: str = "window", dense_from_stage=None) -> dict:
@@ -75,17 +79,18 @@ def train_setup(batch_size: int, total_steps: int, remat: bool = True, config: s
     from ..solver.optim import OneCycleAdam
     from ..training.synthetic import make_batch
     from ..training.trainer import TS_Trainer
-    from ..utils.config import FLAGSHIP, ConfigDict
+    from ..utils.config import FLAGSHIP, ConfigDict, frame_voxels
 
     cfg = ConfigDict.fromfile(config or FLAGSHIP)
     for key in ("model", "S_model"):
         cfg[key]["backbone"].update(backbone or {})
-    cfg.S_model.backbone["remat_dense"] = remat
+    if cfg.S_model.backbone["type"].startswith("SpMiddle"):
+        cfg.S_model.backbone["remat_dense"] = remat
     kw = dict(test_cfg=cfg.test_cfg, voxel_generator=cfg.voxel_generator, device="cuda")
     teacher = build_detector(cfg.model, generator=torch.Generator().manual_seed(0), **kw)
     student = build_detector(cfg.S_model, generator=torch.Generator().manual_seed(1), **kw)
-    batch = make_batch(cfg, batch_size, device="cuda", with_targets=True, distillation=True,
-                       **FRAME)
+    batch = make_batch(cfg, batch_size, max_voxels=frame_voxels(cfg, train=True), device="cuda",
+                       with_targets=True, distillation=True, **FRAME)
     optimizer = OneCycleAdam(student.parameters(), cfg.optimizer, cfg.lr_config, total_steps,
                              cfg.optimizer_config["grad_clip"])
     return batch, TS_Trainer(teacher, student, optimizer, cfg.model)

@@ -107,6 +107,9 @@ FLAGSHIP = os.path.join(CONFIGS, "waymo_centerpoint_voxelnet_3x_distill_interval
 # the SECOND recipe's two stages, likewise
 SECOND_DENSE = os.path.join(CONFIGS, "waymo_second_3x_dense_interval_5.py")
 SECOND = os.path.join(CONFIGS, "waymo_second_3x_distill_interval_5.py")
+# the pillar (CenterPoint-Pillar) recipe's two stages, likewise
+PP_DENSE = os.path.join(CONFIGS, "waymo_centerpoint_pp_two_pfn_stride1_3x_dense_interval_5.py")
+PP = os.path.join(CONFIGS, "waymo_centerpoint_pp_two_pfn_stride1_3x_distill_interval_5.py")
 
 
 # plane-engine budgets for the 150k-voxel synthetic frame of the chip runs
@@ -146,6 +149,17 @@ TILE_FRAME_BUDGETS = dict(tile_budgets=(73000, 90000, 43000, 2400), tilek_window
 # frame's coordinates on the CPU (``ops/window_conv.py``).
 DFS2_FRAME_SETTINGS = dict(win_window=(384, 384, 512, 384), win_resid_budget=32768,
                            stage_budgets=(320000, 240000, 90000, 48000))
+
+
+def frame_voxels(cfg, train: bool) -> int:
+    """Voxel budget of the chip runs' synthetic frame (170k points, the
+    reference bench's cloud) for ``cfg``: 150,000 voxels on the voxel
+    models' grids, as the reference bench; the recipe's own
+    ``max_voxel_num`` (train, test) for the pillar models."""
+    if cfg["S_model"]["reader"]["type"] != "PillarFeatureNet":
+        return 150000
+    budget = cfg["voxel_generator"]["max_voxel_num"]
+    return budget[0 if train else 1] if isinstance(budget, (list, tuple)) else budget
 
 
 def flagship(engine: str = "window", budgets=None, path: str = FLAGSHIP) -> ConfigDict:

@@ -28,7 +28,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "training.checkpoint", "training.hooks", "tools.train", "models.remat",
                  "core.box_np_ops", "core.box_coder", "core.anchors",
                  "data.pipelines.assign_target", "models.losses.second_losses",
-                 "models.heads.mg_head"):
+                 "models.heads.mg_head", "models.backbones.scatter",
+                 "models.detectors.point_pillars"):
         assert f"sparse2dense_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"

@@ -332,8 +332,8 @@ def ts_run():
 def test_branch_of_second():
     assert branch_of(ConfigDict.fromfile(DCFG).model) == "second"
     assert branch_of(ConfigDict.fromfile(SECOND).model) == "second"
-    with pytest.raises(NotImplementedError, match="PointPillars"):
-        make_ts_train_step(None, None, None, "pp")
+    with pytest.raises(ValueError, match="unknown distillation branch"):
+        make_ts_train_step(None, None, None, "voxelnext")
 
 
 def _compare_metrics(got, want):
