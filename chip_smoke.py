@@ -173,7 +173,24 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    pp step on the card against the CPU (``PP_TINY_TOL``); the CLI chain of
    phase 8 for the two pillar configs (distillation at batch 3). No B1, B2
    or B3 launch on any of these paths;
-12. agreement: the tiny distillation model on the card against the same model
+12. data: the flagship recipe from records (``phase_data``): Waymo-layout
+   records of the bench's scene (170k points, 32 objects a frame; 6 scenes
+   filling 30 training infos at the recipe's interval of 5, 5 val frames;
+   a dense object set for every object) in a temporary directory, the
+   recipe's text with its data paths pointed there; the host pipeline's ms
+   a sample in this process (train: the dense-set synthesis, 5 voxel
+   streams, the targets; val), the native voxelizer bit-equal to its NumPy
+   version on a frame (ms of each); ``tools/train.py`` on it, 1 epoch of 2
+   teacher-student steps at the recipe's batch of 3 with its 4 spawned
+   input workers (finite losses, ``grad_norm`` > 0, a checkpoint, 54 window
+   passes a step; each step's ms, the loader's wait and the peak memory);
+   ``tools/test.py --checkpoint <it> --speed_test`` on the val split (the
+   detections' file, the evaluation's mAP dict, 6 window passes a frame,
+   ms a frame), then on an untrained student at score threshold 0, whose
+   candidates reach the NMS and the evaluator's matching (more than 0
+   detections, a finite mAP, ms a frame); the val boxes scored as
+   detections evaluate to 1; every line with the card's name and power limit;
+13. agreement: the tiny distillation model on the card against the same model
    on the CPU (plain versions only), window, plane and tile engines; the
    tiny tile backbone's train-mode forward and backward on the card (B3
    under autograd) against the CPU: BEV and every gradient within
@@ -184,11 +201,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    each window-engine conv weight's gradient within 2e-2 (the tiny step is
    ill-conditioned: ``_ts_step_agreement`` says how much).
 
-TF32 is switched off for cuDNN and matmuls in phases 2, 12, the gather
+TF32 is switched off for cuDNN and matmuls in phases 2, 13, the gather
 comparison of 9 and the tiny step of 11, which compare against float32
-plain versions or the CPU; the rest of phases 3 to 11 run at PyTorch's
-defaults
-(TF32 on in cuDNN convs, off in matmuls). With TF32 off cuDNN picks an FFT
+plain versions or the CPU; the rest of phases 3 to 12 run at PyTorch's
+defaults (TF32 on in cuDNN convs, off in matmuls). With TF32 off cuDNN picks an FFT
 algorithm for the neck's 3x3 convs that costs ~200 ms a frame on an H100
 (``sparse2dense_tpu_torch/tools/profile_flagship.py``). The second-to-last
 lines are a JSON record of the kernels (the sparse convs per frame, the
@@ -199,6 +215,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2385,6 +2402,252 @@ def _ts_step_agreement():
     return max(errs.values())
 
 
+# the data phase: frames written as records (the bench's scene, seeds 0..5
+# for training, 10..14 for validation), the recipe's interval of 5 over the
+# training infos, its batch of 3: 2 teacher-student steps
+DATA_TRAIN_SCENES, DATA_VAL_FRAMES, DATA_INTERVAL, DATA_STEPS = 6, 5, 5, 2
+DATA_APPEND = """
+data["train"].update(root_path={root!r}, info_path={train!r}, ann_file={train!r})
+data["val"].update(root_path={root!r}, info_path={val!r}, ann_file={val!r})
+"""
+# Two training steps move the weights while the eval-mode BatchNorm's running
+# statistics (momentum 0.01) stay near their init, so the 2-step student's
+# eval-mode maps explode (heights of 1e5 m, heatmap logits of -4e5 on the
+# H100) and no candidate passes the range check. An untrained student at
+# score threshold 0 sends its candidates through the NMS and the matching.
+EVAL_APPEND = """
+test_cfg.update(score_threshold=0.0)
+"""
+
+
+def _write_records(root):
+    """Waymo-layout records of the bench's scene (170k points, 32 objects on
+    the 41x1504x1504 grid): ``lidar/<frame>.pkl`` (``lidars.points_xyz``,
+    ``points_feature``), ``infos_{train,val}.pkl`` (token, path, gt_boxes,
+    gt_names, gt_signs) and a dense object set ``{train,val}/gt/<obj>.pkl``
+    (key "gt": 2,000 points in the object's canonical frame) for each
+    object. The training infos repeat the scenes to fill the recipe's
+    interval: info ``i`` reads scene ``i // DATA_INTERVAL``."""
+    import pickle
+
+    import numpy as np
+
+    from sparse2dense_tpu_torch.training.synthetic import make_gt, make_points
+
+    pc_range = np.asarray([-75.2, -75.2, -2, 75.2, 75.2, 4], np.float32)
+    os.makedirs(os.path.join(root, "lidar"))
+
+    def scene(seed, split):
+        rng = np.random.RandomState(seed)
+        boxes, _, names = make_gt(rng, 32, pc_range)
+        pts = make_points(rng, 170000, pc_range, boxes, 5)
+        path = os.path.join(root, "lidar", f"{split}_{seed}.pkl")
+        with open(path, "wb") as f:
+            pickle.dump({"lidars": {"points_xyz": pts[:, :3], "points_feature": pts[:, 3:]}}, f)
+        gt_dir = os.path.join(root, split, "gt")
+        os.makedirs(gt_dir, exist_ok=True)
+        signs = [f"{split}_{seed}_{j}" for j in range(len(boxes))]
+        for sign, box in zip(signs, boxes):
+            half = np.array([box[4], box[3], box[5]], np.float32) / 2   # l, w, h: canonical x, y, z
+            dense = np.concatenate([rng.uniform(-half, half, (2000, 3)),
+                                    rng.uniform(0, 1, (2000, 2))], 1).astype(np.float32)
+            with open(os.path.join(gt_dir, f"{sign}.pkl"), "wb") as f:
+                pickle.dump({"gt": dense}, f)
+        return dict(path=path, gt_boxes=boxes, gt_names=names, gt_signs=signs)
+
+    train = [scene(s, "train") for s in range(DATA_TRAIN_SCENES)]
+    val = [scene(10 + s, "val") for s in range(DATA_VAL_FRAMES)]
+    paths = {}
+    for split, infos in (("train", [dict(train[i // DATA_INTERVAL], token=f"train_{i}")
+                                    for i in range(DATA_TRAIN_SCENES * DATA_INTERVAL)]),
+                         ("val", [dict(v, token=f"val_{i}") for i, v in enumerate(val)])):
+        paths[split] = os.path.join(root, f"infos_{split}.pkl")
+        with open(paths[split], "wb") as f:
+            pickle.dump(infos, f)
+    return paths
+
+
+def _host_ms(dataset, n):
+    """ms a sample of the dataset's pipeline in this process (first ``n``)."""
+    t0 = time.perf_counter()
+    for i in range(n):
+        dataset[i]
+    return 1000 * (time.perf_counter() - t0) / n
+
+
+STREAMS = ("voxels", "dense_voxels", "reconstruction_voxels", "reconstruction_voxels_2",
+           "reconstruction_voxels_4")
+
+
+def _data_host(cfg):
+    """The host side of the data phase (no card needed): the pipeline's ms
+    a sample in this process (train, val), a training example's 5 voxel
+    streams and targets, the native voxelizer against its NumPy version on
+    the example's points at the train budget (bit for bit, ms of each)."""
+    import numpy as np
+
+    from sparse2dense_tpu_torch.data.loader import build_dataset
+    from sparse2dense_tpu_torch.ops import voxelize as V
+
+    res = {}
+    train_ds, val_ds = build_dataset(cfg.data["train"]), build_dataset(cfg.data["val"])
+    if len(train_ds) != DATA_STEPS * cfg.data["samples_per_gpu"]:
+        raise AssertionError(f"data: {len(train_ds)} training frames after the interval")
+    res["host_ms_train"] = _host_ms(train_ds, 3)
+    res["host_ms_val"] = _host_ms(val_ds, 3)
+    ex = train_ds[0]
+    streams = [k for k in ex if k in STREAMS]
+    if len(streams) != len(STREAMS) or "hm" not in ex:
+        raise AssertionError(f"data: a training example holds {sorted(ex)}")
+    # one stream, native against NumPy: the frame's points at the train budget
+    pts = ex["points"]
+    vg = cfg.voxel_generator
+    budget = vg["max_voxel_num"]
+    args = (pts, vg["voxel_size"], vg["range"], vg["max_points_in_voxel"],
+            budget[0] if isinstance(budget, (list, tuple)) else budget)
+    outs = {}
+    for name, fn in (("native", V.points_to_voxel_native), ("numpy", V.points_to_voxel)):
+        fn(*args)
+        t = time.perf_counter()
+        outs[name] = [fn(*args) for _ in range(3)][-1]
+        res[f"voxelize_ms_{name}"] = 1000 * (time.perf_counter() - t) / 3
+    for a, b in zip(outs["native"], outs["numpy"]):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError("data: the native voxelizer differs from its NumPy version")
+    res["voxelize_points"], res["voxelize_voxels"] = len(pts), len(outs["native"][0])
+    return res
+
+
+def phase_data(smi):
+    """The flagship recipe from records: ``_write_records`` under a
+    temporary directory, the recipe's text with its data paths pointed at
+    them; the host pipeline's ms a sample (train: 5 voxel streams and the
+    targets; val), the native voxelizer against its NumPy version on one
+    frame (bit for bit, and their ms); ``tools/train.py`` on it (1 epoch of
+    ``DATA_STEPS`` teacher-student steps at the recipe's batch of 3, its 4
+    input workers): finite losses, ``grad_norm`` > 0, a checkpoint, 54
+    window passes a step; then ``tools/test.py --checkpoint <it>
+    --speed_test`` on the val split: the detections' file, the evaluation's
+    mAP dict, 6 window passes a frame; an untrained student at score
+    threshold 0 (``EVAL_APPEND``): more than 0 detections, a finite mAP, 6
+    window passes a frame; the val boxes themselves, scored as detections,
+    evaluate to a mAP of 1. Launch counts set to 0 just before
+    each run and read just after."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sparse2dense_tpu_torch.data.loader import build_dataset
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+    from sparse2dense_tpu_torch.tools import test as test_cli
+    from sparse2dense_tpu_torch.tools import train as train_cli
+    from sparse2dense_tpu_torch.utils.config import FLAGSHIP, ConfigDict
+
+    t0, res = time.perf_counter(), {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = _write_records(tmp)
+        cfg_path = os.path.join(tmp, "flagship_records.py")
+        with open(FLAGSHIP) as f, open(cfg_path, "w") as out:
+            out.write(f.read() + DATA_APPEND.format(root=tmp, **paths))
+        eval_path = os.path.join(tmp, "flagship_records_eval.py")
+        with open(cfg_path) as f, open(eval_path, "w") as out:
+            out.write(f.read() + EVAL_APPEND)
+        cfg = ConfigDict.fromfile(cfg_path)
+        res["records_s"] = time.perf_counter() - t0
+        res.update(_data_host(cfg))
+
+        work, evald = os.path.join(tmp, "work"), os.path.join(tmp, "eval")
+        WK.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        trainer = train_cli.main([cfg_path, "--work_dir", work, "--epochs", "1"])
+        res["train_launches"] = WK.launches
+        res["train_peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        history = trainer.log_buffer.val_history
+        _check_metrics("data train", {k: v for k, v in history.items()
+                                      if k not in ("time", "data_time")})
+        if trainer.global_iter != DATA_STEPS or not os.path.exists(
+                os.path.join(work, "epoch_1")):
+            raise AssertionError(f"data: {trainer.global_iter} steps, {os.listdir(work)}")
+        want = TRAIN_LAUNCHES * cfg.data["samples_per_gpu"] * DATA_STEPS
+        if res["train_launches"] != want:
+            raise AssertionError(f"data: {res['train_launches']} window passes in training, "
+                                 f"expected {want}")
+        res["step_s"], res["data_wait_s"] = history["time"], history["data_time"]
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        WK.launches = 0
+        detections, (result, _), times = test_cli.main(
+            [cfg_path, "--checkpoint", os.path.join(work, "latest"), "--work_dir", evald,
+             "--speed_test"])
+        res["val_launches"] = WK.launches
+        if res["val_launches"] != EXPECTED_LAUNCHES["window"][0] * DATA_VAL_FRAMES:
+            raise AssertionError(f"data: {res['val_launches']} window passes over "
+                                 f"{DATA_VAL_FRAMES} val frames")
+        if sorted(detections) != [f"val_{i}" for i in range(DATA_VAL_FRAMES)] or \
+                not os.path.exists(os.path.join(evald, "detection_pred.pkl")) or \
+                not isinstance(result, dict) or "local_bev_mAP" not in result:
+            raise AssertionError(f"data: evaluation {result}, detections {sorted(detections)}")
+        res["test_ms_frame"] = [1000 * t for t in times]
+        res["detections"] = sum(len(d["scores"]) for d in detections.values())
+        res["local_bev_mAP"] = result["local_bev_mAP"]
+
+        WK.launches = 0
+        detections, (result, _), times = test_cli.main(
+            [eval_path, "--work_dir", os.path.join(tmp, "eval_untrained"), "--speed_test"])
+        res["untrained_val_launches"] = WK.launches
+        res["untrained_test_ms_frame"] = [1000 * t for t in times]
+        res["untrained_detections"] = sum(len(d["scores"]) for d in detections.values())
+        res["untrained_bev_mAP"] = result["local_bev_mAP"]
+        if res["untrained_val_launches"] != res["val_launches"] or \
+                res["untrained_detections"] == 0 or not math.isfinite(res["untrained_bev_mAP"]):
+            raise AssertionError(
+                f"data: the untrained student at score threshold 0: "
+                f"{res['untrained_detections']} detections, local BEV mAP "
+                f"{res['untrained_bev_mAP']}, {res['untrained_val_launches']} window passes")
+        # the evaluator's matching: the val frames' own boxes, scored 1, score 1
+        val_set = build_dataset(cfg.data["val"])
+        names = list(val_set._class_names)
+        truth = {}
+        for info in val_set.infos:
+            keep = [i for i, n in enumerate(info["gt_names"]) if n in names]
+            truth[info["token"]] = {
+                "box3d_lidar": np.asarray(info["gt_boxes"])[keep],
+                "scores": np.ones(len(keep), np.float32),
+                "label_preds": np.asarray([names.index(info["gt_names"][i]) for i in keep])}
+        os.makedirs(os.path.join(tmp, "truth"))
+        ideal, _ = val_set.evaluation(truth, output_dir=os.path.join(tmp, "truth"))
+        res["truth_bev_mAP"] = ideal["local_bev_mAP"]
+        if abs(res["truth_bev_mAP"] - 1.0) > 1e-6:
+            raise AssertionError(f"data: the val boxes scored as detections give a local BEV "
+                                 f"mAP of {res['truth_bev_mAP']}, not 1")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[data] host pipeline a sample (main process): train {res['host_ms_train']:.1f} ms "
+          f"(5 voxel streams + targets), val {res['host_ms_val']:.1f} ms; voxelizer on one "
+          f"stream ({res['voxelize_points']} points -> {res['voxelize_voxels']} voxels): native "
+          f"{res['voxelize_ms_native']:.2f} ms, NumPy {res['voxelize_ms_numpy']:.2f} ms, bit-equal"
+          f" | {smi}", flush=True)
+    steps, waits = (", ".join(f"{1000 * t:.1f}" for t in res[k]) for k in ("step_s", "data_wait_s"))
+    print(f"[data] tools/train.py from records, batch {cfg.data['samples_per_gpu']}, "
+          f"{cfg.data['workers_per_gpu']} workers: steps {steps} ms, loader wait {waits} ms; "
+          f"peak {res['train_peak_gb']:.2f} GiB; B1 {res['train_launches']} | {smi}", flush=True)
+    print(f"[data] tools/test.py: {', '.join(f'{t:.1f}' for t in res['test_ms_frame'])} ms a "
+          f"frame (after 2), {res['detections']} detections, local BEV mAP "
+          f"{res['local_bev_mAP']}; untrained at score threshold 0: "
+          f"{', '.join(f'{t:.1f}' for t in res['untrained_test_ms_frame'])} ms a frame, "
+          f"{res['untrained_detections']} detections, local BEV mAP "
+          f"{res['untrained_bev_mAP']}, B1 {res['untrained_val_launches']}; the val boxes "
+          f"as detections: {res['truth_bev_mAP']}; B1 {res['val_launches']}; phase {res['seconds']:.1f} s "
+          f"(records {res['records_s']:.1f} s) | {smi}", flush=True)
+    print("[data] " + json.dumps(res), flush=True)
+    return res
+
+
 def _record(name, source, replaces, launches, rows, per="per_frame"):
     frame = [r for r in rows if r.get(per)]
     lib = [r["library_ms"] for r in frame]
@@ -2426,6 +2689,7 @@ def main() -> int:
     second = phase_second()
     engines = phase_engines(plane, tile)
     pp = phase_pp()
+    data = phase_data(smi)
     with no_tf32():
         phase_agreement()
 
@@ -2435,7 +2699,9 @@ def main() -> int:
                 "plane": plane["launches"]["window_pass"], "train": train["launches"],
                 f"train_batch{BIG_BATCH}": train["big"]["launches"], "cli": cli["launches"],
                 "second": second["frame"]["launches"], "second_train": second["train_launches"],
-                "second_cli": second["cli"]["launches"]}
+                "second_cli": second["cli"]["launches"], "data_train": data["train_launches"],
+                "data_val": data["val_launches"],
+                "data_val_untrained": data["untrained_val_launches"]}
     b2_paths = {"plane": plane["launches"]["plane_subm"]}
     b3_paths = {"tile": tile["launches"]["tile_subm"]}
     for tag, r in engines.items():

@@ -52,8 +52,85 @@ optimizer_config = dict(grad_clip=dict(max_norm=35, norm_type=2))
 optimizer = dict(type="adam", amsgrad=0.0, wd=0.01, fixed_wd=True, moving_average=False)
 lr_config = dict(type="one_cycle", lr_max=0.003, moms=[0.95, 0.85], div_factor=10.0,
                  pct_start=0.4)
-# the reference's data block; its dataset entries wait for the data layer
-data = dict(samples_per_gpu=8, workers_per_gpu=6)
+# the reference's data layer (sparse2dense_tpu/zoo.py: _waymo_db_sampler,
+# _pipeline, _data): the records' paths are the reference's, relative to the
+# directory training runs in
+dataset_type = "WaymoDataset"
+nsweeps = 1
+data_root = "../data/waymo"
+db_sampler = dict(
+    type="GT-AUG",
+    enable=False,
+    db_info_path="../data/waymo/dbinfos_train_1sweeps_withvelo.pkl",
+    sample_groups=[dict(VEHICLE=15), dict(PEDESTRIAN=10), dict(CYCLIST=10)],
+    db_prep_steps=[
+        dict(filter_by_min_num_points=dict(VEHICLE=5, PEDESTRIAN=5, CYCLIST=5)),
+        dict(filter_by_difficulty=[-1]),
+    ],
+    global_random_rotation_range_per_object=[0, 0],
+    rate=1.0,
+)
+train_preprocessor = dict(
+    mode="train",
+    shuffle_points=True,
+    global_rot_noise=[-0.78539816, 0.78539816],
+    global_scale_noise=[0.95, 1.05],
+    db_sampler=db_sampler,
+    class_names=class_names,
+    distillation=True,
+)
+val_preprocessor = dict(mode="val", shuffle_points=False, distillation=True)
+train_pipeline = [
+    dict(type="LoadPointCloudFromFile", dataset=dataset_type),
+    dict(type="LoadPointCloudAnnotations", with_bbox=True),
+    dict(type="Preprocess", cfg=train_preprocessor),
+    dict(type="Voxelization", cfg=voxel_generator),
+    dict(type="AssignLabel", cfg=assigner),
+    dict(type="Reformat", distillation=True),
+]
+test_pipeline = [
+    dict(type="LoadPointCloudFromFile", dataset=dataset_type),
+    dict(type="LoadPointCloudAnnotations", with_bbox=True),
+    dict(type="Preprocess", cfg=val_preprocessor),
+    dict(type="Voxelization", cfg=voxel_generator),
+    dict(type="AssignLabel", cfg=assigner),
+    dict(type="Reformat", distillation=True),
+]
+train_anno = "../data/Waymo/infos_train_01sweeps_filter_zero_gt.pkl"
+val_anno = "../data/Waymo/infos_val_01sweeps_filter_zero_gt.pkl"
+test_anno = None
+data = dict(
+    samples_per_gpu=8,
+    workers_per_gpu=6,
+    train=dict(
+        type=dataset_type,
+        root_path=data_root,
+        info_path=train_anno,
+        ann_file=train_anno,
+        nsweeps=nsweeps,
+        class_names=class_names,
+        pipeline=train_pipeline,
+    ),
+    val=dict(
+        type=dataset_type,
+        root_path=data_root,
+        info_path=val_anno,
+        test_mode=True,
+        ann_file=val_anno,
+        nsweeps=nsweeps,
+        class_names=class_names,
+        pipeline=test_pipeline,
+    ),
+    test=dict(
+        type=dataset_type,
+        root_path=data_root,
+        info_path=test_anno,
+        ann_file=test_anno,
+        nsweeps=nsweeps,
+        class_names=class_names,
+        pipeline=test_pipeline,
+    ),
+)
 checkpoint_config = dict(interval=1)
 log_config = dict(interval=5, hooks=[dict(type="TextLoggerHook")])
 total_epochs = 6

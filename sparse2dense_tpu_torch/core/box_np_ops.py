@@ -1,7 +1,8 @@
-"""Box geometry for the SECOND anchor path (host-side NumPy; the box decode
-also on torch tensors): the port's copy of the subset of
-``sparse2dense_tpu/core/box_np_ops.py`` that anchor matching and the box
-coder use. For the same inputs it gives bit-identical arrays.
+"""Box geometry on the host (NumPy; the box decode also on torch tensors):
+the port's copy of ``sparse2dense_tpu/core/box_np_ops.py``. Anchor matching
+and the box coder use the first half; the data layer (point-in-box tests,
+the augmentations' collision test) the corner functions at the end. For the
+same inputs it gives bit-identical arrays.
 """
 from __future__ import annotations
 
@@ -149,3 +150,75 @@ def create_anchors_3d_range(feature_size, anchor_range, sizes=(1.6, 3.9, 1.56),
                            base.shape[:5] + (combines.shape[-1],))
     ret = np.concatenate([base, comb, rot], axis=-1)  # (X, Y, Z, S, R, nd)
     return np.transpose(ret, [2, 1, 0, 3, 4, 5])  # -> (Z, Y, X, S, R, nd)
+
+
+def rotation_2d(points, angles):
+    """(N, P, 2) points rotated by (N,) angles (counterclockwise)."""
+    rot_sin = np.sin(angles)
+    rot_cos = np.cos(angles)
+    rot_mat_T = np.stack([[rot_cos, -rot_sin], [rot_sin, rot_cos]])  # (2, 2, N)
+    return np.einsum("aij,jka->aik", points, rot_mat_T)
+
+
+def corners_nd(dims, origin=0.5):
+    """(N, ndim) dims -> (N, 2**ndim, ndim) corners around origin."""
+    ndim = dims.shape[1]
+    corners_norm = np.stack(
+        np.unravel_index(np.arange(2 ** ndim), [2] * ndim), axis=1).astype(dims.dtype)
+    if ndim == 2:
+        corners_norm = corners_norm[[0, 1, 3, 2]]
+    elif ndim == 3:
+        corners_norm = corners_norm[[0, 1, 3, 2, 4, 5, 7, 6]]
+    corners_norm = corners_norm - np.asarray(origin, dims.dtype)
+    return dims.reshape(-1, 1, ndim) * corners_norm.reshape(1, -1, ndim)
+
+
+def center_to_corner_box2d(centers, dims, angles=None, origin=0.5):
+    corners = corners_nd(dims, origin=origin)
+    if angles is not None:
+        corners = rotation_2d(corners, angles)
+    return corners + centers.reshape(-1, 1, 2)
+
+
+def rotation_3d_in_axis(points, angles, axis=2):
+    rot_sin = np.sin(angles)
+    rot_cos = np.cos(angles)
+    ones = np.ones_like(rot_cos)
+    zeros = np.zeros_like(rot_cos)
+    if axis == 2:
+        rot_mat_T = np.stack([[rot_cos, -rot_sin, zeros], [rot_sin, rot_cos, zeros],
+                              [zeros, zeros, ones]])
+    elif axis == 1:
+        rot_mat_T = np.stack([[rot_cos, zeros, -rot_sin], [zeros, ones, zeros],
+                              [rot_sin, zeros, rot_cos]])
+    else:
+        rot_mat_T = np.stack([[ones, zeros, zeros], [zeros, rot_cos, -rot_sin],
+                              [zeros, rot_sin, rot_cos]])
+    return np.einsum("aij,jka->aik", points, rot_mat_T)
+
+
+def center_to_corner_box3d(centers, dims, angles=None, origin=(0.5, 0.5, 0.5), axis=2):
+    """(N, 3) centers + dims + yaw -> (N, 8, 3) corners; the det3d lidar
+    convention is origin (0.5, 0.5, 0.5) (the gravity centre), yaw about z."""
+    corners = corners_nd(dims, origin=origin)
+    if angles is not None:
+        corners = rotation_3d_in_axis(corners, angles, axis=axis)
+    return corners + centers.reshape(-1, 1, 3)
+
+
+def points_in_rbbox(points, rbbox, origin=(0.5, 0.5, 0.5)):
+    """Boolean (n_points, n_boxes): which points lie in which rotated 3D box
+    (rbbox (N, 7) [x y z w l h yaw], the gravity centre)."""
+    n_box = rbbox.shape[0]
+    n_pts = points.shape[0]
+    if n_box == 0 or n_pts == 0:
+        return np.zeros((n_pts, n_box), dtype=bool)
+    shifted = points[None, :, :3] - rbbox[:, None, :3]  # (N, P, 3), in each box's frame
+    cos, sin = np.cos(-rbbox[:, 6]), np.sin(-rbbox[:, 6])
+    lx = shifted[..., 0] * cos[:, None] - shifted[..., 1] * sin[:, None]
+    ly = shifted[..., 0] * sin[:, None] + shifted[..., 1] * cos[:, None]
+    lz = shifted[..., 2]
+    half = rbbox[:, 3:6] / 2  # (N, 3) w l h
+    inside = ((np.abs(lx) <= half[:, None, 0]) & (np.abs(ly) <= half[:, None, 1])
+              & (np.abs(lz) <= half[:, None, 2]))
+    return inside.T  # (P, N)

@@ -1,8 +1,10 @@
-"""Build of the port's CUDA kernels: each ``csrc/*.cu`` source becomes one
+"""Build of the port's native code: each ``csrc/*.cu`` source becomes one
 shared library with a plain C interface, compiled by ``nvcc`` for ``sm_90a``
 into ``_build/`` (git-ignored) at first use and rebuilt when the source, or
-a header of ``csrc/`` it may include, is newer. The libraries are loaded
-with ctypes by their wrappers."""
+a header of ``csrc/`` it may include, is newer; ``csrc/voxelizer.cpp`` (the
+input pipeline's voxelizer) the same way by the host C++ compiler
+(:func:`build_host`). The libraries are loaded with ctypes by their
+wrappers."""
 from __future__ import annotations
 
 import glob
@@ -61,6 +63,24 @@ def build_all(pairs: Sequence[Tuple[str, str]]) -> Dict[str, str]:
 def build(source: str, library: str) -> str:
     """Compile one library if it is missing or older than its source."""
     return build_all([(source, library)]).get(library, "")
+
+
+def build_host(source: str, library: str) -> None:
+    """Compile a host C++ source into a shared library if it is missing or
+    older than its source. Processes that build at once (input workers) each
+    write a file of their own and rename it into place."""
+    if not _stale(source, library):
+        return
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"no host C++ compiler (c++ or g++) to build {source}")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{library}.{os.getpid()}.tmp"
+    proc = subprocess.run([cxx, "-O3", "-std=c++17", "-fPIC", "-shared", "-o", tmp, source],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cxx} failed for {library} ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, library)
 
 
 def check_tensor(name: str, t, dtype, shape, device) -> None:

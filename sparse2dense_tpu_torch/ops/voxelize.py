@@ -1,6 +1,8 @@
-"""Hard voxelization on the host (NumPy), first-come-first-serve.
-
-A copy of the reference's NumPy path (``sparse2dense_tpu/ops/voxelize.py``):
+"""Hard voxelization on the host, first-come-first-serve: the port's copy of
+``sparse2dense_tpu/ops/voxelize.py``. :func:`points_to_voxel_native` runs
+``csrc/voxelizer.cpp`` (built by the host C++ compiler at first use, bound
+through ctypes); :func:`points_to_voxel` is its plain NumPy version. Both
+give the same arrays:
 
 - a point is dropped if any of its xyz cells falls outside the grid;
 - voxels are indexed in order of first appearance along the point order;
@@ -10,9 +12,52 @@ A copy of the reference's NumPy path (``sparse2dense_tpu/ops/voxelize.py``):
 """
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import os
+from typing import Optional, Tuple
 
 import numpy as np
+
+from . import cuda_build
+
+SOURCE = os.path.join(cuda_build.CSRC, "voxelizer.cpp")
+LIBRARY = os.path.join(cuda_build.BUILD_DIR, "libvoxelizer.so")
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _library() -> ctypes.CDLL:
+    """The native voxelizer, built on first use; raises if it cannot be."""
+    global _lib
+    if _lib is None:
+        cuda_build.build_host(SOURCE, LIBRARY)
+        lib = ctypes.CDLL(LIBRARY)
+        lib.points_to_voxel_fcfs.restype = ctypes.c_int64
+        lib.points_to_voxel_fcfs.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_int64] + [ctypes.c_void_p] * 3)
+        _lib = lib
+    return _lib
+
+
+def points_to_voxel_native(points: np.ndarray, voxel_size, coors_range,
+                           max_points: int = 35, max_voxels: int = 20000
+                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`points_to_voxel` in C++ on float32 points (zyx coordinates)."""
+    points = np.ascontiguousarray(points, dtype=np.float32)
+    if points.ndim != 2 or points.shape[1] < 3:
+        raise ValueError(f"points must be (N, >=3), got {points.shape}")
+    n, c = points.shape
+    vs = np.ascontiguousarray(voxel_size, dtype=np.float32)
+    cr = np.ascontiguousarray(coors_range, dtype=np.float32)
+    if vs.shape != (3,) or cr.shape != (6,):
+        raise ValueError(f"voxel_size (3,) and coors_range (6,), got {vs.shape}, {cr.shape}")
+    voxels = np.zeros((max_voxels, max_points, c), np.float32)
+    coords = np.zeros((max_voxels, 3), np.int32)
+    num_points = np.zeros((max_voxels,), np.int32)
+    m = _library().points_to_voxel_fcfs(
+        points.ctypes.data, n, c, vs.ctypes.data, cr.ctypes.data, max_points, max_voxels,
+        voxels.ctypes.data, coords.ctypes.data, num_points.ctypes.data)
+    return voxels[:m], coords[:m], num_points[:m]
 
 
 def points_to_voxel(points: np.ndarray, voxel_size, coors_range,
@@ -66,7 +111,7 @@ def points_to_voxel(points: np.ndarray, voxel_size, coors_range,
 
 
 class VoxelGenerator:
-    """Config-driven wrapper around :func:`points_to_voxel`."""
+    """Config-driven wrapper around :func:`points_to_voxel_native`."""
 
     def __init__(self, voxel_size, point_cloud_range, max_num_points, max_voxels=20000):
         self.point_cloud_range = np.asarray(point_cloud_range, dtype=np.float32)
@@ -76,6 +121,9 @@ class VoxelGenerator:
         self.max_num_points = max_num_points
         self.max_voxels = max_voxels
 
-    def generate(self, points: np.ndarray):
-        return points_to_voxel(points, self.voxel_size, self.point_cloud_range,
-                               self.max_num_points, self.max_voxels)
+    def generate(self, points: np.ndarray, max_voxels: Optional[int] = None):
+        """Voxels of ``points`` under ``max_voxels`` (the generator's own
+        budget unless given: the pipeline passes its train or test one)."""
+        return points_to_voxel_native(points, self.voxel_size, self.point_cloud_range,
+                                      self.max_num_points,
+                                      self.max_voxels if max_voxels is None else max_voxels)

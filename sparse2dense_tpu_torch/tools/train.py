@@ -1,7 +1,7 @@
 """Training entry point (counterpart of ``sparse2dense_tpu/tools/train.py``;
 the reference's tools/train.py:64-155).
 
-    python -m sparse2dense_tpu_torch.tools.train <config.py> --synthetic N
+    python -m sparse2dense_tpu_torch.tools.train <config.py> [--synthetic N]
         [--work_dir D] [--resume_from CKPT] [--load_from CKPT] [--seed S]
         [--batch_size B] [--max_voxels V] [--epochs E] [--device cuda|cpu]
 
@@ -11,8 +11,11 @@ through ``merge_params``) and the student from ``cfg.S_model``, and training
 runs the teacher-student step (``TS_Trainer``); otherwise a plain detector
 trains from ``cfg.S_model``. The batch is ``cfg.data.samples_per_gpu``
 unless ``--batch_size`` is given; the one-cycle schedule covers the epoch's
-steps times the epochs. ``--synthetic N`` trains on N synthetic frames
-(``make_batch`` with the head's targets, CenterHead or MultiGroupHead,
+steps times the epochs. The frames come from ``cfg.data.train``
+(``data/loader.py``: ``build_dataset`` and ``InputPipeline`` with
+``cfg.data.workers_per_gpu`` worker processes, shuffled by ``--seed``);
+``--synthetic N`` trains on N synthetic frames instead (``make_batch``
+with the head's targets, CenterHead or MultiGroupHead,
 seeds 0, 1, ... a batch; the same batches every epoch). The distillation
 branch follows the teacher's backbone (``distill.branch_of``): "centerpoint"
 for the flagship's recipe, "second" for SECOND's. Checkpoints go to ``--work_dir``, else
@@ -21,8 +24,7 @@ for the flagship's recipe, "second" for SECOND's. Checkpoints go to ``--work_dir
 symlink.
 
 Runs on CUDA unless ``--device cpu`` is given. Left out, with what they
-wait for: the dataset loader (without ``--synthetic`` the CLI raises; the
-data layer), ``--launcher`` other than ``none`` (DDP with SyncBN), the JAX
+wait for: ``--launcher`` other than ``none`` (DDP with SyncBN), the JAX
 CLI's ``--no_mesh`` (there is no device mesh) and ``--ts_step`` (the eager
 step already runs the frozen teacher under ``no_grad`` before the student's
 graph, the JAX CLI's split step).
@@ -97,11 +99,7 @@ def main(argv: Optional[Sequence[str]] = None):
     if args.launcher != "none":
         raise NotImplementedError(
             f"--launcher {args.launcher}: multi-GPU training (DDP with SyncBN) comes in a "
-            "later slice; run with --launcher none")
-    if not args.synthetic:
-        raise NotImplementedError(
-            "training on cfg.data needs the data layer (data/datasets, data/loader.py), a "
-            "later slice; pass --synthetic N")
+            "later slice (ROADMAP Queue 1 item 6: data parallelism); run with --launcher none")
     device = resolve_device(args.device)
     cfg = ConfigDict.fromfile(args.config)
     name = os.path.splitext(os.path.basename(args.config))[0]
@@ -112,8 +110,15 @@ def main(argv: Optional[Sequence[str]] = None):
     batch_size = args.batch_size or cfg.get("data", {}).get("samples_per_gpu", 4)
     max_voxels = args.max_voxels or _default_max_voxels(cfg)
 
-    train_loader = SyntheticLoader(cfg, args.synthetic, batch_size, max_voxels, distillation,
-                                   device)
+    if args.synthetic:
+        train_loader = SyntheticLoader(cfg, args.synthetic, batch_size, max_voxels,
+                                       distillation, device)
+    else:
+        from ..data.loader import InputPipeline, build_dataset
+
+        workers = int(cfg.data.get("workers_per_gpu", 4) or 0)
+        train_loader = InputPipeline(build_dataset(cfg.data["train"]), batch_size, max_voxels,
+                                     seed=args.seed, num_workers=workers, device=device)
     epoch_len = len(train_loader)
     kw = dict(test_cfg=cfg.test_cfg, voxel_generator=cfg.get("voxel_generator"),
               device=device)

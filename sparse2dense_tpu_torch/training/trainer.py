@@ -1,8 +1,9 @@
 """Trainer and TS_Trainer (counterpart of
 ``sparse2dense_tpu/training/trainer.py``; the reference's
 det3d/torchie/trainer/trainer.py:209-892): the step, the epoch loop, the
-hooks and checkpoints. Validation and data parallelism come with the data
-layer and DDP.
+hooks, checkpoints and validation (``Trainer.val``: the eval-mode model's
+detections over a loader, keyed by frame token, then the dataset's
+evaluation). Data parallelism comes with DDP.
 
 ``epoch`` counts the epochs done, ``inner_iter`` is the step's index in its
 epoch, ``global_iter`` counts the steps done over the run, and
@@ -11,7 +12,11 @@ reference."""
 from __future__ import annotations
 
 import logging
+import os
+import time
 from typing import Callable, Dict, Optional
+
+import torch
 
 from .checkpoint import load_checkpoint, save_checkpoint
 from .distill import branch_of, make_ts_train_step
@@ -93,13 +98,75 @@ class Trainer:
         self.call_hook("after_train_epoch")
         self.epoch += 1
 
-    def run(self, data_loader, max_epochs: int) -> None:
+    def run(self, data_loader, max_epochs: int, val_loader=None, val_dataset=None,
+            val_interval: int = 0) -> None:
         """Epochs from ``epoch`` up to ``max_epochs``, between the hooks'
-        ``before_run`` and ``after_run``."""
+        ``before_run`` and ``after_run``; with a ``val_loader`` and a
+        ``val_interval``, :meth:`val` after every ``val_interval``-th epoch
+        and the last."""
         self.call_hook("before_run")
         while self.epoch < max_epochs:
             self.train_epoch(data_loader)
+            if val_loader is not None and val_interval and (
+                    self.epoch % val_interval == 0 or self.epoch == max_epochs):
+                self.val(val_loader, val_dataset)
         self.call_hook("after_run")
+
+    def val(self, data_loader, dataset, output_dir: Optional[str] = None):
+        """The model's detections over ``data_loader`` (:func:`predict`),
+        merged across processes (:func:`gather_detections`), then
+        ``dataset.evaluation`` with its files under ``output_dir`` (else
+        ``<work_dir>/eval``)."""
+        out_dir = output_dir or os.path.join(self.work_dir, "eval")
+        os.makedirs(out_dir, exist_ok=True)
+        detections = gather_detections(predict(self.model, data_loader))
+        result = dataset.evaluation(detections, output_dir=out_dir)
+        self.logger.info(f"evaluation after epoch {self.epoch}: {result[0]}")
+        return result
+
+
+@torch.no_grad()
+def predict(model, data_loader, times: Optional[list] = None) -> Dict[str, dict]:
+    """The eval-mode ``model``'s detections over ``data_loader``: token ->
+    {"box3d_lidar", "scores", "label_preds"} (NumPy, the valid ones); a
+    frame without metadata is keyed ``frame_p0_{n}`` (process 0, the
+    reference's key). With ``times``,
+    each batch's forward and predict seconds (synchronized) are appended."""
+    was_training = model.training
+    model.eval()
+    detections = {}
+    try:
+        for batch in data_loader:
+            meta = batch.get("metadata") or []
+            batch = {k: v for k, v in batch.items() if k != "metadata"}
+            t0 = time.perf_counter()
+            out = model.predict(model(batch), example=batch)
+            boxes, scores, labels, valid = (out[k].cpu().numpy() for k in (
+                "box3d_lidar", "scores", "label_preds", "valid"))
+            if times is not None:
+                times.append(time.perf_counter() - t0)
+            for b in range(boxes.shape[0]):
+                m = valid[b]
+                token = (meta[b]["token"] if b < len(meta) and meta[b]
+                         else f"frame_p0_{len(detections)}")
+                detections[token] = {"box3d_lidar": boxes[b][m], "scores": scores[b][m],
+                                     "label_preds": labels[b][m]}
+    finally:
+        model.train(was_training)
+    return detections
+
+
+def gather_detections(detections: dict) -> dict:
+    """The detections of every process. One process: the identity. The
+    multi-process merge (every rank writes its shard, rank 0 merges) comes
+    with DDP (ROADMAP Queue 1 item 6) and raises."""
+    world_size = (torch.distributed.get_world_size() if torch.distributed.is_available()
+                  and torch.distributed.is_initialized() else 1)
+    if world_size != 1:
+        raise NotImplementedError(
+            f"merging the detections of {world_size} processes comes with data parallelism, "
+            "a later slice (ROADMAP Queue 1 item 6)")
+    return detections
 
 
 class TS_Trainer(Trainer):

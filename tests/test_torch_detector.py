@@ -19,7 +19,7 @@ from sparse2dense_tpu_torch.ops.topk import top_k
 from sparse2dense_tpu_torch.training.synthetic import make_batch
 from sparse2dense_tpu_torch.utils.config import ConfigDict
 
-from tests.test_torch_layers import rand_variables
+from tests.test_torch_layers import flax_shapes, rand_variables
 
 CFG = "configs/tests/distill_tiny.py"
 SEED = 0
@@ -36,14 +36,13 @@ def run():
     jmodel = jax_build_detector(jcfg.S_model, test_cfg=jcfg.test_cfg,
                                 voxel_generator=jcfg.voxel_generator)
     jbatch = jax_make_batch(jcfg, 1, with_targets=False, **FRAME)
-    variables = rand_variables(lambda: jmodel.init(jax.random.PRNGKey(0), jbatch, train=False),
-                               seed=7)
-    jout, coll = jax.jit(lambda v, b: jmodel.apply(v, b, train=False, mutable=["telemetry"])
-                         )(variables, jbatch)
-    jdet = jmodel.predict(jout, jcfg.test_cfg)
-
     tmodel = build_detector(tcfg.S_model, test_cfg=tcfg.test_cfg,
                             voxel_generator=tcfg.voxel_generator, device="cpu")
+    variables = rand_variables(flax_shapes(tmodel), seed=7)
+    jout, coll = jax.jit(lambda v, b: jmodel.apply(v, b, train=False, mutable=["telemetry"])
+                         )(variables, jbatch)
+    jdet = jax.jit(lambda o: jmodel.predict(o, jcfg.test_cfg))(jout)
+
     tmodel.load_state_dict(from_flax(variables, tmodel))
     tbatch = make_batch(tcfg, 1, device="cpu", **FRAME)
     with torch.no_grad():

@@ -35,7 +35,7 @@ from sparse2dense_tpu_torch.training.train_state import make_train_step
 from sparse2dense_tpu_torch.training.trainer import TS_Trainer
 from sparse2dense_tpu_torch.utils.config import ConfigDict
 
-from tests.test_torch_layers import rand_variables
+from tests.test_torch_layers import flax_shapes, rand_variables
 
 CFG = "configs/tests/distill_tiny.py"
 FRAME = dict(max_voxels=512, n_points=3000, n_obj=6, seed=0)
@@ -70,18 +70,16 @@ def ts_and_teacher_steps(engine, teacher_step=True):
     kw = dict(test_cfg=jcfg.test_cfg, voxel_generator=jcfg.voxel_generator)
     jteacher, jstudent = (jax_build_detector(jcfg[k], **kw) for k in ("model", "S_model"))
     jbatch = jax_make_batch(jcfg, 1, distillation=True, **FRAME)
-    t_vars = rand_variables(lambda: jteacher.init(jax.random.PRNGKey(0), jbatch, train=False),
-                            seed=11)
-    s_vars = rand_variables(lambda: jstudent.init(jax.random.PRNGKey(1), jbatch, train=True),
-                            seed=12)
+    tkw = dict(test_cfg=tcfg.test_cfg, voxel_generator=tcfg.voxel_generator, device="cpu")
+    teacher, student = (build_detector(tcfg[k], **tkw) for k in ("model", "S_model"))
+    t_vars = rand_variables(flax_shapes(teacher), seed=11)
+    s_vars = rand_variables(flax_shapes(student, pcr=True), seed=12)
     sgd = optax.sgd(1.0)
     s_state = TrainState.create(apply_fn=jstudent.apply, params=s_vars["params"],
                                 batch_stats=s_vars["batch_stats"], tx=sgd)
     s_state, jmetrics = jax.jit(jax_ts_step(jteacher, jstudent, "centerpoint"))(
         t_vars, s_state, jbatch)
 
-    kw = dict(test_cfg=tcfg.test_cfg, voxel_generator=tcfg.voxel_generator, device="cpu")
-    teacher, student = (build_detector(tcfg[k], **kw) for k in ("model", "S_model"))
     teacher.load_state_dict(from_flax(t_vars, teacher))
     student.load_state_dict(from_flax(s_vars, student))
     batch = make_batch(tcfg, 1, device="cpu", with_targets=True, distillation=True, **FRAME)

@@ -15,7 +15,6 @@ other orders), BN running statistics 1e-5; the step as
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 import torch
 
@@ -28,19 +27,9 @@ from sparse2dense_tpu_torch.models.backbones.scn import (SparseBasicBlock, Spars
 
 from tests.test_torch_distill import (_compare_metrics, _compare_stats, assert_grads_close,
                                       ts_and_teacher_steps)
-from tests.test_torch_layers import rand_variables
+from tests.test_torch_layers import flax_shapes, rand_variables
 
 GRID = (25, 32, 32)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny models' small ops run as fast on it, and
-    the suite's parallel workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -57,10 +46,8 @@ def backbone(request, frame):
     feats, coords = frame
     dfs = request.param
     jmod = JSpMiddleResNetFHD(num_input_features=5, sparse_shape=GRID, dense_from_stage=dfs)
-    variables = rand_variables(
-        lambda: jmod.init(jax.random.PRNGKey(0), jnp.asarray(feats), jnp.asarray(coords)),
-        seed=20 + dfs)
     tmod = SpMiddleResNetFHD(num_input_features=5, sparse_shape=GRID, dense_from_stage=dfs)
+    variables = rand_variables(flax_shapes(tmod), seed=20 + dfs)
     tmod.load_state_dict(from_flax(variables, tmod))
     return dfs, jmod, variables, tmod
 

@@ -16,7 +16,7 @@ from sparse2dense_tpu.models.necks import s2d_rpn as js2d
 from sparse2dense_tpu.models import norm as jnorm
 from sparse2dense_tpu.models.readers.pillar_encoder import VoxelFeatureExtractorV3 as JVFE
 from sparse2dense_tpu.ops.nms import rotated_nms as j_rotated_nms
-from sparse2dense_tpu_torch.convert import from_flax
+from sparse2dense_tpu_torch.convert import _PCR, from_flax
 from sparse2dense_tpu_torch.models.backbones import scn as tscn
 from sparse2dense_tpu_torch.models.heads import center_head as thead
 from sparse2dense_tpu_torch.models.necks import rpn as trpn
@@ -26,15 +26,58 @@ from sparse2dense_tpu_torch.models.readers.pillar_encoder import VoxelFeatureExt
 from sparse2dense_tpu_torch.ops.nms import rotated_nms as t_rotated_nms
 from sparse2dense_tpu_torch.ops.nms_suppression import rotated_iou
 
+# One intra-op thread in every process that imports the port's tests (a
+# test session imports them all when it collects): the tiny models' small
+# ops run as fast on it, and with a team of threads in each of the suite's
+# parallel workers OpenMP's barriers stall every op once the workers'
+# threads outnumber the cores (the port's heaviest tests ran 1.1-1.9x
+# slower on 8 threads a worker than on one, six workers on 8 cores).
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-4, atol=1e-5)
 TASKS = ({"num_class": 3, "class_names": ["VEHICLE", "PEDESTRIAN", "CYCLIST"]},)
 HEADS = {"reg": (2, 2), "height": (1, 2), "dim": (3, 2), "rot": (2, 2)}
 
 
+def flax_shapes(model, pcr=False):
+    """The shapes of the Flax variables of the reference twin of the port's
+    ``model``, read off its ``state_dict`` by inverting ``from_flax``'s
+    renames and layouts; with ``pcr`` the PCR generators, which only a
+    train-mode init of the reference creates. It stands in for
+    ``jax.eval_shape`` of the reference's init, which traces the whole model
+    (up to ~45 s a model on the engines'); ``test_flax_shapes_are_the_inits``
+    holds the two equal."""
+    modules = dict(model.named_modules())
+    tree = {}
+    for key, t in model.state_dict().items():
+        *path, leaf = key.split(".")
+        if leaf == "num_batches_tracked" or (
+                not pcr and len(path) > 1 and path[1] in _PCR.get(path[0], ())):
+            continue
+        shape, coll = tuple(t.shape), "params"
+        if leaf in ("running_mean", "running_var"):
+            coll, leaf = "batch_stats", leaf[len("running_"):]
+        elif leaf.endswith("_weight"):   # sparse kernel (Co, Ci, kz, ky, kx) -> (taps, Ci, Co)
+            leaf, shape = leaf[:-len("_weight")] + "_kernel", (
+                int(np.prod(shape[2:])), shape[1], shape[0])
+        elif leaf == "weight" and len(shape) == 1:
+            leaf = "scale"
+        elif leaf == "weight":
+            transposed = isinstance(modules[".".join(path)],
+                                    (torch.nn.ConvTranspose2d, torch.nn.ConvTranspose3d))
+            leaf, shape = "kernel", shape[2:] + (shape[:2] if transposed else shape[1::-1])
+        node = tree.setdefault(coll, {})
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = jax.ShapeDtypeStruct(shape, jnp.float32)
+    return tree
+
+
 def rand_variables(init_fn, seed=0):
-    """Flax variables with the shapes ``init_fn()`` would give, drawn from a
+    """Flax variables with the shapes ``init_fn()`` would give (or of the
+    shape tree ``init_fn``, as :func:`flax_shapes` gives), drawn from a
     seeded numpy generator: fan-in scaled kernels, BN stats away from 0/1."""
-    shapes = jax.eval_shape(init_fn)
+    shapes = jax.eval_shape(init_fn) if callable(init_fn) else init_fn
     rng = np.random.RandomState(seed)
 
     def fill(path, s):
@@ -236,3 +279,33 @@ def test_backbone_dense_from_stage_0():
         bev, _, telemetry = tm(torch.from_numpy(feats), torch.from_numpy(coords))
     assert telemetry == {}
     np.testing.assert_allclose(bev.numpy(), want, **TOL)
+
+
+def test_flax_shapes_are_the_inits():
+    """``flax_shapes`` of the port's twin equals ``jax.eval_shape`` of the
+    reference's init, leaf for leaf (paths, shapes, the PCR generators of a
+    train-mode init) on distill_tiny's student in training on its default
+    gather engine: sparse kernels, BN, the S2D neck's transposed 2D and 3D
+    convs and the head."""
+    from sparse2dense_tpu.models import build_detector as jax_build_detector
+    from sparse2dense_tpu.training.synthetic import make_batch as jax_make_batch
+    from sparse2dense_tpu.utils import Config
+    from sparse2dense_tpu_torch.models import build_detector
+    from sparse2dense_tpu_torch.utils.config import ConfigDict
+
+    path = "configs/tests/distill_tiny.py"
+    jcfg, tcfg = Config.fromfile(path), ConfigDict.fromfile(path)
+    jm = jax_build_detector(jcfg.S_model, test_cfg=jcfg.test_cfg,
+                            voxel_generator=jcfg.voxel_generator)
+    batch = jax_make_batch(jcfg, 1, max_voxels=256, n_points=1000, n_obj=3,
+                           distillation=True)
+    want = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), batch, train=True))
+    tm = build_detector(tcfg.S_model, test_cfg=tcfg.test_cfg,
+                        voxel_generator=tcfg.voxel_generator, device="cpu")
+
+    def flat(tree):
+        return [(jax.tree_util.keystr(p), tuple(leaf.shape))
+                for p, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+    assert flat(flax_shapes(tm, pcr=True)) == flat(
+        {k: want[k] for k in ("params", "batch_stats")})

@@ -29,7 +29,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "core.box_np_ops", "core.box_coder", "core.anchors",
                  "data.pipelines.assign_target", "models.losses.second_losses",
                  "models.heads.mg_head", "models.backbones.scatter",
-                 "models.detectors.point_pillars"):
+                 "models.detectors.point_pillars", "core.augment", "core.sampler", "core.eval",
+                 "ops.rotated_iou", "ops.voxelize", "data.loader", "data.pipelines.loading",
+                 "data.pipelines.preprocess", "data.pipelines.formating", "data.datasets.waymo",
+                 "data.datasets.waymo_common", "data.datasets.wrappers", "tools.test"):
         assert f"sparse2dense_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"

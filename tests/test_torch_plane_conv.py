@@ -12,15 +12,18 @@ import jax.numpy as jnp
 import torch
 
 from sparse2dense_tpu.ops import plane_conv as JPK
-from sparse2dense_tpu.ops import tile_conv as JTC
-from sparse2dense_tpu.ops import tile_planes as JTP
+from sparse2dense_tpu.ops import tile_conv
+from sparse2dense_tpu.ops import tile_planes
 from sparse2dense_tpu_torch.ops import plane_conv as TPK
 from sparse2dense_tpu_torch.ops import plane_kernel as TPKK
 from sparse2dense_tpu_torch.ops import tile_conv as TTC
 from sparse2dense_tpu_torch.ops import tile_planes as TTP
+from tests.test_torch_plane_sets import JitModule
 
 GRID = (8, 32, 32)
 TOL = dict(rtol=2e-5, atol=2e-5)
+# the reference's chunk-layout functions, jitted one by one
+JTC, JTP = JitModule(tile_conv), JitModule(tile_planes)
 
 
 def _scene(seed, v=500, n_pad=20, grid=GRID):
@@ -187,8 +190,9 @@ def test_downsample_matches_jax(grid, tz, tz_out, pad, budget_out):
     c, co = 8, 12
     y, mask, ts = _chunk_scene(5, grid, tz, 400, c)
     w = (np.random.RandomState(6).randn(27, c, co) * 0.2).astype(np.float32)
-    jy, jm, jts, jg, _ = JTP.downsample(y, mask, ts, grid, jnp.asarray(w), (3, 3, 3), pad,
-                                        tz, tz_out, budget_out)
+    # eager: jitted, the (tz 2 -> 6) case compiles for ~40 s
+    jy, jm, jts, jg, _ = tile_planes.downsample(y, mask, ts, grid, jnp.asarray(w), (3, 3, 3),
+                                                pad, tz, tz_out, budget_out)
     ty_, tm, tts, tg = TTP.downsample(_t(y), _t(mask), _ts_torch(ts), grid, _t(w), (3, 3, 3),
                                       pad, tz, tz_out, budget_out)
     assert tg == tuple(jg)

@@ -3,8 +3,9 @@ student with ``engine="plane"`` (conv1 and conv2_down on the window engine,
 conv2..conv4 as fused plane convs, float32) on the same synthetic frame and
 the same (seeded random) weights. The budgets cover the whole key space of
 every stage, so no plane, chunk or tile can drop and the windows cover every
-neighbour: the reference is exact. JAX runs init shapes, apply and predict
-once for the module (its plane kernel in interpret mode)."""
+neighbour: the reference is exact. JAX runs one jitted apply (its plane
+kernel in interpret mode) and predict for the module (the variable shapes
+read off the port's twin)."""
 import numpy as np
 import pytest
 
@@ -22,7 +23,7 @@ from sparse2dense_tpu_torch.ops import tile_kernel as TTK
 from sparse2dense_tpu_torch.training.synthetic import make_batch
 from sparse2dense_tpu_torch.utils.config import ConfigDict
 
-from tests.test_torch_layers import rand_variables
+from tests.test_torch_layers import flax_shapes, rand_variables
 
 CFG = "configs/tests/distill_tiny.py"
 FRAME = dict(max_voxels=512, n_points=3000, n_obj=6, seed=0)
@@ -42,14 +43,13 @@ def run():
     jmodel = jax_build_detector(jcfg.S_model, test_cfg=jcfg.test_cfg,
                                 voxel_generator=jcfg.voxel_generator)
     jbatch = jax_make_batch(jcfg, 1, with_targets=False, **FRAME)
-    variables = rand_variables(lambda: jmodel.init(jax.random.PRNGKey(0), jbatch, train=False),
-                               seed=11)
-    jout, coll = jax.jit(lambda v, b: jmodel.apply(v, b, train=False, mutable=["telemetry"])
-                         )(variables, jbatch)
-    jdet = jmodel.predict(jout, jcfg.test_cfg)
-
     tmodel = build_detector(tcfg.S_model, test_cfg=tcfg.test_cfg,
                             voxel_generator=tcfg.voxel_generator, device="cpu")
+    variables = rand_variables(flax_shapes(tmodel), seed=11)
+    jout, coll = jax.jit(lambda v, b: jmodel.apply(v, b, train=False, mutable=["telemetry"])
+                         )(variables, jbatch)
+    jdet = jax.jit(lambda o: jmodel.predict(o, jcfg.test_cfg))(jout)
+
     tmodel.load_state_dict(from_flax(variables, tmodel))
     with torch.no_grad():
         tout = tmodel(make_batch(tcfg, 1, device="cpu", **FRAME))

@@ -32,8 +32,37 @@ TILE_TZ = (8, 4, 2, 6)
 DOWNS = (("conv3", (1, 1, 1)), ("conv4", (0, 1, 1)))
 
 
+class JitModule:
+    """A module's functions, each jitted on its first call with every int and
+    tuple-of-int argument static (one compile a function and static
+    arguments instead of one a primitive, eager); a call with no array
+    argument, a class and a constant are the module's own."""
+
+    def __init__(self, module):
+        self.module, self.cache = module, {}
+
+    def __getattr__(self, name):
+        import jax
+
+        fn = getattr(self.module, name)
+        if not callable(fn) or isinstance(fn, type):   # constants, classes
+            return fn
+
+        def call(*args):
+            static = tuple(i for i, a in enumerate(args) if isinstance(a, (int, np.integer))
+                           or (type(a) is tuple and all(isinstance(x, (int, np.integer))
+                                                        for x in a)))
+            if len(static) == len(args):
+                return fn(*args)
+            if (name, static) not in self.cache:
+                self.cache[name, static] = jax.jit(fn, static_argnums=static)
+            return self.cache[name, static](*args)
+
+        return call
+
+
 class _Jax:
-    """The reference's set functions, eager on the CPU."""
+    """The reference's set functions on the CPU, jitted one by one."""
 
     def __init__(self):
         import jax.numpy as jnp
@@ -41,7 +70,8 @@ class _Jax:
         from sparse2dense_tpu.ops import plane_conv, tile_planes, window_conv
         from sparse2dense_tpu.ops.sparse_conv import conv_out_grid
 
-        self.np, self.PK, self.TP, self.WC = jnp, plane_conv, tile_planes, window_conv
+        self.np, self.PK, self.TP, self.WC = (jnp, JitModule(plane_conv), JitModule(tile_planes),
+                                              JitModule(window_conv))
         self.conv_out_grid = conv_out_grid
 
     def arr(self, a):
@@ -55,7 +85,7 @@ class _Jax:
 
     def downsample(self, *args):
         _, mo, tso, grid_out, _ = self.TP.downsample(*args)
-        return mo, tso, grid_out
+        return mo, tso, tuple(int(g) for g in grid_out)
 
 
 class _Torch:

@@ -26,7 +26,6 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from sparse2dense_tpu.models.backbones.scn import SpMiddleResNetFHD as JSpMiddleResNetFHD
 from sparse2dense_tpu.ops import plane_conv as JPK
 from sparse2dense_tpu.ops import tile_conv as JTC
 from sparse2dense_tpu_torch.convert import from_flax
@@ -41,7 +40,7 @@ from sparse2dense_tpu_torch.training.trainer import TS_Trainer
 from sparse2dense_tpu_torch.utils.config import ConfigDict
 
 from tests.test_torch_distill import CFG, FRAME, _compare_stats, _port_grads
-from tests.test_torch_layers import rand_variables
+from tests.test_torch_layers import flax_shapes, rand_variables
 from tests.test_torch_plane_detector import ENGINE as PLANE_ENGINE
 
 GRID = (41, 64, 64)
@@ -50,16 +49,6 @@ SETTINGS = dict(num_input_features=5, sparse_shape=GRID, dense_from_stage=99,
                 tile_budgets=(800, 700, 500, 300), plane_budgets=(1500, 800, 300),
                 plane_window=10 ** 6, win_window=10 ** 6)
 COUNTERS = ("plane_drop", "planek_miss", "plane_chunk_drop", "down_drop")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the small ops run as fast on it, and the suite's
-    parallel workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def scene(seed, v, b):
@@ -214,12 +203,11 @@ def test_plane_block_trains_and_the_tile_blocks_do_not(conv_case):
 @pytest.fixture(scope="module")
 def backbones():
     """Train-mode forward and the gradients of sum(BEV^2) on both engines,
-    from one set of weights (the JAX gather module's shapes)."""
+    from one set of weights (the reference gather module's shapes, read off
+    the port's twin)."""
     feats, coords = scene(2, v=400, b=2)
-    jmod = JSpMiddleResNetFHD(engine="gather", **SETTINGS)
-    variables = rand_variables(
-        lambda: jmod.init(jax.random.PRNGKey(0), jnp.asarray(feats), jnp.asarray(coords)),
-        seed=31)
+    variables = rand_variables(flax_shapes(SpMiddleResNetFHD(engine="gather", **SETTINGS)),
+                               seed=31)
     out = {}
     for engine in ("gather", "plane"):
         mod = SpMiddleResNetFHD(engine=engine, **SETTINGS)

@@ -48,22 +48,12 @@ from sparse2dense_tpu_torch.training.trainer import TS_Trainer
 from sparse2dense_tpu_torch.utils.config import PP, PP_DENSE, ConfigDict
 
 from tests.test_torch_distill import _compare_stats, _port_grads, _sgd_grads, assert_grads_close
-from tests.test_torch_layers import rand_variables
+from tests.test_torch_layers import flax_shapes, rand_variables
 
 CFG = "configs/tests/pp_tiny.py"
 FRAME = dict(max_voxels=256, n_points=3000, n_obj=6, seed=0)
 PFN_KW = dict(num_input_features=5, num_filters=(32, 32), voxel_size=(0.5, 0.5, 6.0),
               pc_range=(-8.0, -8.0, -2.0, 8.0, 8.0, 4.0))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny models' small ops run as fast on it, and
-    the suite's parallel workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def distill_cfg(cfg):
@@ -195,12 +185,10 @@ def build_models():
     kw = dict(test_cfg=jcfg.test_cfg, voxel_generator=jcfg.voxel_generator)
     jteacher, jstudent = (jax_build_detector(jcfg[k], **kw) for k in ("model", "S_model"))
     jbatch = jax_make_batch(jcfg, 2, distillation=True, **FRAME)
-    t_vars = rand_variables(lambda: jteacher.init(jax.random.PRNGKey(0), jbatch, train=False),
-                            seed=11)
-    s_vars = rand_variables(lambda: jstudent.init(jax.random.PRNGKey(1), jbatch, train=True),
-                            seed=12)
     tkw = dict(test_cfg=tcfg.test_cfg, voxel_generator=tcfg.voxel_generator, device="cpu")
     teacher, student = (build_detector(tcfg[k], **tkw) for k in ("model", "S_model"))
+    t_vars = rand_variables(flax_shapes(teacher), seed=11)
+    s_vars = rand_variables(flax_shapes(student, pcr=True), seed=12)
     teacher.load_state_dict(from_flax(t_vars, teacher))
     student.load_state_dict(from_flax(s_vars, student))
     batch = make_batch(tcfg, 2, device="cpu", with_targets=True, distillation=True, **FRAME)
@@ -222,7 +210,7 @@ def teacher_run(models):
     jpreds, jf_a, jf_b = jax.jit(lambda v, b: jt.apply(
         v, b, train=False, return_feature=True, return_recon_feature=True))(
         models["t_vars"], models["jbatch"])
-    jdet = jt.predict(jpreds, models["jcfg"].test_cfg)
+    jdet = jax.jit(lambda p: jt.predict(p, models["jcfg"].test_cfg))(jpreds)
     teacher = models["teacher"].eval()
     with torch.no_grad():
         out = teacher(models["batch"], return_recon_feature=True)
@@ -461,14 +449,13 @@ def _plain(x):
 @pytest.mark.parametrize("variant,path", [("dense_interval_5", PP_DENSE),
                                           ("distill_interval_5", PP)])
 def test_pp_recipe_configs_against_the_zoo(variant, path):
-    """The port's two pillar configs are the reference zoo rows, but for
-    the data layer's entries and the distillation's teacher checkpoint (not
-    in the repository); at full width they build the recipe's models."""
+    """The port's two pillar configs are the reference zoo rows, key for
+    key, the data layer's entries included; the one exemption is the
+    distillation's teacher checkpoint, which is not in the repository. At
+    full width they build the recipe's models."""
     want, got = zoo.waymo_pp(variant), ConfigDict.fromfile(path)
+    assert sorted(got) == sorted(want)
     for key, value in got.items():
-        if key == "data":
-            value = dict(value, **{k: want[key][k] for k in want[key]
-                                   if k not in ("samples_per_gpu", "workers_per_gpu")})
         if key != "load_from":
             assert repr(_plain(value)) == repr(_plain(want[key])), key
     assert got["load_from"] is None

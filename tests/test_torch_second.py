@@ -51,7 +51,7 @@ from sparse2dense_tpu_torch.training.trainer import TS_Trainer
 from sparse2dense_tpu_torch.utils.config import SECOND, SECOND_DENSE, ConfigDict
 
 from tests.test_torch_distill import _compare_stats, _port_grads, _sgd_grads, assert_grads_close
-from tests.test_torch_layers import rand_variables
+from tests.test_torch_layers import flax_shapes, rand_variables
 
 CFG = "configs/tests/second_tiny.py"
 DCFG = "configs/tests/second_distill_tiny.py"
@@ -59,16 +59,6 @@ FRAME = dict(max_voxels=512, n_points=3000, n_obj=6, seed=0)
 # the port's telemetry metric -> the reference's (sown per plan, summed)
 TELEMETRY = {"telemetry/subm0": "telemetry/backbone/win_resid/[0]",
              "telemetry/down1": "telemetry/backbone/down1/win_resid/[0]"}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny models' small ops run as fast on it, and
-    the suite's parallel workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # ------------------------------------------------------------ host side
@@ -228,16 +218,15 @@ def backbone(request, batches):
     feats = np.random.RandomState(7).randn(*coords.shape[:2], 5).astype(np.float32)
     jmod = JSpMiddleFHD(num_input_features=5, sparse_shape=grid, engine=engine,
                         dense_from_stage=dfs)
-    variables = rand_variables(
-        lambda: jmod.init(jax.random.PRNGKey(0), jnp.asarray(feats), jnp.asarray(coords)), seed=9)
+    tmod = SpMiddleFHD(num_input_features=5, sparse_shape=grid, engine=engine,
+                       dense_from_stage=dfs)
+    variables = rand_variables(flax_shapes(tmod), seed=9)
     apply = (jax.jit(lambda v, f, c: jmod.apply(v, f, c, train=True,
                                                 mutable=["batch_stats", "telemetry"]))
              if engine == "window" else
              lambda v, f, c: jmod.apply(v, f, c, train=True,
                                         mutable=["batch_stats", "telemetry"]))
     (jbev, _), mutated = apply(variables, jnp.asarray(feats), jnp.asarray(coords))
-    tmod = SpMiddleFHD(num_input_features=5, sparse_shape=grid, engine=engine,
-                       dense_from_stage=dfs)
     tmod.load_state_dict(from_flax(variables, tmod))
     tmod.train()
     bev, conv4, telemetry = tmod(torch.from_numpy(feats), torch.from_numpy(coords))
@@ -308,15 +297,13 @@ def ts_run():
     kw = dict(test_cfg=jcfg.test_cfg, voxel_generator=jcfg.voxel_generator)
     jteacher, jstudent = (jax_build_detector(jcfg[k], **kw) for k in ("model", "S_model"))
     jbatch = jax_make_batch(jcfg, 1, distillation=True, **FRAME)
-    t_vars = rand_variables(lambda: jteacher.init(jax.random.PRNGKey(0), jbatch, train=False),
-                            seed=11)
-    s_vars = rand_variables(lambda: jstudent.init(jax.random.PRNGKey(1), jbatch, train=True),
-                            seed=12)
+    teacher, student = _ts_models(tcfg)
+    t_vars = rand_variables(flax_shapes(teacher), seed=11)
+    s_vars = rand_variables(flax_shapes(student, pcr=True), seed=12)
     s_state = TrainState.create(apply_fn=jstudent.apply, params=s_vars["params"],
                                 batch_stats=s_vars["batch_stats"], tx=optax.sgd(1.0))
     s_state, jmetrics = jax.jit(jax_ts_step(jteacher, jstudent, "second"))(t_vars, s_state,
                                                                             jbatch)
-    teacher, student = _ts_models(tcfg)
     t_sd, s_sd = from_flax(t_vars, teacher), from_flax(s_vars, student)
     batch = make_batch(tcfg, 1, device="cpu", with_targets=True, distillation=True, **FRAME)
     runs = {"reference": _port_step(ConfigDict.fromfile(DCFG), t_sd, s_sd, batch)}
@@ -382,18 +369,17 @@ def _plain(x):
 @pytest.mark.parametrize("variant,path", [("dense_interval_5", SECOND_DENSE),
                                           ("distill_interval_5", SECOND)])
 def test_second_recipe_configs_against_the_zoo(variant, path):
-    """The port's two SECOND configs are the reference zoo rows, but for the
-    data layer's entries and the distillation's teacher checkpoint (not in
-    the repository); the heads' box coder is its config dict in the port."""
+    """The port's two SECOND configs are the reference zoo rows, key for
+    key, the data layer's entries included; the one exemption is the
+    distillation's teacher checkpoint, which is not in the repository. The
+    heads' box coder is its config dict in the port."""
     want, got = zoo.waymo_second(variant), ConfigDict.fromfile(path)
     for key in ("model", "S_model"):
         if key in got:
             head = got[key]["bbox_head"]
             head["box_coder"] = build_box_coder(head["box_coder"])
+    assert sorted(got) == sorted(want)
     for key, value in got.items():
-        if key == "data":
-            value = dict(value, **{k: want[key][k] for k in want[key]
-                                   if k not in ("samples_per_gpu", "workers_per_gpu")})
         if key != "load_from":
             assert repr(_plain(value)) == repr(_plain(want[key])), key
     assert got["load_from"] is None

@@ -4,8 +4,18 @@ for ``extra_conv``) against JAX at the backbone level: SpMiddleResNetFHD
 with ``engine="tile", tile_backend="pallas"`` on distill_tiny's (41, 32, 32)
 grid, a batch of two random scenes (the batch-flattened tile state and
 plans), float32, the same (seeded random) weights. Budgets cover every key
-and the plan window every tile, so the reference is exact. JAX runs init
-shapes and one apply for the module (its tile kernel in interpret mode)."""
+and the plan window every tile, so the reference is exact.
+
+The JAX side runs the reference's XLA tile backend, one jitted apply (its
+Pallas backend lowers 17 interpret-mode tile kernels: ~40 s more of trace
+and compile). The reference holds its Pallas backend equal to its XLA one
+on this backbone at ``dense_from_stage=99``, with the same tile geometry
+and widths (16 to 128) and an uncut window
+(``tests/test_tilek_backbone.py::test_tilek_matches_tile_engine``), so the
+port's fused backend is held against the reference's kernel through it;
+``tests/test_torch_tile_kernel.py`` holds B3's plain version against the
+interpret-mode kernel directly at 16 and 32 channels. The Flax variable
+shapes are read off the port's twin (``flax_shapes``)."""
 import numpy as np
 import pytest
 
@@ -16,7 +26,7 @@ import torch
 from sparse2dense_tpu.models.backbones.scn import SpMiddleResNetFHD as JaxFHD
 from sparse2dense_tpu_torch.models.backbones.scn import SpMiddleResNetFHD
 
-from tests.test_torch_layers import load, rand_variables
+from tests.test_torch_layers import flax_shapes, load, rand_variables
 from tests.test_torch_tile_detector import COUNTERS, counter_sum
 
 GRID = (41, 32, 32)
@@ -42,12 +52,12 @@ def _scene(seed=0, v=400, b=2):
 @pytest.fixture(scope="module")
 def run():
     feats, coords = _scene()
-    jbb = JaxFHD(**KW)
-    variables = rand_variables(lambda: jbb.init(jax.random.PRNGKey(0), jnp.asarray(feats),
-                                                jnp.asarray(coords), False), seed=17)
+    jbb = JaxFHD(**dict(KW, tile_backend="xla"))
+    tbb = SpMiddleResNetFHD(**KW)
+    variables = rand_variables(flax_shapes(tbb), seed=17)
     (jbev, jms), coll = jax.jit(lambda v, f, c: jbb.apply(v, f, c, False, mutable=["telemetry"])
                                 )(variables, jnp.asarray(feats), jnp.asarray(coords))
-    tbb = load(SpMiddleResNetFHD(**KW), variables)
+    tbb = load(tbb, variables)
     with torch.no_grad():
         tbev, tms, tele = tbb(torch.from_numpy(feats), torch.from_numpy(coords))
     return dict(jbev=jbev, jms=jms, jtele=coll["telemetry"], tbev=tbev, tms=tms, tele=tele,

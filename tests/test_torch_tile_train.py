@@ -60,16 +60,6 @@ from tests.test_torch_tile_detector import COUNTERS
 CONV_GRID, CONV_TZ, CONV_BUDGET = (8, 32, 32), 4, 120
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the small ops run as fast on it, and the suite's
-    parallel workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _coords(seed, grid, v, n_pad):
     rng = np.random.RandomState(seed)
     lin = rng.choice(int(np.prod(grid)), v, replace=False)

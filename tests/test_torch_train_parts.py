@@ -32,7 +32,7 @@ from sparse2dense_tpu_torch.training.synthetic import make_batch
 from sparse2dense_tpu_torch.utils.config import ConfigDict
 
 from tests.test_torch_distill import assert_grads_close
-from tests.test_torch_layers import load, rand_variables
+from tests.test_torch_layers import flax_shapes, load, rand_variables
 
 CFG = "configs/tests/distill_tiny.py"
 FRAME = dict(max_voxels=256, n_points=1500, n_obj=5, seed=3)
@@ -153,7 +153,7 @@ def test_s2d_rpn_train_pcr_generators():
     reference's folded generators, unfolded; and the BN statistics."""
     x = np.random.RandomState(5).randn(2, 8, 8, 24).astype(np.float32)
     jm, tm = js2d.S2D_RPN(**NECK), ts2d.S2D_RPN(**NECK)
-    v = rand_variables(lambda: jm.init(jax.random.PRNGKey(0), x, True))
+    v = rand_variables(flax_shapes(tm))   # a train-mode tree: the PCR generators too
     tm = load(tm, v).train()
     want, mutated = jax.jit(lambda v, x: jm.apply(v, x, True, mutable=["batch_stats"]))(v, x)
     with torch.no_grad():
@@ -184,7 +184,7 @@ def test_backbone_train_all_dense():
     feats, coords = feats[None], coords[None]
     kw = dict(num_input_features=5, sparse_shape=grid, engine="window", dense_from_stage=0)
     jm, tm = jscn.SpMiddleResNetFHD(**kw), tscn.SpMiddleResNetFHD(**kw)
-    v = rand_variables(lambda: jm.init(jax.random.PRNGKey(0), feats, coords, False))
+    v = rand_variables(flax_shapes(tm))
     tm = load(tm, v).train()
     proj = np.random.RandomState(9).randn(1, 4, 4, 256).astype(np.float32)
 

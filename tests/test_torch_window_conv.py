@@ -118,10 +118,15 @@ def _plans_for(ksize, window):
 @pytest.mark.parametrize("ksize,window", [((3, 3, 3), 128), ((3, 3, 3), 256),
                                           ((3, 1, 1), 128)])
 def test_window_pass_plain_matches_jax(ksize, window):
+    """The plain window pass against the reference's formula and, for the
+    z-only strided plan, against its interpret-mode Pallas kernel in both
+    residencies; for the 3x3x3 subm plans at windows 128 and 256 the
+    reference holds that kernel equal to its formula itself
+    (``tests/test_window_kernel.py``, both residencies)."""
     jf, jp, tf, tp, jw, tw = _plans_for(ksize, window)
     got = TWK.window_pass(tf, tp, tw, ksize=ksize).numpy()  # CPU: plain version
     np.testing.assert_allclose(got, np.asarray(JWC._window_pass_reference(jf, jp, jw)), **TOL)
-    for residency in ("vmem", "hbm"):
+    for residency in ("vmem", "hbm") if ksize == (3, 1, 1) else ():
         want = window_pass_pallas(jf, jp, jw, ksize=ksize, interpret=True,
                                   compute_dtype=jnp.float32, residency=residency)
         np.testing.assert_allclose(got, np.asarray(want), **TOL, err_msg=residency)
