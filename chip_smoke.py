@@ -190,7 +190,22 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    candidates reach the NMS and the evaluator's matching (more than 0
    detections, a finite mAP, ms a frame); the val boxes scored as
    detections evaluate to 1; every line with the card's name and power limit;
-13. agreement: the tiny distillation model on the card against the same model
+13. dp: data parallelism on the one card (``phase_dp``; NCCL refuses two
+   ranks on one device): ``tools/train.py --launcher pytorch`` at world
+   size 1 through NCCL on phase 12's records (batch 3, 2 steps, 108 window
+   passes, a checkpoint, one NCCL all-reduce); the flagship teacher-student
+   step at two spawned ranks of one sample through gloo on the card against
+   this process at batch 2 on the same samples, in four precisions
+   (``DP_CASES``: float32, bf16 dense stages alone, TF32 alone, 1 step each;
+   as shipped, 3 steps; the first step's metrics and gradients within
+   ``DP_F32_TOL`` in float32 and ``DP_TOL`` as shipped, both also read
+   against the one process run again): the ranks' parameters equal to the bit
+   after each step, each rank's step ms, gradient all-reduce ms, peak GiB
+   and window passes; ``tools/test.py --launcher pytorch`` at world size 2
+   on the val records: rank 0's merged detections against phase 12's one
+   process within ``DP_DET_TOL``, rank 1 None. The ranks find the kernels
+   phase 2 built;
+14. agreement: the tiny distillation model on the card against the same model
    on the CPU (plain versions only), window, plane and tile engines; the
    tiny tile backbone's train-mode forward and backward on the card (B3
    under autograd) against the CPU: BEV and every gradient within
@@ -201,9 +216,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    each window-engine conv weight's gradient within 2e-2 (the tiny step is
    ill-conditioned: ``_ts_step_agreement`` says how much).
 
-TF32 is switched off for cuDNN and matmuls in phases 2, 13, the gather
+TF32 is switched off for cuDNN and matmuls in phases 2, 14, the gather
 comparison of 9 and the tiny step of 11, which compare against float32
-plain versions or the CPU; the rest of phases 3 to 12 run at PyTorch's
+plain versions or the CPU; the rest of phases 3 to 13 run at PyTorch's
 defaults (TF32 on in cuDNN convs, off in matmuls). With TF32 off cuDNN picks an FFT
 algorithm for the neck's 3x3 convs that costs ~200 ms a frame on an H100
 (``sparse2dense_tpu_torch/tools/profile_flagship.py``). The second-to-last
@@ -219,6 +234,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -2518,10 +2534,10 @@ def _data_host(cfg):
     return res
 
 
-def phase_data(smi):
-    """The flagship recipe from records: ``_write_records`` under a
-    temporary directory, the recipe's text with its data paths pointed at
-    them; the host pipeline's ms a sample (train: 5 voxel streams and the
+def phase_data(smi, tmp):
+    """The flagship recipe from records: ``_write_records`` under ``tmp``
+    (a temporary directory that phase "dp" reads too), the recipe's text
+    with its data paths pointed at them; the host pipeline's ms a sample (train: 5 voxel streams and the
     targets; val), the native voxelizer against its NumPy version on one
     frame (bit for bit, and their ms); ``tools/train.py`` on it (1 epoch of
     ``DATA_STEPS`` teacher-student steps at the recipe's batch of 3, its 4
@@ -2532,9 +2548,9 @@ def phase_data(smi):
     threshold 0 (``EVAL_APPEND``): more than 0 detections, a finite mAP, 6
     window passes a frame; the val boxes themselves, scored as detections,
     evaluate to a mAP of 1. Launch counts set to 0 just before
-    each run and read just after."""
+    each run and read just after. Returns the results, and for phase "dp"
+    the configs' paths and the untrained student's detections."""
     import gc
-    import tempfile
 
     import numpy as np
     import torch
@@ -2546,84 +2562,84 @@ def phase_data(smi):
     from sparse2dense_tpu_torch.utils.config import FLAGSHIP, ConfigDict
 
     t0, res = time.perf_counter(), {}
-    with tempfile.TemporaryDirectory() as tmp:
-        paths = _write_records(tmp)
-        cfg_path = os.path.join(tmp, "flagship_records.py")
-        with open(FLAGSHIP) as f, open(cfg_path, "w") as out:
-            out.write(f.read() + DATA_APPEND.format(root=tmp, **paths))
-        eval_path = os.path.join(tmp, "flagship_records_eval.py")
-        with open(cfg_path) as f, open(eval_path, "w") as out:
-            out.write(f.read() + EVAL_APPEND)
-        cfg = ConfigDict.fromfile(cfg_path)
-        res["records_s"] = time.perf_counter() - t0
-        res.update(_data_host(cfg))
+    paths = _write_records(tmp)
+    cfg_path = os.path.join(tmp, "flagship_records.py")
+    with open(FLAGSHIP) as f, open(cfg_path, "w") as out:
+        out.write(f.read() + DATA_APPEND.format(root=tmp, **paths))
+    eval_path = os.path.join(tmp, "flagship_records_eval.py")
+    with open(cfg_path) as f, open(eval_path, "w") as out:
+        out.write(f.read() + EVAL_APPEND)
+    cfg = ConfigDict.fromfile(cfg_path)
+    res["records_s"] = time.perf_counter() - t0
+    res.update(_data_host(cfg))
 
-        work, evald = os.path.join(tmp, "work"), os.path.join(tmp, "eval")
-        WK.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        trainer = train_cli.main([cfg_path, "--work_dir", work, "--epochs", "1"])
-        res["train_launches"] = WK.launches
-        res["train_peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        history = trainer.log_buffer.val_history
-        _check_metrics("data train", {k: v for k, v in history.items()
-                                      if k not in ("time", "data_time")})
-        if trainer.global_iter != DATA_STEPS or not os.path.exists(
-                os.path.join(work, "epoch_1")):
-            raise AssertionError(f"data: {trainer.global_iter} steps, {os.listdir(work)}")
-        want = TRAIN_LAUNCHES * cfg.data["samples_per_gpu"] * DATA_STEPS
-        if res["train_launches"] != want:
-            raise AssertionError(f"data: {res['train_launches']} window passes in training, "
-                                 f"expected {want}")
-        res["step_s"], res["data_wait_s"] = history["time"], history["data_time"]
-        del trainer
-        gc.collect()
-        torch.cuda.empty_cache()
+    work, evald = os.path.join(tmp, "work"), os.path.join(tmp, "eval")
+    WK.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    trainer = train_cli.main([cfg_path, "--work_dir", work, "--epochs", "1"])
+    res["train_launches"] = WK.launches
+    res["train_peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    history = trainer.log_buffer.val_history
+    _check_metrics("data train", {k: v for k, v in history.items()
+                                  if k not in ("time", "data_time")})
+    if trainer.global_iter != DATA_STEPS or not os.path.exists(
+            os.path.join(work, "epoch_1")):
+        raise AssertionError(f"data: {trainer.global_iter} steps, {os.listdir(work)}")
+    want = TRAIN_LAUNCHES * cfg.data["samples_per_gpu"] * DATA_STEPS
+    if res["train_launches"] != want:
+        raise AssertionError(f"data: {res['train_launches']} window passes in training, "
+                             f"expected {want}")
+    res["step_s"], res["data_wait_s"] = history["time"], history["data_time"]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
 
-        WK.launches = 0
-        detections, (result, _), times = test_cli.main(
-            [cfg_path, "--checkpoint", os.path.join(work, "latest"), "--work_dir", evald,
-             "--speed_test"])
-        res["val_launches"] = WK.launches
-        if res["val_launches"] != EXPECTED_LAUNCHES["window"][0] * DATA_VAL_FRAMES:
-            raise AssertionError(f"data: {res['val_launches']} window passes over "
-                                 f"{DATA_VAL_FRAMES} val frames")
-        if sorted(detections) != [f"val_{i}" for i in range(DATA_VAL_FRAMES)] or \
-                not os.path.exists(os.path.join(evald, "detection_pred.pkl")) or \
-                not isinstance(result, dict) or "local_bev_mAP" not in result:
-            raise AssertionError(f"data: evaluation {result}, detections {sorted(detections)}")
-        res["test_ms_frame"] = [1000 * t for t in times]
-        res["detections"] = sum(len(d["scores"]) for d in detections.values())
-        res["local_bev_mAP"] = result["local_bev_mAP"]
+    WK.launches = 0
+    detections, (result, _), times = test_cli.main(
+        [cfg_path, "--checkpoint", os.path.join(work, "latest"), "--work_dir", evald,
+         "--speed_test"])
+    res["val_launches"] = WK.launches
+    if res["val_launches"] != EXPECTED_LAUNCHES["window"][0] * DATA_VAL_FRAMES:
+        raise AssertionError(f"data: {res['val_launches']} window passes over "
+                             f"{DATA_VAL_FRAMES} val frames")
+    if sorted(detections) != [f"val_{i}" for i in range(DATA_VAL_FRAMES)] or \
+            not os.path.exists(os.path.join(evald, "detection_pred.pkl")) or \
+            not isinstance(result, dict) or "local_bev_mAP" not in result:
+        raise AssertionError(f"data: evaluation {result}, detections {sorted(detections)}")
+    res["test_ms_frame"] = [1000 * t for t in times]
+    res["detections"] = sum(len(d["scores"]) for d in detections.values())
+    res["local_bev_mAP"] = result["local_bev_mAP"]
 
-        WK.launches = 0
-        detections, (result, _), times = test_cli.main(
-            [eval_path, "--work_dir", os.path.join(tmp, "eval_untrained"), "--speed_test"])
-        res["untrained_val_launches"] = WK.launches
-        res["untrained_test_ms_frame"] = [1000 * t for t in times]
-        res["untrained_detections"] = sum(len(d["scores"]) for d in detections.values())
-        res["untrained_bev_mAP"] = result["local_bev_mAP"]
-        if res["untrained_val_launches"] != res["val_launches"] or \
-                res["untrained_detections"] == 0 or not math.isfinite(res["untrained_bev_mAP"]):
-            raise AssertionError(
-                f"data: the untrained student at score threshold 0: "
-                f"{res['untrained_detections']} detections, local BEV mAP "
-                f"{res['untrained_bev_mAP']}, {res['untrained_val_launches']} window passes")
-        # the evaluator's matching: the val frames' own boxes, scored 1, score 1
-        val_set = build_dataset(cfg.data["val"])
-        names = list(val_set._class_names)
-        truth = {}
-        for info in val_set.infos:
-            keep = [i for i, n in enumerate(info["gt_names"]) if n in names]
-            truth[info["token"]] = {
-                "box3d_lidar": np.asarray(info["gt_boxes"])[keep],
-                "scores": np.ones(len(keep), np.float32),
-                "label_preds": np.asarray([names.index(info["gt_names"][i]) for i in keep])}
-        os.makedirs(os.path.join(tmp, "truth"))
-        ideal, _ = val_set.evaluation(truth, output_dir=os.path.join(tmp, "truth"))
-        res["truth_bev_mAP"] = ideal["local_bev_mAP"]
-        if abs(res["truth_bev_mAP"] - 1.0) > 1e-6:
-            raise AssertionError(f"data: the val boxes scored as detections give a local BEV "
-                                 f"mAP of {res['truth_bev_mAP']}, not 1")
+    WK.launches = 0
+    detections, (result, _), times = test_cli.main(
+        [eval_path, "--work_dir", os.path.join(tmp, "eval_untrained"), "--speed_test"])
+    untrained = detections
+    res["untrained_val_launches"] = WK.launches
+    res["untrained_test_ms_frame"] = [1000 * t for t in times]
+    res["untrained_detections"] = sum(len(d["scores"]) for d in detections.values())
+    res["untrained_bev_mAP"] = result["local_bev_mAP"]
+    if res["untrained_val_launches"] != res["val_launches"] or \
+            res["untrained_detections"] == 0 or not math.isfinite(res["untrained_bev_mAP"]):
+        raise AssertionError(
+            f"data: the untrained student at score threshold 0: "
+            f"{res['untrained_detections']} detections, local BEV mAP "
+            f"{res['untrained_bev_mAP']}, {res['untrained_val_launches']} window passes")
+    # the evaluator's matching: the val frames' own boxes, scored 1, score 1
+    val_set = build_dataset(cfg.data["val"])
+    names = list(val_set._class_names)
+    truth = {}
+    for info in val_set.infos:
+        keep = [i for i, n in enumerate(info["gt_names"]) if n in names]
+        truth[info["token"]] = {
+            "box3d_lidar": np.asarray(info["gt_boxes"])[keep],
+            "scores": np.ones(len(keep), np.float32),
+            "label_preds": np.asarray([names.index(info["gt_names"][i]) for i in keep])}
+    os.makedirs(os.path.join(tmp, "truth"))
+    ideal, _ = val_set.evaluation(truth, output_dir=os.path.join(tmp, "truth"))
+    res["truth_bev_mAP"] = ideal["local_bev_mAP"]
+    if abs(res["truth_bev_mAP"] - 1.0) > 1e-6:
+        raise AssertionError(f"data: the val boxes scored as detections give a local BEV "
+                             f"mAP of {res['truth_bev_mAP']}, not 1")
     gc.collect()
     torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t0
@@ -2645,6 +2661,270 @@ def phase_data(smi):
           f"as detections: {res['truth_bev_mAP']}; B1 {res['val_launches']}; phase {res['seconds']:.1f} s "
           f"(records {res['records_s']:.1f} s) | {smi}", flush=True)
     print("[data] " + json.dumps(res), flush=True)
+    return res, dict(cfg_path=cfg_path, eval_path=eval_path, untrained=untrained)
+
+
+# phase "dp": the flagship teacher-student step at two ranks of one sample on
+# the one card (gloo) against this process at batch 2 on the same samples, in
+# four precisions: float32 (dense stages in float32, TF32 off), bf16 (the
+# shipped bf16 dense stages, TF32 off), tf32 (dense stages in float32, TF32 in
+# cuDNN, as shipped) and as shipped (both). The batch of 2 and the batch of 1
+# round differently where the sums are in reduced precision (cuDNN's
+# algorithms by batch size, the order of the sums); the shipped one process
+# is bit-equal to itself, so its gap is that rounding, the same in every run:
+# step 0 read 7.52e-3 (metrics, relative) and 0.772 (gradients, of their
+# module's largest) in five runs; bf16 alone 1.72e-2 / 0.695, TF32 alone
+# 5.77e-3 / 0.313, float32 1.51e-4 / 2.80e-2 (2.80e-2-3.35e-2 in seven
+# runs), where the float32 one process
+# against itself (CUDA's atomic sums) reads up to 7.6e-4 / 0.269 (PERF.md
+# §6). DP_TOL and DP_F32_TOL bound the first step from those readings;
+# later steps are printed (Adam's first steps move by their learning rate
+# either way a parameter whose gradient is a rounding residue).
+DP_STEPS = 3
+DP_TOL = {"metrics": 1e-2, "grads": 1.0}
+DP_F32_TOL = {"metrics": 1e-3, "grads": 1e-1}
+F32 = dict(dense_compute_dtype=None)
+DP_CASES = (   # (tag, steps, job fields, tolerance of the first step)
+    ("float32", 1, dict(backbone=F32, tf32=False), DP_F32_TOL),
+    ("bf16", 1, dict(tf32=False), None),
+    ("tf32", 1, dict(backbone=F32), None),
+    ("shipped", DP_STEPS, {}, DP_TOL),
+)
+DP_DET_TOL = 1e-3   # merged detections against one process (boxes, scores)
+
+
+def _scaled_grad_gaps(got, want):
+    """max |got - want| / the module's largest |want|, over each module."""
+    scale, gap = {}, {}
+    for name, g in want.items():
+        module = name.rsplit(".", 1)[0]
+        scale[module] = max(scale.get(module, 0.0), float(g.abs().max()))
+    for name, g in want.items():
+        module = name.rsplit(".", 1)[0]
+        gap[module] = max(gap.get(module, 0.0),
+                          float((got[name] - g).abs().max()) / max(scale[module], 1e-30))
+    return gap
+
+
+def _metric_gaps(got, want):
+    return {k: abs(got[k] - v) / max(abs(v), 1e-12) for k, v in want.items()}
+
+
+def _dp_steps(tmp, job, tol, again=False):
+    """The job's steps at two spawned ranks (``steps_worker``), then in this
+    process on the joined batch (``one_process_steps``): the ranks' state
+    and metrics equal after every step, their parameter gaps 0, the same
+    window passes in each; the first step's metrics and gradients against
+    the one process within ``tol`` (None: the gaps are
+    read, not held). Returns the times, peaks, launches and gaps (printed
+    before any check fails). With ``again`` the one process runs twice: its
+    gap to itself (CUDA's atomic sums differ from run to run)."""
+    import gc
+
+    import torch
+
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+    from sparse2dense_tpu_torch.parallel.launch import one_process_steps, spawn, steps_worker
+
+    path, res = os.path.join(tmp, "job.pt"), {}
+    torch.save(job, path)
+    gc.collect()
+    torch.cuda.empty_cache()   # the ranks share the card with this process
+    t0 = time.perf_counter()
+    spawn(steps_worker, 2, (path, tmp), timeout=600)
+    res["ranks_s"] = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"steps_rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    WK.launches = 0
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        one = one_process_steps(job, "cuda")["rows"]
+        if again:
+            twice = one_process_steps(job, "cuda")["rows"]
+            res["self_metric_gaps"] = [max(_metric_gaps(b["metrics"], a["metrics"]).values())
+                                       for a, b in zip(one, twice)]
+            res["self_grad_gaps"] = [max(_scaled_grad_gaps(b["grads"], a["grads"]).values())
+                                     for a, b in zip(one, twice)]
+            del twice
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+    res["one_launches"] = WK.launches
+    for r, rank in enumerate(ranks):
+        rows = rank["rows"]
+        res[f"rank{r}_step_ms"] = [row["step_ms"] for row in rows]
+        res[f"rank{r}_allreduce_ms"] = [row["stages"]["allreduce"] for row in rows]
+        res[f"rank{r}_peak_gb"] = max(row["peak_gb"] for row in rows)
+        res[f"rank{r}_launches"] = sum(row["window_pass_launches"] for row in rows)
+        res[f"rank{r}_param_gaps"] = rank["param_gaps"]
+    res["one_step_ms"] = [row["step_ms"] for row in one]
+    res["one_peak_gb"] = max(row["peak_gb"] for row in one)
+    res["metric_gaps"], res["grad_gaps"], res["worst"], res["ranks_equal"] = [], [], [], []
+    for step in range(job["steps"]):
+        r0, r1 = (rank["rows"][step] for rank in ranks)
+        res["ranks_equal"].append(r0["metrics"] == r1["metrics"] and all(
+            torch.equal(r0["model"][k], r1["model"][k]) for k in r0["model"]))
+        mg = _metric_gaps(r0["metrics"], one[step]["metrics"])
+        gg = _scaled_grad_gaps(r0["grads"], one[step]["grads"])
+        res["metric_gaps"].append(max(mg.values()))
+        res["grad_gaps"].append(max(gg.values()))
+        res["worst"].append([max(mg, key=mg.get)] + sorted(gg, key=gg.get)[-3:])
+    print(f"[dp] {json.dumps({k: v for k, v in res.items()})}", flush=True)
+    if not all(res["ranks_equal"]):
+        raise AssertionError(f"dp: the ranks differ after a step: {res['ranks_equal']}")
+    if tol is not None and (res["metric_gaps"][0] > tol["metrics"] or
+                            res["grad_gaps"][0] > tol["grads"]):
+        raise AssertionError(f"dp: the first step against one process: metrics "
+                             f"{res['worst'][0][0]} {res['metric_gaps'][0]:.3e}, gradients "
+                             f"{res['worst'][0][1:]} {res['grad_gaps'][0]:.3e} (tolerance {tol})")
+    _check_metrics("dp gloo", {k: [r["metrics"][k] for r in ranks[0]["rows"]]
+                               for k in ranks[0]["rows"][0]["metrics"]})
+    if any(g != 0.0 for r in range(2) for g in res[f"rank{r}_param_gaps"]) or \
+            res["rank0_launches"] != res["rank1_launches"] or \
+            res["rank0_launches"] != TRAIN_LAUNCHES * job["steps"]:
+        raise AssertionError(f"dp: parameter gaps {res['rank0_param_gaps']}, "
+                             f"{res['rank1_param_gaps']}; window passes "
+                             f"{res['rank0_launches']}, {res['rank1_launches']}")
+    return res
+
+
+def phase_dp(smi, data):
+    """Data parallelism on the one card (NCCL refuses two ranks on one
+    device, so world size 1 runs NCCL and world size 2 gloo, which stages
+    the CUDA tensors of its all-reduces and broadcasts through the host):
+    (a) ``tools/train.py --launcher pytorch`` at world size 1 through NCCL
+    (torchrun's variables set in this process) on phase 12's records at the
+    recipe's batch of 3: ``DATA_STEPS`` steps, finite losses, a checkpoint,
+    54 window passes a step; (b) the flagship teacher-student step at two
+    spawned ranks of one sample (``parallel.launch.steps_worker``, gloo on
+    ``cuda:0``), then this process at batch 2 on the same two samples
+    (``one_process_steps``; ``_dp_steps``), in the precisions of
+    ``DP_CASES`` (float32, the bf16 dense stages alone and TF32 alone for one
+    step, as shipped for ``DP_STEPS`` steps; the first step's metrics and
+    gradients within ``DP_F32_TOL`` in float32 and ``DP_TOL`` as shipped,
+    later steps printed): the ranks' parameters
+    equal to the bit after every step; each rank's and the
+    one process's step ms, the gradient all-reduce's ms a step, the ranks'
+    peak GiB and window passes (18 a step each); (c) ``tools/test.py --launcher
+    pytorch`` at world size 2 (gloo, ``cuda:0``) on the val records with
+    the untrained student at score threshold 0: rank 0's merged detections
+    (5 frames, the wrapped shards' duplicate dropped) against phase 12's one
+    process within ``DP_DET_TOL``, rank 1 None, 18 window passes a rank."""
+    import gc
+    import pickle
+
+    import torch
+
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+    from sparse2dense_tpu_torch.parallel import dist
+    from sparse2dense_tpu_torch.parallel.launch import cli_worker, spawn
+    from sparse2dense_tpu_torch.tools import train as train_cli
+    from sparse2dense_tpu_torch.tools.profile_train_step import FRAME
+    from sparse2dense_tpu_torch.training.synthetic import make_batch
+    from sparse2dense_tpu_torch.utils.config import FLAGSHIP, ConfigDict, frame_voxels
+
+    t0, res = time.perf_counter(), {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) world size 1 through NCCL, as torchrun starts a rank
+        env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(dist.free_port()))
+        os.environ.update(env)
+        work = os.path.join(tmp, "nccl")
+        try:
+            WK.launches = 0
+            trainer = train_cli.main([data["cfg_path"], "--work_dir", work, "--epochs", "1",
+                                      "--launcher", "pytorch"])
+            res["nccl_launches"] = WK.launches
+            res["nccl_backend"] = torch.distributed.get_backend()
+            res["nccl_world"] = dist.world_size()
+            probe = torch.ones(1, device="cuda")   # one NCCL collective on the card
+            torch.distributed.all_reduce(probe)
+            res["nccl_all_reduce"] = float(probe)
+        finally:
+            dist.close_distributed()
+            for key in env:
+                os.environ.pop(key)
+        history = trainer.log_buffer.val_history
+        _check_metrics("dp nccl", {k: v for k, v in history.items()
+                                   if k not in ("time", "data_time")})
+        res["nccl_step_s"] = history["time"]
+        want = TRAIN_LAUNCHES * 3 * DATA_STEPS
+        if (res["nccl_backend"], res["nccl_world"], res["nccl_all_reduce"]) != ("nccl", 1, 1.0) or \
+                trainer.global_iter != DATA_STEPS or res["nccl_launches"] != want or \
+                not os.path.exists(os.path.join(work, "epoch_1")):
+            raise AssertionError(f"dp nccl: {res['nccl_backend']} world {res['nccl_world']}, "
+                                 f"{trainer.global_iter} steps, {res['nccl_launches']} window "
+                                 f"passes (expected {want}), {os.listdir(work)}")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) two ranks of one sample on the one card (gloo), then this
+        # process at batch 2 on the same samples: as shipped, then in float32
+        cfg = ConfigDict.fromfile(FLAGSHIP)
+        batch = make_batch(cfg, 2, max_voxels=frame_voxels(cfg, train=True), device="cpu",
+                           with_targets=True, distillation=True, **FRAME)
+        for tag, steps, extra, tol in DP_CASES:
+            res[tag] = _dp_steps(tmp, dict(config=FLAGSHIP, kind="ts", per_rank=1, steps=steps,
+                                           device="cuda:0", batch=batch, **extra), tol,
+                                 again=tol is not None)
+        del batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) tools/test.py at world size 2 (gloo) on the val records
+        evald = os.path.join(tmp, "eval")
+        spawn(cli_worker, 2, ("test", [data["eval_path"], "--work_dir", evald, "--device",
+                                       "cuda:0", "--launcher", "pytorch"], tmp),
+              timeout=600)
+        test = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"test_rank{r}.pkl"), "rb") as f:
+                test.append(pickle.load(f))
+        res["test_launches"] = [t["window_pass_launches"] for t in test]
+        want, got = data["untrained"], test[0]["detections"]
+        if test[1]["detections"] is not None or got is None or sorted(got) != sorted(want):
+            raise AssertionError(f"dp test: rank 0 {None if got is None else sorted(got)}, "
+                                 f"rank 1 {test[1]['detections'] is None}")
+        gap = 0.0
+        for token, det in want.items():
+            if len(det["scores"]) != len(got[token]["scores"]) or \
+                    (det["label_preds"] != got[token]["label_preds"]).any():
+                raise AssertionError(f"dp test: {token}: {len(got[token]['scores'])} "
+                                     f"detections, one process {len(det['scores'])}")
+            for k in ("box3d_lidar", "scores"):
+                gap = max(gap, float(abs(got[token][k] - det[k]).max(initial=0.0)))
+        res["detection_gap"] = gap
+        if gap > DP_DET_TOL or res["test_launches"] != [
+                EXPECTED_LAUNCHES["window"][0] * 3] * 2:
+            raise AssertionError(f"dp test: detections {gap:.3e} from one process, window "
+                                 f"passes {res['test_launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[dp] world size 1 through NCCL: tools/train.py --launcher pytorch at batch 3, steps "
+          f"{', '.join(f'{1000 * t:.1f}' for t in res['nccl_step_s'])} ms, B1 "
+          f"{res['nccl_launches']} | {smi}", flush=True)
+    for tag, *_ in DP_CASES:
+        r = res[tag]
+        ms = {k: ", ".join(f"{t:.1f}" for t in v) for k, v in r.items() if k.endswith("_ms")}
+        print(f"[dp] two ranks on one card through gloo, flagship teacher-student step ({tag}) "
+              f"at batch 1 a rank: step ms rank 0 {ms['rank0_step_ms']}, rank 1 "
+              f"{ms['rank1_step_ms']}; one process at batch 2 {ms['one_step_ms']}; gradient "
+              f"all-reduce {ms['rank0_allreduce_ms']} ms a step; peak GiB "
+              f"{r['rank0_peak_gb']:.2f} / {r['rank1_peak_gb']:.2f} (one process "
+              f"{r['one_peak_gb']:.2f}); B1 {r['rank0_launches']} / {r['rank1_launches']}; "
+              f"parameters equal across ranks after every step; against one process: metrics "
+              f"{', '.join(f'{g:.2e}' for g in r['metric_gaps'])}, gradients "
+              f"{', '.join(f'{g:.2e}' for g in r['grad_gaps'])} of the module's largest "
+              f"(worst {r['worst']}) | {smi}", flush=True)
+    print(f"[dp] tools/test.py --launcher pytorch, two ranks (gloo): merged detections within "
+          f"{res['detection_gap']:.3e} of one process; B1 {res['test_launches']}; phase "
+          f"{res['seconds']:.1f} s | {smi}", flush=True)
+    print("[dp] " + json.dumps(res), flush=True)
     return res
 
 
@@ -2689,7 +2969,9 @@ def main() -> int:
     second = phase_second()
     engines = phase_engines(plane, tile)
     pp = phase_pp()
-    data = phase_data(smi)
+    with tempfile.TemporaryDirectory() as records:
+        data, for_dp = phase_data(smi, records)
+        dp = phase_dp(smi, for_dp)
     with no_tf32():
         phase_agreement()
 
@@ -2701,7 +2983,11 @@ def main() -> int:
                 "second": second["frame"]["launches"], "second_train": second["train_launches"],
                 "second_cli": second["cli"]["launches"], "data_train": data["train_launches"],
                 "data_val": data["val_launches"],
-                "data_val_untrained": data["untrained_val_launches"]}
+                "data_val_untrained": data["untrained_val_launches"],
+                "dp_nccl_train": dp["nccl_launches"],
+                **{f"dp_gloo_{tag}_{who}": dp[tag][f"{who}_launches"]
+                   for tag, *_ in DP_CASES for who in ("rank0", "rank1", "one")},
+                "dp_test_rank0": dp["test_launches"][0], "dp_test_rank1": dp["test_launches"][1]}
     b2_paths = {"plane": plane["launches"]["plane_subm"]}
     b3_paths = {"tile": tile["launches"]["tile_subm"]}
     for tag, r in engines.items():

@@ -138,14 +138,22 @@ def collate_tensors(examples, max_voxels: int) -> dict:
 
 
 class InputPipeline:
-    """Iterable over an epoch's batches on ``device`` (CUDA unless given)."""
+    """Iterable over an epoch's batches on ``device`` (CUDA unless given).
+    Under data parallelism each process takes shard ``shard_id`` of
+    ``num_shards`` (its rank of the world); ``drop_last`` cuts the shards to
+    equal length (training, as the JAX pipeline), else they wrap (the val
+    set: every frame is seen, the duplicates go at the merge). A sample is
+    the same whichever rank draws it: its draws come from its (seed, epoch,
+    index) key."""
 
     def __init__(self, dataset, batch_size: int, max_voxels: int, shuffle=True, seed=0,
-                 num_workers: int = 0, device=None):
+                 num_workers: int = 0, device=None, num_shards: int = 1, shard_id: int = 0,
+                 drop_last: bool = True):
         self.device = resolve_device(device)
         self.dataset = dataset
         self.batch_sampler = EpochBatchSampler(
-            ShardedSampler(len(dataset), shuffle=shuffle, seed=seed), batch_size, seed)
+            ShardedSampler(len(dataset), shuffle=shuffle, seed=seed, num_shards=num_shards,
+                           shard_id=shard_id, drop_last=drop_last), batch_size, seed)
         pin = self.device.type == "cuda"
         self.loader = DataLoader(
             dataset, batch_sampler=self.batch_sampler, num_workers=num_workers,

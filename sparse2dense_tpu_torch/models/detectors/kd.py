@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.sparse_conv import scatter_to_dense
+from ...parallel.dist import global_sum, global_sums, world_size
 from ..heads.center_head import center_head_loss, center_head_predict
 from ..heads.mg_head import MultiGroupHead, mg_head_loss, mg_head_predict
 
@@ -48,14 +49,18 @@ def rasterize_mean_points(voxels, num_points, coords, shape) -> torch.Tensor:
 def mask_offset_loss(gen_offset, gen_mask, gt, grid):
     """(class-balanced BCE on occupancy, L1 on the point-mean offsets):
     gen_offset (B, D, H, W, 3), gen_mask (B, D, H, W, 1), gt (B, D, H, W, C)
-    mean-point grid (xyz first), grid (D, H, W, 3) cell centres."""
+    mean-point grid (xyz first), grid (D, H, W, 3) cell centres. The
+    balance, the mean and the offset count are the global batch's."""
     z = (gt.sum(-1) != 0).to(gen_mask.dtype)
-    beta = (1.0 - z).sum() / z.sum().clamp(min=1.0)
+    empty, occupied = global_sums((1.0 - z).sum(), z.sum())
+    beta = empty / occupied.clamp(min=1.0)
     x = gen_mask[..., 0]
-    loss = (beta * z * F.softplus(-x) + (1.0 - z) * F.softplus(x)).mean()
+    # every process's grids have one shape: the global mean is the local
+    # mean over the processes
+    loss = (beta * z * F.softplus(-x) + (1.0 - z) * F.softplus(x)).mean() / world_size()
     gt_off = gt[..., :3] - grid[None] * z[..., None]
     ind = (gt_off != 0).to(gen_offset.dtype)
-    com_loss = ((gen_offset - gt_off).abs() * ind).sum() / ind.sum().clamp(min=1.0)
+    com_loss = ((gen_offset - gt_off).abs() * ind).sum() / global_sum(ind.sum()).clamp(min=1.0)
     return loss, com_loss
 
 

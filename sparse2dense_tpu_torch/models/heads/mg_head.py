@@ -5,7 +5,8 @@
   ``loss_aux``) the direction logits; maps NHWC at the public functions;
 - :func:`mg_head_loss`: sigmoid focal classification, codewise smooth-L1
   box regression with the sin-difference angle encoding and the softmax
-  direction classifier, normalised by the number of positives;
+  direction classifier, normalised by the number of positives, over the
+  global batch (every process holds a batch of one size);
 - :func:`mg_head_predict`: the box coder's decode against the example's
   anchors, the direction flip, the score and range mask, top-k and rotated
   NMS (the ``use_rotate_nms=True, use_multi_class_nms=False`` path of every
@@ -28,6 +29,7 @@ from torch import nn
 from ...core.box_coder import GroundBox3dCoder, build_box_coder
 from ...ops.nms import rotated_nms
 from ...ops.topk import top_k
+from ...parallel.dist import world_size
 from ..losses.second_losses import sigmoid_focal_loss, weighted_smooth_l1, weighted_softmax_ce
 from .center_head import _gather
 
@@ -122,6 +124,7 @@ def mg_head_loss(head: MultiGroupHead, preds, example):
         reg_targets = example["reg_targets"][task_id]
         anchors = example["anchors"][task_id]
         b = labels.shape[0]
+        b_global = b * world_size()
         box_preds = pd["box_preds"].reshape(b, -1, code_size)
         cls_preds = pd["cls_preds"].reshape(b, -1, num_class)
         cls_weights, reg_weights, cared = prepare_loss_weights(
@@ -138,15 +141,15 @@ def mg_head_loss(head: MultiGroupHead, preds, example):
         cls_loss = sigmoid_focal_loss(cls_preds, one_hot, cls_weights,
                                       alpha=head.loss_cls.get("alpha", 0.25),
                                       gamma=head.loss_cls.get("gamma", 2.0))
-        loc_reduced = loc_loss.sum() / b * head.loss_bbox.get("loss_weight", 1.0)
-        cls_reduced = cls_loss.sum() / b * head.loss_cls.get("loss_weight", 1.0)
+        loc_reduced = loc_loss.sum() / b_global * head.loss_bbox.get("loss_weight", 1.0)
+        cls_reduced = cls_loss.sum() / b_global * head.loss_cls.get("loss_weight", 1.0)
         task_loss = loc_reduced + cls_reduced
         if head.use_direction_classifier:
             dir_targets = get_direction_target(anchors, reg_targets, head.direction_offset)
             dir_logits = pd["dir_cls_preds"].reshape(b, -1, 2)
             w = (labels > 0).float()
             w = w / w.sum(-1, keepdim=True).clamp(min=1.0)
-            dir_loss = weighted_softmax_ce(dir_logits, dir_targets, w).sum() / b
+            dir_loss = weighted_softmax_ce(dir_logits, dir_targets, w).sum() / b_global
             task_loss = task_loss + dir_loss * head.loss_aux.get("loss_weight", 0.2)
             logs[f"dir_loss_{task_id}"] = dir_loss
         total = total + task_loss

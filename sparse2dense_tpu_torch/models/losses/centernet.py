@@ -1,11 +1,15 @@
 """CenterNet losses (counterpart of ``sparse2dense_tpu/models/losses/centernet.py``).
 
 Maps are NHWC; targets are the static (B, max_objs) index / mask / class
-arrays of ``AssignLabel``.
+arrays of ``AssignLabel``. Each normaliser is the global batch's
+(``parallel.dist.global_sum``): under data parallelism the processes'
+losses add up to the loss of their joined batch.
 """
 from __future__ import annotations
 
 import torch
+
+from ...parallel.dist import global_sum
 
 
 def gather_feat_nhwc(feat: torch.Tensor, ind: torch.Tensor) -> torch.Tensor:
@@ -24,7 +28,7 @@ def fast_focal_loss(out: torch.Tensor, target: torch.Tensor, ind: torch.Tensor,
     mask = mask.to(out.dtype)
     neg_loss = (torch.log(1.0 - out) * out.square() * (1.0 - target).pow(4)).sum()
     pos_pred = gather_feat_nhwc(out, ind).gather(2, cat.long()[..., None])[..., 0]
-    num_pos = mask.sum()
+    num_pos = global_sum(mask.sum())
     pos_loss = (torch.log(pos_pred) * (1.0 - pos_pred).square() * mask).sum()
     return torch.where(num_pos == 0, -neg_loss, -(pos_loss + neg_loss) / num_pos.clamp(min=1.0))
 
@@ -35,4 +39,4 @@ def reg_loss(output: torch.Tensor, mask: torch.Tensor, ind: torch.Tensor,
     target (B, M, D), per dimension, over the number of positives: (D,)."""
     pred = gather_feat_nhwc(output, ind)
     m = mask.to(output.dtype)[..., None]
-    return ((pred * m - target * m).abs() / (m.sum() + 1e-4)).sum((0, 1))
+    return ((pred * m - target * m).abs() / (global_sum(m.sum()) + 1e-4)).sum((0, 1))

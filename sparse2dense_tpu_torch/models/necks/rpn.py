@@ -92,5 +92,6 @@ class RPN(nn.Module):
     def forward(self, x):
         # a bf16 BEV map (SECOND's dense stages keep bf16 to the end) meets
         # float32 weights: float32, as Flax's type promotion in the conv
-        out, _ = self.trunk_and_ups(x.permute(0, 3, 1, 2).float())
+        x = x.permute(0, 3, 1, 2)
+        out, _ = self.trunk_and_ups(x.to(torch.promote_types(x.dtype, torch.float32)))
         return out.permute(0, 2, 3, 1)

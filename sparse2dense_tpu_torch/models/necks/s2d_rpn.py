@@ -132,7 +132,8 @@ class S2D_RPN(RPN):
         return self.gen_out_2(gen), self.gen_mask_2(gen), offset_4, mask_4
 
     def forward(self, x):
-        x = x.permute(0, 3, 1, 2).float()   # a bf16 BEV map promoted, as in RPN
+        x = x.permute(0, 3, 1, 2)   # a bf16 BEV map promoted, as in RPN
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         y1 = self.encoder_1b(self.encoder_1a(x))
         y2 = self.encoder_2b(self.encoder_2a(y1))
         att = self.convnext_1(y2) + y2

@@ -6,7 +6,11 @@ eps 1e-3, not torch's 1e-5. In training mode its statistics skip rows
 outside an optional validity mask, so padded voxels do not pollute them; in
 eval mode it uses the running statistics. Its running statistics move once a
 step: not again when a rematerialised module runs it again in the backward
-(``remat.recomputing``).
+(``remat.recomputing``). Under data parallelism (``parallel/dist.py``) its
+training statistics are those of every process's rows (a masked SyncBN):
+the sums and the count are all-reduced, with their gradient, before the
+mean and variance, as the reference's cross-replica sums; a recompute runs
+the collective again, and a rank with no row in its mask takes part.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel.dist import all_reduce_sum, world_size
 from .remat import recomputing
 
 
@@ -41,13 +46,17 @@ class BatchNorm(nn.Module):
         """``mask``: x's shape with size 1 on the channel dim."""
         shape = self._shape(x)
         if self.training:
-            xf = x.float()
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
             axes = [d for d in range(x.dim()) if d != self.channel_dim % x.dim()]
             m = torch.ones_like(xf.narrow(self.channel_dim, 0, 1)) if mask is None \
                 else mask.float()
             cnt = m.sum()
             s = (xf * m).sum(axes)
             s2 = (xf.square() * m).sum(axes)
+            if world_size() > 1:   # SyncBN: the statistics of every rank's rows
+                c = s.shape[0]
+                stats = all_reduce_sum(torch.cat([s, s2, cnt.reshape(1)]))
+                s, s2, cnt = stats[:c], stats[c:2 * c], stats[2 * c]
             cnt = cnt.clamp(min=1.0)
             mean = s / cnt
             var = (s2 / cnt - mean.square()).clamp(min=0.0)
@@ -59,7 +68,7 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps)
-        y = ((x.float() - mean.view(shape)) * inv.view(shape) * self.weight.view(shape)
+        y = ((x.to(mean.dtype) - mean.view(shape)) * inv.view(shape) * self.weight.view(shape)
              + self.bias.view(shape))
         return y.to(x.dtype)
 

@@ -128,14 +128,15 @@ def gather_conv(features: torch.Tensor, neighbor_table: torch.Tensor, weights: t
     """Gather-GEMM-accumulate sparse conv: features (V_in, Cin), neighbor_table
     (V_out, K) int32 (-1 = no input), weights (K, Cin, Cout) -> (V_out, Cout)
     in the features' dtype. Per tap: gather (row 0 under a zero mask where the
-    table holds -1), a float32 product, then a cast to the features' dtype
+    table holds -1), a product in float32 (at least), then a cast to the features' dtype
     before it is added, as the reference rounds after each tap."""
     vout, k = neighbor_table.shape
+    acc = torch.promote_types(features.dtype, torch.float32)
     out = features.new_zeros((vout, weights.shape[-1]))
     for tap in range(k):
         idx = neighbor_table[:, tap]
         g = features[idx.clamp(min=0).long()] * (idx >= 0)[:, None].to(features.dtype)
-        out = out + (g.float() @ weights[tap].float()).to(features.dtype)
+        out = out + (g.to(acc) @ weights[tap].to(acc)).to(features.dtype)
     return out if bias is None else out + bias
 
 
@@ -145,11 +146,12 @@ def gather_conv_batched(features: torch.Tensor, neighbor_table: torch.Tensor,
     (B, V_out, K), weights (K, Cin, Cout) -> (B, V_out, Cout)."""
     b, vout, k = neighbor_table.shape
     bi = torch.arange(b, device=features.device)[:, None]
+    acc = torch.promote_types(features.dtype, torch.float32)
     out = features.new_zeros((b, vout, weights.shape[-1]))
     for tap in range(k):
         idx = neighbor_table[:, :, tap]
         g = features[bi, idx.clamp(min=0).long()] * (idx >= 0)[..., None].to(features.dtype)
-        out = out + (g.float() @ weights[tap].float()).to(features.dtype)
+        out = out + (g.to(acc) @ weights[tap].to(acc)).to(features.dtype)
     return out if bias is None else out + bias
 
 

@@ -17,7 +17,9 @@ against F_D_b, and the PCR mask and offset losses:
   B_D > 0 (det3d's, kept), F_b where B_D > 0 and elsewhere; the KD heatmap
   focal loss (no KD regression); PCR x0.5.
 
-The masks are F_D > 0 elementwise, as det3d's boolean indexing.
+The masks are F_D > 0 elementwise, as det3d's boolean indexing. Each
+normaliser is the global batch's (``parallel.dist.global_sum``), so under
+data parallelism the processes' losses add up to their joined batch's.
 """
 from __future__ import annotations
 
@@ -26,15 +28,17 @@ import torch.nn.functional as F
 
 from ..models.heads.center_head import _clip_sigmoid
 from ..models.losses.centernet import fast_focal_loss, gather_feat_nhwc
-from .train_state import Mark, mark_at, telemetry_metrics
+from ..parallel.dist import global_sum, reduce_metrics
+from .train_state import Mark, mark_at, reduce_step, telemetry_metrics
 
 _ANNO = ("reg", "height", "dim", "rot")
 
 
 def masked_mse(pred, target, mask):
-    """mean((pred - target)^2) over the elements where ``mask`` is True."""
+    """mean((pred - target)^2) over the elements where ``mask`` is True
+    (in every process's batch)."""
     m = mask.to(pred.dtype)
-    return ((pred - target).square() * m).sum() / m.sum().clamp(min=1.0)
+    return ((pred - target).square() * m).sum() / global_sum(m.sum()).clamp(min=1.0)
 
 
 def distill_reg_loss(s_anno, t_anno, mask, ind):
@@ -42,7 +46,7 @@ def distill_reg_loss(s_anno, t_anno, mask, ind):
     (B, H, W, D) gathered at the gt centres: (D,)."""
     pred, gt = gather_feat_nhwc(s_anno, ind), gather_feat_nhwc(t_anno, ind)
     m = mask.to(pred.dtype)[..., None]
-    return ((pred * m - gt * m).square() / (m.sum() + 1e-4)).sum((0, 1))
+    return ((pred * m - gt * m).square() / (global_sum(m.sum()) + 1e-4)).sum((0, 1))
 
 
 def _maxpool2(x):
@@ -104,9 +108,11 @@ def _s2d_loss(branch, f_s_a, f_d_a, f_s_b, f_d_b):
 
 def make_ts_train_step(teacher, student, optimizer, branch: str):
     """-> ts_step(batch, mark=None) -> metrics (every loss in the logs,
-    "loss", "grad_norm", "telemetry/*"). ``mark`` is called after
-    "teacher_forward", "student_forward" (with the losses), "backward" and
-    "optimizer"."""
+    "loss", "grad_norm", "telemetry/*"; the global batch's under data
+    parallelism). ``mark`` is called after "teacher_forward",
+    "student_forward" (with the losses), "backward", "allreduce" (more than
+    one process) and "optimizer". The frozen teacher runs in eval mode and
+    makes no collective."""
     if branch not in ("centerpoint", "second", "pp"):
         raise ValueError(f"unknown distillation branch {branch!r}")
     pcr_weight = 1.0 if branch == "centerpoint" else 0.5
@@ -142,12 +148,13 @@ def make_ts_train_step(teacher, student, optimizer, branch: str):
         optimizer.zero_grad(set_to_none=True)
         total.backward()
         mark_at(mark, "backward")
+        reduce_step(optimizer, mark)
         grad_norm = optimizer.step()
         mark_at(mark, "optimizer")
         metrics = {k: v.detach() for k, v in logs.items()}
         metrics.update(loss=total.detach(), grad_norm=grad_norm)
         metrics.update(telemetry_metrics(telemetry))
-        return metrics
+        return reduce_metrics(metrics)
 
     return ts_step
 

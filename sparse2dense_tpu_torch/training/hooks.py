@@ -9,7 +9,10 @@ shape: ``LogBuffer`` windowed means (log_buffer.py:6), text logging every
 (hooks/logger/tensorboard.py:9; ``before_run`` raises where the
 ``tensorboard`` package is missing), per-epoch checkpoints
 (hooks/checkpoint.py:5) with an optional rolling mid-epoch "preempt"
-checkpoint, and iteration timing (hooks/iter_timer.py:6).
+checkpoint, and iteration timing (hooks/iter_timer.py:6). Under data
+parallelism only rank 0 logs (the reference's loggers are rank 0's); the
+checkpoint hooks run on every rank and ``Trainer.save_checkpoint`` lets
+rank 0 write.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ import os
 import time
 from collections import OrderedDict
 from typing import Optional
+
+from ..parallel.dist import is_main
 
 
 class LogBuffer:
@@ -94,7 +99,7 @@ class TextLoggerHook(Hook):
         self.logger = logger or logging.getLogger("sparse2dense_tpu_torch")
 
     def after_train_iter(self, trainer):
-        if (trainer.inner_iter + 1) % self.interval != 0:
+        if (trainer.inner_iter + 1) % self.interval != 0 or not is_main():
             return
         trainer.log_buffer.average(self.interval)
         items = [f"epoch [{trainer.epoch + 1}][{trainer.inner_iter + 1}/"
@@ -119,6 +124,8 @@ class TensorboardLoggerHook(Hook):
         self._writer = None
 
     def before_run(self, trainer):
+        if not is_main():
+            return
         from torch.utils.tensorboard import SummaryWriter
 
         self._writer = SummaryWriter(

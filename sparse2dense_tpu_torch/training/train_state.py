@@ -9,6 +9,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..parallel.dist import reduce_gradients, reduce_metrics, world_size
+
 Mark = Optional[Callable[[str], None]]
 
 
@@ -26,11 +28,21 @@ def telemetry_metrics(telemetry) -> Dict[str, torch.Tensor]:
     return {f"telemetry/{name}": counts.sum() for name, (counts, _) in telemetry.items()}
 
 
+def reduce_step(optimizer, mark: Mark = None) -> None:
+    """Under data parallelism, sum the gradients of the optimizer's
+    parameters over the processes (each rank's loss is its share of the
+    global batch's), then ``mark`` "allreduce"; in one process, nothing."""
+    if world_size() > 1:
+        reduce_gradients(p for group in optimizer.param_groups for p in group["params"])
+        mark_at(mark, "allreduce")
+
+
 def make_train_step(model, optimizer):
     """-> train_step(batch, mark=None) -> metrics: every loss of the model's
     logs, "loss", "grad_norm" (before clipping) and "telemetry/*", as 0-dim
-    tensors. ``batch`` carries the inputs and the head's targets.
-    ``mark`` is called after "forward", "backward" and "optimizer"."""
+    tensors, the global batch's under data parallelism. ``batch`` carries
+    the inputs and the head's targets. ``mark`` is called after "forward",
+    "backward", "allreduce" (more than one process) and "optimizer"."""
 
     def train_step(batch, mark: Mark = None):
         model.train()
@@ -40,11 +52,12 @@ def make_train_step(model, optimizer):
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         mark_at(mark, "backward")
+        reduce_step(optimizer, mark)
         grad_norm = optimizer.step()
         mark_at(mark, "optimizer")
         metrics = {k: v.detach() for k, v in logs.items()}
         metrics.update(loss=loss.detach(), grad_norm=grad_norm)
         metrics.update(telemetry_metrics(out["telemetry"]))
-        return metrics
+        return reduce_metrics(metrics)
 
     return train_step

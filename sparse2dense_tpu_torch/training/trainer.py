@@ -3,7 +3,10 @@
 det3d/torchie/trainer/trainer.py:209-892): the step, the epoch loop, the
 hooks, checkpoints and validation (``Trainer.val``: the eval-mode model's
 detections over a loader, keyed by frame token, then the dataset's
-evaluation). Data parallelism comes with DDP.
+evaluation). Under data parallelism (``parallel/dist.py``) every rank
+steps on the global batch's gradients and logs the global metrics; only
+rank 0 writes checkpoints (the other ranks wait for the write) and logs,
+and rank 0 merges the ranks' detections (:func:`gather_detections`).
 
 ``epoch`` counts the epochs done, ``inner_iter`` is the step's index in its
 epoch, ``global_iter`` counts the steps done over the run, and
@@ -13,11 +16,13 @@ from __future__ import annotations
 
 import logging
 import os
+import pickle
 import time
 from typing import Callable, Dict, Optional
 
 import torch
 
+from ..parallel.dist import barrier, is_main, rank, world_size
 from .checkpoint import load_checkpoint, save_checkpoint
 from .distill import branch_of, make_ts_train_step
 from .hooks import LogBuffer, build_hooks
@@ -56,18 +61,22 @@ class Trainer:
         """The model (parameters, BN buffers) and the optimizer (moments,
         step count) as ``<out_dir>/<name>``, ``epoch_<n>`` by default. A
         mid-epoch (preemption) save resumes by restarting the interrupted
-        epoch."""
+        epoch. Rank 0 writes; every rank waits for the write."""
         name = name or f"epoch_{self.epoch + 1}"
-        meta = dict(self.meta, epoch=self.epoch if mid_epoch else self.epoch + 1,
-                    iter=self.global_iter)
-        state = {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict()}
-        path = save_checkpoint(out_dir, name, state, meta=meta, latest=latest)
-        self.logger.info(f"saved checkpoint {path}")
+        path = os.path.abspath(os.path.join(out_dir, name))
+        if is_main():
+            meta = dict(self.meta, epoch=self.epoch if mid_epoch else self.epoch + 1,
+                        iter=self.global_iter)
+            state = {"model": self.model.state_dict(),
+                     "optimizer": self.optimizer.state_dict()}
+            save_checkpoint(out_dir, name, state, meta=meta, latest=latest)
+            self.logger.info(f"saved checkpoint {path}")
+        barrier()
         return path
 
     def resume(self, path: str) -> None:
         """Model, BN buffers, optimizer and schedule position from ``path``,
-        then ``epoch`` and ``global_iter`` from its meta."""
+        then ``epoch`` and ``global_iter`` from its meta (on every rank)."""
         state, meta = load_checkpoint(path)
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
@@ -116,10 +125,12 @@ class Trainer:
         """The model's detections over ``data_loader`` (:func:`predict`),
         merged across processes (:func:`gather_detections`), then
         ``dataset.evaluation`` with its files under ``output_dir`` (else
-        ``<work_dir>/eval``)."""
+        ``<work_dir>/eval``). On a rank other than 0: None."""
         out_dir = output_dir or os.path.join(self.work_dir, "eval")
         os.makedirs(out_dir, exist_ok=True)
-        detections = gather_detections(predict(self.model, data_loader))
+        detections = gather_detections(predict(self.model, data_loader), out_dir, self.logger)
+        if detections is None:
+            return None
         result = dataset.evaluation(detections, output_dir=out_dir)
         self.logger.info(f"evaluation after epoch {self.epoch}: {result[0]}")
         return result
@@ -129,12 +140,12 @@ class Trainer:
 def predict(model, data_loader, times: Optional[list] = None) -> Dict[str, dict]:
     """The eval-mode ``model``'s detections over ``data_loader``: token ->
     {"box3d_lidar", "scores", "label_preds"} (NumPy, the valid ones); a
-    frame without metadata is keyed ``frame_p0_{n}`` (process 0, the
-    reference's key). With ``times``,
+    frame without metadata is keyed ``frame_p{rank}_{n}`` (the reference's
+    key, unique over the processes). With ``times``,
     each batch's forward and predict seconds (synchronized) are appended."""
     was_training = model.training
     model.eval()
-    detections = {}
+    detections, proc = {}, rank()
     try:
         for batch in data_loader:
             meta = batch.get("metadata") or []
@@ -148,7 +159,7 @@ def predict(model, data_loader, times: Optional[list] = None) -> Dict[str, dict]
             for b in range(boxes.shape[0]):
                 m = valid[b]
                 token = (meta[b]["token"] if b < len(meta) and meta[b]
-                         else f"frame_p0_{len(detections)}")
+                         else f"frame_p{proc}_{len(detections)}")
                 detections[token] = {"box3d_lidar": boxes[b][m], "scores": scores[b][m],
                                      "label_preds": labels[b][m]}
     finally:
@@ -156,17 +167,32 @@ def predict(model, data_loader, times: Optional[list] = None) -> Dict[str, dict]
     return detections
 
 
-def gather_detections(detections: dict) -> dict:
-    """The detections of every process. One process: the identity. The
-    multi-process merge (every rank writes its shard, rank 0 merges) comes
-    with DDP (ROADMAP Queue 1 item 6) and raises."""
-    world_size = (torch.distributed.get_world_size() if torch.distributed.is_available()
-                  and torch.distributed.is_initialized() else 1)
-    if world_size != 1:
-        raise NotImplementedError(
-            f"merging the detections of {world_size} processes comes with data parallelism, "
-            "a later slice (ROADMAP Queue 1 item 6)")
-    return detections
+def gather_detections(detections: dict, out_dir: str,
+                      logger: Optional[logging.Logger] = None) -> Optional[dict]:
+    """The detections of every process, on rank 0; None on the others. One
+    process: the identity. More: every rank writes its detections to
+    ``<out_dir>/detections_shard_{rank}.pkl``, all wait, and rank 0 merges
+    the shards in rank order, keeping the first of a duplicate token (the
+    wrapped tail of the val sampler) and logging how many it dropped."""
+    world = world_size()
+    if world == 1:
+        return detections
+    with open(os.path.join(out_dir, f"detections_shard_{rank()}.pkl"), "wb") as f:
+        pickle.dump(detections, f)
+    barrier()
+    if not is_main():
+        return None
+    merged = {}
+    for r in range(world):
+        with open(os.path.join(out_dir, f"detections_shard_{r}.pkl"), "rb") as f:
+            shard = pickle.load(f)
+        overlap = merged.keys() & shard.keys()
+        if overlap and logger is not None:
+            logger.warning(f"eval merge: {len(overlap)} duplicate tokens from process {r} "
+                           "(the wrapped sampler tail); keeping the first")
+        for k, v in shard.items():
+            merged.setdefault(k, v)
+    return merged
 
 
 class TS_Trainer(Trainer):

@@ -1,7 +1,11 @@
 """The port's slice end to end against JAX: distill_tiny's KD_VoxelNet student
 (window engine, dense from conv2, float32 dense stages on both sides) on the
 same synthetic frame and the same (seeded random) weights. JAX runs init
-shapes, apply and predict once for the module."""
+shapes, apply and predict once for the module.
+
+Split off into files of at most 4 tests (the suite's scheduler hands out files
+with more first, ahead of the two long JAX files): the config loader,
+``tests/test_torch_config_loader.py``."""
 import numpy as np
 import pytest
 
@@ -50,12 +54,6 @@ def run():
         tdet = tmodel.predict(tout)
     return dict(jcfg=jcfg, tcfg=tcfg, jbatch=jbatch, tbatch=tbatch, jout=jout,
                 tele=coll["telemetry"]["backbone"], jdet=jdet, tout=tout, tdet=tdet)
-
-
-def test_config_loader_reads_the_reference_config():
-    jcfg, tcfg = Config.fromfile(CFG), ConfigDict.fromfile(CFG)
-    for key in ("S_model", "test_cfg", "voxel_generator", "class_names"):
-        assert tcfg[key] == jcfg[key], key
 
 
 def test_make_batch_bit_exact(run):

@@ -1,10 +1,12 @@
 """The gather engine (the reference's default: ``engine="gather"``,
 ``SubMStage``, ``SparseBasicBlock``, ``SparseDownsample`` over the gather
 oracle) against JAX: SpMiddleResNetFHD at ``voxelnet_tiny``'s (25, 32, 32)
-grid with ``dense_from_stage`` 0, 2 (the default) and 99 (every stage
-sparse, ``extra_conv`` too), in eval and in train mode; and one
-``distill_tiny`` teacher-student step with both backbones on the engine's
-defaults, as JAX's own training tests run it.
+grid with ``dense_from_stage`` 0 (here), 2 (the default) and 99 (every
+stage sparse, ``extra_conv`` too; ``tests/test_torch_gather_engine_dfs2.py``
+and ``_dfs99.py`` run these tests on their own ``backbone``), in eval and in
+train mode; and one ``distill_tiny`` teacher-student step with both
+backbones on the engine's defaults, as JAX's own training tests run it
+(``run``; its tests are in ``tests/test_torch_gather_engine_step.py``).
 
 The backbone gets seeded random voxel features and the coordinates of a
 synthetic frame; both packages the same Flax tree (``from_flax``). JAX runs
@@ -25,8 +27,7 @@ from sparse2dense_tpu_torch.convert import from_flax
 from sparse2dense_tpu_torch.models.backbones.scn import (SparseBasicBlock, SparseDownsample,
                                                          SpMiddleResNetFHD, SubMStage)
 
-from tests.test_torch_distill import (_compare_metrics, _compare_stats, assert_grads_close,
-                                      ts_and_teacher_steps)
+from tests.test_torch_distill import _compare_stats, ts_and_teacher_steps
 from tests.test_torch_layers import flax_shapes, rand_variables
 
 GRID = (25, 32, 32)
@@ -40,11 +41,15 @@ def frame():
     return feats, coords
 
 
-@pytest.fixture(scope="module", params=[0, 2, 99], ids=lambda d: f"dfs{d}")
-def backbone(request, frame):
+@pytest.fixture(scope="module", params=[0], ids=lambda d: f"dfs{d}")
+def backbone(request):
+    """(dense_from_stage, the JAX module, its variables, the port's twin);
+    ``dense_from_stage`` 2 and 99 in ``tests/test_torch_gather_engine_dfs{2,99}.py``."""
+    return make_backbone(request.param)
+
+
+def make_backbone(dfs):
     """(dense_from_stage, the JAX module, its variables, the port's twin)."""
-    feats, coords = frame
-    dfs = request.param
     jmod = JSpMiddleResNetFHD(num_input_features=5, sparse_shape=GRID, dense_from_stage=dfs)
     tmod = SpMiddleResNetFHD(num_input_features=5, sparse_shape=GRID, dense_from_stage=dfs)
     variables = rand_variables(flax_shapes(tmod), seed=20 + dfs)
@@ -95,18 +100,3 @@ def run():
     return ts_and_teacher_steps({}, teacher_step=False)
 
 
-def test_gather_ts_step_metrics(run):
-    _compare_metrics(run["metrics"], run["jmetrics"])
-    assert float(run["metrics"]["grad_norm"]) > 0
-    assert not [k for k in run["metrics"] if k.startswith("telemetry/")]
-
-
-def test_gather_ts_step_student_gradients(run):
-    assert_grads_close(run["s_grads"], run["js_grads"])
-    for name in ("backbone.conv_input.conv_0_weight", "backbone.conv1_0.conv1_weight",
-                 "backbone.conv2_down.conv_weight", "backbone.conv2_1.conv2_weight"):
-        assert np.abs(run["s_grads"][name]).max() > 0, name
-
-
-def test_gather_ts_step_batchnorm_statistics(run):
-    _compare_stats(run["s_stats"], run["js_stats"])

@@ -3,7 +3,14 @@
 against the JAX reference on the same seeded numpy scenes: index grids,
 neighbour tables, active sets and plans bit-exact; the gather conv within
 rtol = atol = 1e-5 (float32, summation order only); the synthetic scene
-equal."""
+equal.
+
+Split into files of at most 4 tests (the suite's scheduler hands out files
+with more first, ahead of the two long JAX files): the strided active sets
+and the synthetic scene, ``tests/test_torch_gather_downsample.py``; the
+active sets over budget, ``tests/test_torch_gather_overflow.py``; the
+batched forms and ``make_subm_plan``,
+``tests/test_torch_gather_oracle_plans.py``."""
 import numpy as np
 import pytest
 
@@ -11,11 +18,7 @@ import jax.numpy as jnp
 import torch
 
 from sparse2dense_tpu.ops import sparse_conv as JSC
-from sparse2dense_tpu.ops import window_conv as JWC
-from sparse2dense_tpu.tools.profile_model import synth_voxels as jax_synth_voxels
 from sparse2dense_tpu_torch.ops import sparse_conv as TSC
-from sparse2dense_tpu_torch.ops import window_conv as TWC
-from sparse2dense_tpu_torch.training.synthetic import synth_voxels
 
 GRID = (9, 24, 24)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -58,9 +61,9 @@ def test_index_grid_and_subm_table_bit_exact(ksize):
     assert int((tn >= 0).sum()) > int(valid.sum()) + 20   # neighbours beside the centre tap
 
 
-@pytest.mark.parametrize("stride,padding,ksize", STRIDED)
-@pytest.mark.parametrize("budget", [400, 60])   # 60: the active set overflows
-def test_downsample_bit_exact(stride, padding, ksize, budget):
+def check_downsample(stride, padding, ksize, budget):
+    """The strided conv's active set and its gather table bit-exact against
+    JAX (budget 60: the active set overflows)."""
     _, coords, valid = _scene(1)
     g_out = TSC.conv_out_grid(GRID, stride, padding, ksize)
     joc, jov = JSC.downsample_active_set(jnp.asarray(coords), jnp.asarray(valid), GRID, g_out,
@@ -101,62 +104,3 @@ def test_gather_conv_matches(strided):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def test_batched_forms_match():
-    scenes = [_scene(4), _scene(5)]
-    feats = np.stack([s[0] for s in scenes])
-    coords = np.stack([s[1] for s in scenes])
-    valid = np.stack([s[2] for s in scenes])
-    jc, jv = jnp.asarray(coords), jnp.asarray(valid)
-    tc, tv = torch.from_numpy(coords), torch.from_numpy(valid)
-    jt = JSC.build_index_grid_batched(jc, jv, GRID)
-    tt = TSC.build_index_grid_batched(tc, tv, GRID)
-    _eq(jt, tt, "index grids")
-    jn = JSC.subm_neighbor_table_batched(jc, jv, jt, GRID)
-    tn = TSC.subm_neighbor_table_batched(tc, tv, tt, GRID)
-    _eq(jn, tn, "subm tables")
-    stride, padding, ksize = STRIDED[0]
-    g_out = TSC.conv_out_grid(GRID, stride, padding, ksize)
-    joc, jov = JSC.downsample_active_set_batched(jc, jv, GRID, g_out, stride, padding, ksize, 300)
-    toc, tov = TSC.downsample_active_set_batched(tc, tv, GRID, g_out, stride, padding, ksize, 300)
-    _eq(joc, toc, "out coords")
-    _eq(jov, tov, "out valid")
-    jd = JSC.downsample_neighbor_table_batched(joc, jov, jt, GRID, stride, padding, ksize)
-    td = TSC.downsample_neighbor_table_batched(toc, tov, tt, GRID, stride, padding, ksize)
-    _eq(jd, td, "downsample tables")
-    w = np.random.RandomState(6).randn(27, feats.shape[2], 8).astype(np.float32) * 0.2
-    for jtab, ttab in ((jn, tn), (jd, td)):
-        want = JSC.gather_conv_batched(jnp.asarray(feats), jtab, jnp.asarray(w))
-        got = TSC.gather_conv_batched(torch.from_numpy(feats), ttab, torch.from_numpy(w))
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-        for b in range(2):   # the batched form is the per-sample form
-            np.testing.assert_allclose(
-                got[b].numpy(), TSC.gather_conv(torch.from_numpy(feats[b]), ttab[b],
-                                                torch.from_numpy(w)).numpy(), **TOL)
-
-
-@pytest.mark.parametrize("block,window,budget", [(128, 128, 64), (16, 32, 8)])
-def test_make_subm_plan_bit_exact(block, window, budget):
-    feats, coords, _ = _scene(7)
-    jf, jc, jp = JWC.make_subm_plan(jnp.asarray(feats), jnp.asarray(coords), GRID, block=block,
-                                    window=window, resid_budget=budget)
-    tf, tc, tp = TWC.make_subm_plan(torch.from_numpy(feats), torch.from_numpy(coords), GRID,
-                                    block=block, window=window, resid_budget=budget)
-    _eq(jf, tf, "sorted features")
-    _eq(jc, tc, "sorted coords")
-    for name in PLAN_INTS:
-        _eq(getattr(jp, name), getattr(tp, name), name)
-    assert (tp.window, tp.block) == (jp.window_size(), jp.block_size())
-    assert int(tp.n_resid) > 0
-    # the presorted plan of the sorted rows is the same plan
-    tp2 = TWC.make_subm_plan_presorted(TWC.yxz_lin(tc, GRID), tc, GRID, block=block,
-                                       window=window, resid_budget=budget)
-    for name in PLAN_INTS:
-        assert torch.equal(getattr(tp, name), getattr(tp2, name)), name
-
-
-def test_synth_voxels_equal():
-    jf, jc = jax_synth_voxels(2000, seed=1)
-    tf, tc = synth_voxels(2000, seed=1)
-    np.testing.assert_array_equal(jf, tf)
-    np.testing.assert_array_equal(jc, tc)
-    assert tc.shape == (1, 2000, 3) and (tc[0, :, 0] >= 0).sum() > 1500

@@ -1,30 +1,26 @@
 """Layers of the PyTorch port against their JAX/Flax references on the same
 numpy inputs. Flax variables are drawn at random (seeded) from the module's
 variable shapes and carried over with ``convert.from_flax``. float32
-throughout; tolerances cover summation order (rtol 1e-4, atol 1e-5)."""
+throughout; tolerances cover summation order (rtol 1e-4, atol 1e-5).
+
+Split into files of at most 4 tests (the suite's scheduler hands out files
+with more first, ahead of the two long JAX files): the dense stages,
+``tests/test_torch_dense_stages.py``; the neck's layers,
+``tests/test_torch_neck_layers.py``; the head, the NMS and the all-dense
+backbone, ``tests/test_torch_head_layers.py``."""
 import numpy as np
-import pytest
 
 import jax
 import jax.numpy as jnp
 import torch
 
 from sparse2dense_tpu.models.backbones import scn as jscn
-from sparse2dense_tpu.models.heads import center_head as jhead
-from sparse2dense_tpu.models.necks import rpn as jrpn
-from sparse2dense_tpu.models.necks import s2d_rpn as js2d
 from sparse2dense_tpu.models import norm as jnorm
 from sparse2dense_tpu.models.readers.pillar_encoder import VoxelFeatureExtractorV3 as JVFE
-from sparse2dense_tpu.ops.nms import rotated_nms as j_rotated_nms
 from sparse2dense_tpu_torch.convert import _PCR, from_flax
 from sparse2dense_tpu_torch.models.backbones import scn as tscn
-from sparse2dense_tpu_torch.models.heads import center_head as thead
-from sparse2dense_tpu_torch.models.necks import rpn as trpn
-from sparse2dense_tpu_torch.models.necks import s2d_rpn as ts2d
 from sparse2dense_tpu_torch.models import norm as tnorm
 from sparse2dense_tpu_torch.models.readers.pillar_encoder import VoxelFeatureExtractorV3 as TVFE
-from sparse2dense_tpu_torch.ops.nms import rotated_nms as t_rotated_nms
-from sparse2dense_tpu_torch.ops.nms_suppression import rotated_iou
 
 # One intra-op thread in every process that imports the port's tests (a
 # test session imports them all when it collects): the tiny models' small
@@ -152,33 +148,6 @@ def _dense_scene(rng, c=4, shape=(1, 6, 7, 8)):
     return x, mask
 
 
-@pytest.mark.parametrize("kind", ["subm_stage", "basic_block", "down", "down_z"])
-def test_dense_stages(kind):
-    """dense_subm_conv / dense_strided_conv through the stage modules."""
-    rng = np.random.RandomState(2)
-    x, mask = _dense_scene(rng)
-    if kind == "subm_stage":
-        jm, tm = jscn.DenseSubMStage((6,)), tscn.DenseSubMStage(4, (6,))
-    elif kind == "basic_block":
-        jm, tm = jscn.DenseBasicBlock(4), tscn.DenseBasicBlock(4, 4)
-    elif kind == "down":
-        jm = jscn.DenseDownsample(6, (2, 2, 2), (1, 1, 1))
-        tm = tscn.DenseDownsample(4, 6, (2, 2, 2), (1, 1, 1))
-    else:
-        jm = jscn.DenseDownsample(6, (2, 1, 1), (0, 0, 0), ksize=(3, 1, 1))
-        tm = tscn.DenseDownsample(4, 6, (2, 1, 1), (0, 0, 0), (3, 1, 1))
-    v = rand_variables(lambda: jm.init(jax.random.PRNGKey(0), x, mask, False))
-    tm = load(tm, v)
-    want = jm.apply(v, x, mask, False)
-    with torch.no_grad():
-        got = tm(torch.from_numpy(np.moveaxis(x, -1, 1).copy()),
-                 torch.from_numpy(np.moveaxis(mask, -1, 1).copy()))
-    if kind.startswith("down"):
-        np.testing.assert_array_equal(nhwc(got[1]), np.asarray(want[1]))
-        got, want = got[0], want[0]
-    np.testing.assert_allclose(nhwc(got), np.asarray(want), **TOL)
-
-
 def test_densify_and_bev():
     rng = np.random.RandomState(3)
     grid = (4, 6, 5)
@@ -194,91 +163,6 @@ def test_densify_and_bev():
     np.testing.assert_array_equal(np.moveaxis(tm.numpy(), 1, -1), np.asarray(jm))
     np.testing.assert_array_equal(tscn.dense_to_bev(td).numpy(),
                                   np.asarray(jscn.dense_to_bev(jd)))
-
-
-@pytest.mark.parametrize("kind", ["conv_bn_gelu", "convt_bn_gelu", "convnext", "rpn"])
-def test_neck_layers(kind):
-    rng = np.random.RandomState(4)
-    x = rng.randn(1, 8, 8, 6).astype(np.float32)
-    if kind == "conv_bn_gelu":
-        jm, tm = js2d.ConvBNGelu(5, kernel=2, stride=2, padding=0), \
-            ts2d.ConvBNGelu(6, 5, kernel=2, stride=2, padding=0)
-    elif kind == "convt_bn_gelu":
-        jm, tm = js2d.ConvTBNGelu(5), ts2d.ConvTBNGelu(6, 5)
-    elif kind == "convnext":
-        jm, tm = js2d.ConvNeXtBlock(6), ts2d.ConvNeXtBlock(6)
-    else:
-        cfg = dict(layer_nums=(1, 1), ds_layer_strides=(1, 2), ds_num_filters=(8, 8),
-                   us_layer_strides=(1, 2), us_num_filters=(8, 8), num_input_features=6)
-        jm, tm = jrpn.RPN(**cfg), trpn.RPN(**cfg)
-    args = () if kind == "convnext" else (False,)
-    v = rand_variables(lambda: jm.init(jax.random.PRNGKey(0), x, *args))
-    tm = load(tm, v)
-    want = np.asarray(jm.apply(v, x, *args))
-    with torch.no_grad():
-        got = tm(torch.from_numpy(x)).numpy() if kind == "rpn" else nhwc(tm(nchw(x)))
-    np.testing.assert_allclose(got, want, **TOL)
-
-
-def test_center_head_and_decode():
-    rng = np.random.RandomState(5)
-    x = rng.randn(1, 6, 7, 8).astype(np.float32)
-    jm = jhead.CenterHead(in_channels=8, tasks=TASKS, common_heads=tuple(sorted(HEADS.items())),
-                          share_conv_channel=8)
-    tm = thead.CenterHead(in_channels=8, tasks=TASKS, common_heads=HEADS, share_conv_channel=8)
-    v = rand_variables(lambda: jm.init(jax.random.PRNGKey(0), x))
-    tm = load(tm, v)
-    want = jm.apply(v, x)
-    with torch.no_grad():
-        got = tm(torch.from_numpy(x))
-    assert list(got[0]) == list(want[0])
-    for k in want[0]:
-        np.testing.assert_allclose(got[0][k].numpy(), np.asarray(want[0][k]), **TOL, err_msg=k)
-    test_cfg = dict(out_size_factor=8, voxel_size=[0.1, 0.1], pc_range=[-75.2, -75.2])
-    jb, jh = jhead.decode_preds(want[0], test_cfg)
-    tb, th = thead.decode_preds({k: torch.tensor(np.asarray(a)) for k, a in want[0].items()},
-                                test_cfg)
-    np.testing.assert_allclose(tb.numpy(), np.asarray(jb), **TOL)
-    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
-
-
-def test_rotated_nms_indices_exact():
-    rng = np.random.RandomState(6)
-    k = 160
-    boxes = np.concatenate([rng.uniform(-10, 10, (k, 2)), rng.uniform(1, 4, (k, 2)),
-                            rng.uniform(-np.pi, np.pi, (k, 1))], 1).astype(np.float32)
-    scores = rng.rand(k).astype(np.float32)
-    scores[rng.rand(k) < 0.2] = -np.inf
-    thr = 0.3
-    # no IoU within 1e-4 of the threshold: the two frameworks' float paths
-    # cannot then disagree on a suppression
-    iou = rotated_iou(torch.from_numpy(boxes), torch.from_numpy(boxes)).numpy()
-    assert np.abs(iou - thr).min() > 1e-4
-    want = np.asarray(j_rotated_nms(jnp.asarray(boxes), jnp.asarray(scores), thr, 40))
-    got = t_rotated_nms(torch.from_numpy(boxes), torch.from_numpy(scores), thr, 40)
-    assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), want)
-    assert (want >= 0).sum() > 10
-
-
-def test_backbone_dense_from_stage_0():
-    """The all-dense branch of the window-engine backbone (the detector test
-    covers dense_from_stage=1)."""
-    from tests.test_window_conv import _clustered_scene, _pad
-
-    grid = (41, 32, 32)
-    feats, coords = _clustered_scene(np.random.RandomState(7), grid, 200)
-    feats, coords = _pad(feats[:, :5], coords, 256)
-    feats, coords = feats[None], coords[None]
-    kw = dict(num_input_features=5, sparse_shape=grid, engine="window", dense_from_stage=0)
-    jm, tm = jscn.SpMiddleResNetFHD(**kw), tscn.SpMiddleResNetFHD(**kw)
-    v = rand_variables(lambda: jm.init(jax.random.PRNGKey(0), feats, coords, False))
-    tm = load(tm, v)
-    want = np.asarray(jax.jit(lambda v, f, c: jm.apply(v, f, c, False)[0])(v, feats, coords))
-    with torch.no_grad():
-        bev, _, telemetry = tm(torch.from_numpy(feats), torch.from_numpy(coords))
-    assert telemetry == {}
-    np.testing.assert_allclose(bev.numpy(), want, **TOL)
 
 
 def test_flax_shapes_are_the_inits():

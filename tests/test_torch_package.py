@@ -32,7 +32,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "models.detectors.point_pillars", "core.augment", "core.sampler", "core.eval",
                  "ops.rotated_iou", "ops.voxelize", "data.loader", "data.pipelines.loading",
                  "data.pipelines.preprocess", "data.pipelines.formating", "data.datasets.waymo",
-                 "data.datasets.waymo_common", "data.datasets.wrappers", "tools.test"):
+                 "data.datasets.waymo_common", "data.datasets.wrappers", "tools.test",
+                 "parallel.dist", "parallel.launch", "tools.dryrun"):
         assert f"sparse2dense_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"

@@ -5,7 +5,12 @@ the same (seeded random) weights. The budgets cover the whole key space of
 every stage, so no plane, chunk or tile can drop and the windows cover every
 neighbour: the reference is exact. JAX runs one jitted apply (its plane
 kernel in interpret mode) and predict for the module (the variable shapes
-read off the port's twin)."""
+read off the port's twin).
+
+Split off into files of at most 4 tests (the suite's scheduler hands out files
+with more first, ahead of the two long JAX files): the backbone's parameters
+against the window engine's and the plane block in training,
+``tests/test_torch_plane_blocks.py``."""
 import numpy as np
 import pytest
 
@@ -17,9 +22,6 @@ from sparse2dense_tpu.training.synthetic import make_batch as jax_make_batch
 from sparse2dense_tpu.utils import Config
 from sparse2dense_tpu_torch.convert import from_flax
 from sparse2dense_tpu_torch.models import build_detector
-from sparse2dense_tpu_torch.models.backbones.scn import SpMiddleResNetFHD, TileKBlock
-from sparse2dense_tpu_torch.ops import plane_conv as PK
-from sparse2dense_tpu_torch.ops import tile_kernel as TTK
 from sparse2dense_tpu_torch.training.synthetic import make_batch
 from sparse2dense_tpu_torch.utils.config import ConfigDict
 
@@ -88,47 +90,3 @@ def test_predict(run):
     assert tdet["valid"].sum() > 0
 
 
-def test_plane_parameters_match_the_window_engine(run):
-    """Checkpoints interchange across engines: same names, same shapes."""
-    plane = run["tmodel"].backbone.state_dict()
-    kw = dict(num_input_features=5, sparse_shape=(41, 32, 32))
-    window = SpMiddleResNetFHD(engine="window", dense_from_stage=1, **kw).state_dict()
-    assert {k: tuple(v.shape) for k, v in plane.items()} == \
-        {k: tuple(v.shape) for k, v in window.items()}
-
-
-def test_plane_blocks_are_inference_only(run):
-    """The plane block trains (batch statistics, a gradient on its weights);
-    so does the tile block, which shares its code."""
-    block = run["tmodel"].backbone.conv2_0
-    saved = {k: v.clone() for k, v in block.state_dict().items()}
-    block.train()
-    try:
-        sets = [PK.build_plane_set(torch.tensor([[0, 0, 0], [0, 0, 1], [1, 0, 4]]),
-                                   (21, 16, 16), 10)[0]]
-        plan = PK.make_plane_plan_batched(sets, 128, 128, 128)._replace(
-            nbr=PK.flat_neighbor_ranks(sets, 128))
-        mask = torch.zeros(128, 16)
-        mask[:2, 0] = 1
-        state = (torch.randn(128, 512) * mask.repeat_interleave(32, -1)).requires_grad_(True)
-        out = block(state, mask, plan)
-        out.sum().backward()
-        assert out.shape == (128, 512) and block.conv1_weight.grad.abs().max() > 0
-        assert not torch.equal(block.bn1.running_mean, saved["bn1.running_mean"])
-    finally:
-        block.eval()
-        block.load_state_dict(saved)
-        block.zero_grad(set_to_none=True)
-    tile = TileKBlock(32, 32).train()
-    for weight in (tile.conv1_weight, tile.conv2_weight):
-        torch.nn.init.normal_(weight, std=0.05, generator=torch.Generator().manual_seed(2))
-    tmask = torch.zeros(4, 128, 16)
-    tmask[:, :2, 0] = 1
-    tstate = (torch.randn(4, 128, 512) * tmask.repeat_interleave(32, -1)).requires_grad_(True)
-    tplan = TTK.TKPlan(torch.zeros(1, 9, dtype=torch.int32),
-                       torch.full((1, 32, 128), TTK.SENTINEL, dtype=torch.int32),
-                       torch.zeros((), dtype=torch.int32))
-    tout = tile(tstate, tmask, tplan)
-    tout.sum().backward()
-    assert tout.shape == (4, 128, 512) and tile.conv2_weight.grad.abs().max() > 0
-    assert float(tile.bn2.running_mean.abs().max()) > 0

@@ -16,9 +16,16 @@ statistics 1e-5; the scatter and the resizes exact; head maps 1e-4 with
 detections equal (boxes and scores 1e-5); the student's maps and PCR loss
 1e-4; the TS step, with one point a pillar (see ``ts_run``), as
 ``tests/test_torch_distill.py`` (metrics 1e-4 relative, gradients 1e-3 of
-their module's largest, BN statistics 1e-5)."""
+their module's largest, BN statistics 1e-5).
+
+Split off into files of at most 4 tests (the suite's scheduler hands out files
+with more first, ahead of the two long JAX files): PointPillars' inference and
+KD_PointPillars in training, ``tests/test_torch_pp_models.py``; the teacher-
+student step, ``tests/test_torch_pp_step.py``; the resize,
+``tests/test_torch_pp_resize.py``; the student's builder and ``from_flax``,
+``tests/test_torch_pp_student.py``; the pillar count, the zoo and the CLI
+chain, ``tests/test_torch_pp_recipe.py``."""
 import copy
-import os
 
 import numpy as np
 import pytest
@@ -27,9 +34,7 @@ import jax
 import jax.numpy as jnp
 import optax
 import torch
-import torch.nn.functional as F
 
-from sparse2dense_tpu import zoo
 from sparse2dense_tpu.models import build_detector as jax_build_detector
 from sparse2dense_tpu.models.backbones.scatter import scatter_to_bev as jscatter
 from sparse2dense_tpu.models.readers.pillar_encoder import PillarFeatureNet as JPFN
@@ -39,15 +44,14 @@ from sparse2dense_tpu.training.train_state import TrainState
 from sparse2dense_tpu.utils import Config
 from sparse2dense_tpu_torch.convert import from_flax
 from sparse2dense_tpu_torch.models import build_detector
-from sparse2dense_tpu_torch.models.backbones.scatter import resize_nearest, scatter_to_bev
+from sparse2dense_tpu_torch.models.backbones.scatter import scatter_to_bev
 from sparse2dense_tpu_torch.models.readers.pillar_encoder import PillarFeatureNet
 from sparse2dense_tpu_torch.solver.optim import OneCycleAdam
-from sparse2dense_tpu_torch.training.distill import branch_of
 from sparse2dense_tpu_torch.training.synthetic import make_batch
 from sparse2dense_tpu_torch.training.trainer import TS_Trainer
-from sparse2dense_tpu_torch.utils.config import PP, PP_DENSE, ConfigDict
+from sparse2dense_tpu_torch.utils.config import ConfigDict
 
-from tests.test_torch_distill import _compare_stats, _port_grads, _sgd_grads, assert_grads_close
+from tests.test_torch_distill import _compare_stats, _port_grads, _sgd_grads
 from tests.test_torch_layers import flax_shapes, rand_variables
 
 CFG = "configs/tests/pp_tiny.py"
@@ -157,20 +161,6 @@ def test_scatter_to_bev_against_jax():
     np.testing.assert_array_equal(f.grad.numpy(), (expect * real[..., None]).numpy())
 
 
-@pytest.mark.parametrize("size_in,size_out", [(59, 117), (234, 468), (4, 8)])
-def test_nearest_resize_against_jax(size_in, size_out):
-    """The S2D scatter's resizes at the recipe's sizes (and the tiny
-    model's): exact; torch's "nearest" would miss rows at 59 -> 117."""
-    x = np.random.RandomState(size_in).randn(1, size_in, size_in, 2).astype(np.float32)
-    want = np.asarray(jax.image.resize(jnp.asarray(x), (1, size_out, size_out, 2), "nearest"))
-    t = torch.from_numpy(x).permute(0, 3, 1, 2)
-    got = resize_nearest(t, (size_out, size_out)).permute(0, 2, 3, 1).numpy()
-    np.testing.assert_array_equal(got, want)
-    if size_in == 59:
-        plain = F.interpolate(t, size=(size_out,) * 2, mode="nearest").permute(0, 2, 3, 1)
-        assert not np.array_equal(plain.numpy(), want)
-
-
 # ------------------------------------------------------ the models, JAX side
 
 @pytest.fixture(scope="module")
@@ -196,14 +186,6 @@ def build_models():
                 t_vars=t_vars, s_vars=s_vars, teacher=teacher, student=student, batch=batch)
 
 
-def test_builder_sets_the_pillar_grid(models):
-    teacher, student = models["teacher"], models["student"]
-    assert teacher.backbone.grid_shape == student.backbone.grid_shape == (32, 32)
-    assert teacher.backbone.bev_channels == student.backbone.bev_channels == 64
-    assert student.pc_range_full == tuple(models["tcfg"].voxel_generator["range"])
-    assert branch_of(models["tcfg"].model) == "pp"
-
-
 @pytest.fixture(scope="module")
 def teacher_run(models):
     jt = models["jteacher"]
@@ -216,33 +198,6 @@ def teacher_run(models):
         out = teacher(models["batch"], return_recon_feature=True)
         det = teacher.predict(out)
     return dict(jpreds=jpreds, jf=(jf_a, jf_b), jdet=jdet, out=out, det=det)
-
-
-def test_point_pillars_inference_maps(teacher_run):
-    """The teacher reads the dense stream; its canvas F_a and the
-    reconstruction stream's F_b (the PFN's tolerance) and every head map."""
-    out = teacher_run["out"]
-    for got, want in zip((out["f_a"], out["f_b"]), teacher_run["jf"]):
-        want = np.asarray(want)
-        assert got.shape == (2, 32, 32, 64)
-        np.testing.assert_allclose(got.numpy(), want, rtol=0,
-                                   atol=1e-5 * max(np.abs(want).max(), 1.0))
-    for pd, jpd in zip(out["preds"], teacher_run["jpreds"]):
-        for k, v in jpd.items():
-            v = np.asarray(v)
-            np.testing.assert_allclose(pd[k].numpy(), v, rtol=0,
-                                       atol=1e-4 * max(np.abs(v).max(), 1.0), err_msg=k)
-
-
-def test_point_pillars_detections(teacher_run):
-    want, got = teacher_run["jdet"], teacher_run["det"]
-    valid = np.asarray(want["valid"])
-    assert valid.sum() > 0
-    np.testing.assert_array_equal(got["valid"].numpy(), valid)
-    np.testing.assert_array_equal(got["label_preds"].numpy(), np.asarray(want["label_preds"]))
-    for k in ("box3d_lidar", "scores"):
-        np.testing.assert_allclose(got[k].numpy()[valid], np.asarray(want[k])[valid],
-                                   rtol=1e-5, atol=1e-5, err_msg=k)
 
 
 def _ulp_perturbed(tree, seed=1):
@@ -276,36 +231,6 @@ def student_run(models):
         out = student(models["batch"])
         pcr = student.pcr_loss(out, models["batch"])
     return dict(jout=jout, jpcr=jpcr, out=out, pcr=pcr)
-
-
-def test_kd_point_pillars_train_maps(student_run):
-    """F_S_a, F_S_b NHWC; the PCR outputs NCDHW at depth 1 (JAX: NDHWC)."""
-    out, jout = student_run["out"], student_run["jout"]
-    assert out["gen_offset"].shape == (2, 3, 1, 32, 32)
-    assert out["gen_mask"].shape == (2, 1, 1, 32, 32)
-    for k in ("f_s_a", "f_s_b", "gen_offset", "gen_mask"):
-        got = out[k] if k.startswith("f_") else out[k].permute(0, 2, 3, 4, 1)
-        want = np.asarray(jout[k])
-        np.testing.assert_allclose(got.numpy(), want, rtol=0,
-                                   atol=1e-4 * max(np.abs(want).max(), 1.0), err_msg=k)
-    for pd, jpd in zip(out["preds"], jout["preds"]):
-        for k, v in jpd.items():
-            v = np.asarray(v)
-            np.testing.assert_allclose(pd[k].numpy(), v, rtol=0,
-                                       atol=1e-4 * max(np.abs(v).max(), 1.0), err_msg=k)
-
-
-def test_kd_point_pillars_pcr_loss(student_run):
-    for got, want in zip(student_run["pcr"], student_run["jpcr"]):
-        assert float(want) > 0
-        np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
-
-
-def test_kd_point_pillars_eval_has_no_pcr(models):
-    with torch.no_grad():
-        out = models["student"].eval()(models["batch"])
-    assert out["gen_offset"] is None and out["gen_mask"] is None
-    assert out["f_s_a"].shape == (2, 32, 32, 64)
 
 
 # ---------------------------------------------------- teacher-student step
@@ -358,82 +283,7 @@ def ts_run(models):
     return ts_steps(models, one_point_cfg(models["jcfg"]), one_point_cfg(models["tcfg"]))
 
 
-def test_pp_ts_step_reference_is_reproducible_here(ts_run):
-    """The judged fixture: JAX's step on ulp-perturbed weights moves its
-    gradients by less than a tenth of the tolerance below."""
-    spread = _worst_scaled({k: ts_run["jax_perturbed"]["grads"][k].numpy()
-                            for k in ts_run["grads"]},
-                           {k: v.numpy() for k, v in ts_run["jax"]["grads"].items()})
-    assert spread < 1e-4, spread
-
-
-def test_pp_ts_step_metrics(ts_run):
-    got, want = ts_run["metrics"], ts_run["jax"]["metrics"]
-    assert ts_run["branch"] == "pp"
-    assert sorted(got) == sorted(want)
-    for k in ("kd_hm_loss", "T_hm_loss", "sparse2dense_loss", "mask_loss",
-              "reconstruction_loss"):
-        assert float(want[k]) > 0, k
-    assert "kd_reg_loss" not in got
-    for k, v in want.items():
-        np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-4, err_msg=k)
-
-
-def test_pp_ts_step_gradients(ts_run):
-    assert_grads_close(ts_run["grads"], ts_run["jax"]["grads"])
-    for name in ("reader.pfn_0.linear.weight", "backbone.encoder_1a.conv.weight",
-                 "backbone.generator_a.conv.weight", "backbone.fusion_sparse.conv.weight",
-                 "neck.block_0.down.conv.weight", "bbox_head.task_0.hm_out.weight"):
-        assert np.abs(ts_run["grads"][name]).max() > 0, name
-
-
-def test_pp_ts_step_batchnorm_statistics(ts_run):
-    assert any(k.startswith("backbone.generator_a") for k in ts_run["stats"])
-    _compare_stats(ts_run["stats"], ts_run["jax"]["stats"])
-
-
-def test_pillar_batchnorm_counts_pillars_as_the_reference(models):
-    """The reference's pillar net sums its BatchNorm statistics over every
-    point slot of the real pillars but divides by the number of pillars (its
-    mask is one value a pillar), so its mean is P times the slot mean; the
-    port copies it (the pillar net's statistics above equal JAX's)."""
-    reader = copy.deepcopy(models["student"].reader).train()
-    batch = models["batch"]
-    norm = reader.pfn_0.norm
-    seen = []
-    hook = norm.register_forward_hook(lambda m, a, out: seen.append(a[0].detach()))
-    before = norm.running_mean.clone()
-    with torch.no_grad():
-        reader(batch["voxels"], batch["num_points"], batch["coordinates"])
-    hook.remove()
-    x, real = seen[0], (batch["num_points"] > 0)[..., None, None].float()
-    mean = (x * real).sum((0, 1, 2)) / real.sum()
-    np.testing.assert_allclose(norm.running_mean.numpy(),
-                               (0.99 * before + 0.01 * mean).numpy(), rtol=1e-5, atol=1e-6)
-    assert batch["voxels"].shape[2] == 8 and bool((mean.abs() > 0).all())
-
-
 # -------------------------------------------------------------- from_flax
-
-@pytest.mark.parametrize("train", [False, True], ids=["eval_tree", "train_tree"])
-def test_from_flax_on_the_student(models, train):
-    """An eval-mode tree lacks the S2D scatter's train-only PCR generators
-    (they keep the model's own values); a train-mode tree maps every key.
-    The PFN's Dense kernels (in, out) become Linear weights (out, in)."""
-    js, student = models["jstudent"], models["student"]
-    variables = rand_variables(
-        lambda: js.init(jax.random.PRNGKey(2), models["jbatch"], train=train), seed=21)
-    gens = {"generator_a", "generator_b", "gen_out", "gen_mask_a", "gen_mask_b"}
-    assert (gens <= set(variables["params"]["backbone"])) == train
-    sd = from_flax(variables, student)
-    own = student.state_dict()
-    assert sorted(sd) == sorted(own)
-    for k, v in sd.items():
-        if k.startswith("backbone.") and k.split(".")[1] in gens:
-            assert torch.equal(v, own[k]) != train, k
-    kernel = variables["params"]["reader"]["pfn_0"]["linear"]["kernel"]
-    np.testing.assert_array_equal(sd["reader.pfn_0.linear.weight"].numpy(),
-                                  np.asarray(kernel).T)
 
 
 # ---------------------------------------------------------------- configs
@@ -446,65 +296,7 @@ def _plain(x):
     return x
 
 
-@pytest.mark.parametrize("variant,path", [("dense_interval_5", PP_DENSE),
-                                          ("distill_interval_5", PP)])
-def test_pp_recipe_configs_against_the_zoo(variant, path):
-    """The port's two pillar configs are the reference zoo rows, key for
-    key, the data layer's entries included; the one exemption is the
-    distillation's teacher checkpoint, which is not in the repository. At
-    full width they build the recipe's models."""
-    want, got = zoo.waymo_pp(variant), ConfigDict.fromfile(path)
-    assert sorted(got) == sorted(want)
-    for key, value in got.items():
-        if key != "load_from":
-            assert repr(_plain(value)) == repr(_plain(want[key])), key
-    assert got["load_from"] is None
-    assert (variant == "distill_interval_5") == bool(got["distillation"])
-    model = build_detector(got.S_model, test_cfg=got.test_cfg,
-                           voxel_generator=got.voxel_generator, device="cpu")
-    assert model.backbone.grid_shape == (468, 468)
-    assert [getattr(model.reader, f"pfn_{i}").linear.weight.shape for i in (0, 1)] == \
-        [(32, 10), (64, 64)]
-    assert model.neck.block_2.down.conv.weight.shape == (256, 128, 3, 3)
-    assert model.bbox_head.shared_conv.weight.shape[1] == 384
-
-
 # ------------------------------------------------------------ training CLI
-
-def test_cli_runs_the_pp_recipe_chain(tmp_path):
-    """``tools/train.py`` on the tiny pair: the dense teacher writes
-    ``epoch_1``, the distillation loads it (``--load_from``), trains and is
-    resumed from ``latest``."""
-    from sparse2dense_tpu_torch.tools import train as cli
-    from sparse2dense_tpu_torch.training.checkpoint import load_checkpoint
-
-    base = open(CFG).read()
-    dense = tmp_path / "pp_dense.py"
-    dense.write_text(base + "\nS_model['reader']['num_filters'] = [32, 64]\n"
-                     "S_model['backbone']['num_input_features'] = 64\n"
-                     "S_model['neck']['num_input_features'] = 64\n")
-    distil = tmp_path / "pp_distill.py"
-    distil.write_text(dense.read_text() + "\nimport copy\nmodel = copy.deepcopy(S_model)\n"
-                      "S_model['type'] = 'KD_PointPillars'\n"
-                      "S_model['backbone']['type'] = 'PointPillarsScatter_S2D'\n"
-                      "distillation = True\n")
-    common = ["--device", "cpu", "--max_voxels", "256", "--batch_size", "1"]
-    trainer = cli.main([str(dense), "--work_dir", str(tmp_path / "d"), "--synthetic", "1",
-                        "--epochs", "1"] + common)
-    assert trainer.epoch == 1
-    ckpt = str(tmp_path / "d" / "epoch_1")
-    work = tmp_path / "s"
-    trainer = cli.main([str(distil), "--work_dir", str(work), "--load_from", ckpt,
-                        "--synthetic", "2", "--epochs", "1"] + common)
-    assert trainer.branch == "pp" and trainer.global_iter == 2
-    saved, teacher = load_checkpoint(ckpt)[0]["model"], trainer.teacher.state_dict()
-    assert sorted(saved) == sorted(teacher)
-    assert all(torch.equal(teacher[k], v) for k, v in saved.items())
-    resumed = cli.main([str(distil), "--work_dir", str(work), "--load_from", ckpt,
-                        "--synthetic", "2", "--epochs", "2",
-                        "--resume_from", str(work / "latest")] + common)
-    assert resumed.epoch == 2 and resumed.global_iter == 4
-    assert os.readlink(work / "latest") == "epoch_2"
 
 
 if __name__ == "__main__":

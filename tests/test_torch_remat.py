@@ -8,7 +8,11 @@ without it. Tolerance: 1e-6 of the largest value of the module that holds
 the tensor (a gradient summed in another order; on this CPU the two come
 out bit-equal). A running statistic moved twice a step (the recompute's
 forward updating it again) is off by about one update, 1e-2 of the batch
-statistic, and fails."""
+statistic, and fails.
+
+Split into files of at most 4 tests (the suite's scheduler hands out files
+with more first, ahead of the two long JAX files): the gradients and the
+running statistics, ``tests/test_torch_remat_grads.py``."""
 import numpy as np
 import pytest
 
@@ -102,11 +106,3 @@ def test_remat_metrics_equal(runs, tag):
     assert np.isfinite(list(got.values())).all() and got["grad_norm"] > 0
 
 
-@pytest.mark.parametrize("tag", ["ts", "teacher"])
-def test_remat_gradients_equal(runs, tag):
-    _close(runs[True][tag]["grads"], runs[False][tag]["grads"], "gradients")
-
-
-@pytest.mark.parametrize("tag", ["ts", "teacher"])
-def test_remat_bn_statistics_move_once(runs, tag):
-    _close(runs[True][tag]["stats"], runs[False][tag]["stats"], "running statistics")

@@ -8,7 +8,12 @@ whole key space of every stage, so no tile drops and no tap is missed: the
 reference is exact. JAX runs one jitted apply and predict for the module
 (the variable shapes read off the port's twin). The fused backend
 (``"pallas"``) is held against the reference at every stage by
-``tests/test_torch_tile_backbone.py`` and ``tests/test_torch_tile_kernel.py``."""
+``tests/test_torch_tile_backbone.py`` and ``tests/test_torch_tile_kernel.py``.
+
+Split off into files of at most 4 tests (the suite's scheduler hands out files
+with more first, ahead of the two long JAX files): the backbone's parameters
+against the window engine's and the tile block in training,
+``tests/test_torch_tile_blocks.py``."""
 import numpy as np
 import pytest
 
@@ -20,7 +25,6 @@ from sparse2dense_tpu.training.synthetic import make_batch as jax_make_batch
 from sparse2dense_tpu.utils import Config
 from sparse2dense_tpu_torch.convert import from_flax
 from sparse2dense_tpu_torch.models import build_detector
-from sparse2dense_tpu_torch.models.backbones.scn import SpMiddleResNetFHD, TileKBlock
 from sparse2dense_tpu_torch.training.synthetic import make_batch
 from sparse2dense_tpu_torch.utils.config import ConfigDict
 
@@ -99,36 +103,3 @@ def test_predict(run):
     assert tdet["valid"].sum() > 0
 
 
-def test_tile_parameters_match_the_window_engine(run):
-    """Checkpoints interchange across engines: same names, same shapes."""
-    tile = run["tmodel"].backbone.state_dict()
-    kw = dict(num_input_features=5, sparse_shape=(41, 32, 32))
-    window = SpMiddleResNetFHD(engine="window", dense_from_stage=1, **kw).state_dict()
-    assert {k: tuple(v.shape) for k, v in tile.items()} == \
-        {k: tuple(v.shape) for k, v in window.items()}
-
-
-def test_tile_blocks_are_inference_only(run):
-    """The tile block of the detector trains: batch statistics and a
-    gradient on its weights (its state restored after)."""
-    from sparse2dense_tpu_torch.ops import tile_conv as TTC
-    from sparse2dense_tpu_torch.ops import tile_kernel as TTK
-
-    block = run["tmodel"].backbone.conv2_0
-    assert isinstance(block, TileKBlock)
-    saved = {k: v.clone() for k, v in block.state_dict().items()}
-    block.train()
-    try:
-        coords = torch.tensor([[0, 0, 0], [0, 0, 1], [1, 0, 4], [5, 9, 9]])
-        sets = [TTC.build_tile_set(coords, (8, 16, 16), 4, 4, 4, 10)[0]]
-        plan = TTK.make_block_plan_batched(sets, 128, 128, 128)
-        state, mask = TTK.build_state_batched(torch.randn(1, 4, 32), coords[None], sets,
-                                              (8, 16, 16), 4, 4, 4, 128)
-        out = block(state.requires_grad_(True), mask, plan)
-        out.sum().backward()
-        assert out.shape == (4, 128, 512) and block.conv1_weight.grad.abs().max() > 0
-        assert not torch.equal(block.bn1.running_mean, saved["bn1.running_mean"])
-    finally:
-        block.eval()
-        block.load_state_dict(saved)
-        block.zero_grad(set_to_none=True)

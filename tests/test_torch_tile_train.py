@@ -33,7 +33,15 @@ under autograd, with ``tile_backend="xla"`` (the reference's default) and
   why).
 
 Every budget covers its stage's key space, so no counter is above 0 and the
-reference is exact."""
+reference is exact.
+
+Split off into files of at most 4 tests (the suite's scheduler hands out files
+with more first, ahead of the two long JAX files): the backbone cases,
+``tests/test_torch_tile_train_backbone.py`` (``dense_from_stage`` 0),
+``_dfs2.py`` and ``_dfs99.py``; the block,
+``tests/test_torch_tile_block_train.py``; the teacher-student step,
+``tests/test_torch_tile_train_step.py``; the plan windows,
+``tests/test_torch_tile_plan_windows.py``."""
 import numpy as np
 import pytest
 
@@ -45,7 +53,7 @@ from sparse2dense_tpu.models.backbones.scn import TileBasicBlock as JTileBasicBl
 from sparse2dense_tpu.ops import tile_conv as JTC
 from sparse2dense_tpu.ops import tile_planes as JTP
 from sparse2dense_tpu_torch.models import build_detector
-from sparse2dense_tpu_torch.models.backbones.scn import SpMiddleResNetFHD, TileKBlock
+from sparse2dense_tpu_torch.models.backbones.scn import TileKBlock
 from sparse2dense_tpu_torch.ops import tile_conv as TTC
 from sparse2dense_tpu_torch.ops import tile_kernel as TTK
 from sparse2dense_tpu_torch.solver.optim import OneCycleAdam
@@ -53,9 +61,8 @@ from sparse2dense_tpu_torch.training.synthetic import make_batch
 from sparse2dense_tpu_torch.training.trainer import TS_Trainer
 from sparse2dense_tpu_torch.utils.config import ConfigDict
 
-from tests.test_torch_distill import CFG, FRAME, _compare_stats, _port_grads
+from tests.test_torch_distill import CFG, FRAME, _port_grads
 from tests.test_torch_layers import load, rand_variables
-from tests.test_torch_tile_detector import COUNTERS
 
 CONV_GRID, CONV_TZ, CONV_BUDGET = (8, 32, 32), 4, 120
 
@@ -214,31 +221,6 @@ def from_tree(tree, module, coll="batch_stats"):
         np.asarray, tree)}, module).items()}
 
 
-def test_tile_block_train_output_and_statistics_match_jax(block_case):
-    c = block_case
-    np.testing.assert_allclose(c["out"], c["jout"], **_rel(c["jout"]))
-    stats = {k: v.numpy() for k, v in c["block"].state_dict().items() if "running" in k}
-    assert sorted(stats) == sorted(c["jstats"])
-    for k, v in c["jstats"].items():
-        np.testing.assert_allclose(stats[k], v, rtol=0, atol=1e-5 * np.abs(v).max(), err_msg=k)
-        assert not np.allclose(v, 0 if "mean" in k else 1), k   # the statistics moved
-
-
-def test_tile_block_train_gradients_match_jax(block_case):
-    """Weight gradients within 1e-3 of the block's largest (the block is
-    their module; a conv bias right before train-mode BatchNorm has a true
-    gradient of 0, and both sides give it rounding), the input's within
-    1e-3 of its largest."""
-    c = block_case
-    got = {n: p.grad.numpy() for n, p in c["block"].named_parameters()}
-    assert sorted(got) == sorted(c["jgrads"])
-    scale = max(float(np.abs(g).max()) for g in c["jgrads"].values())
-    for name, g in c["jgrads"].items():
-        np.testing.assert_allclose(got[name], g, rtol=0, atol=1e-3 * scale, err_msg=name)
-    np.testing.assert_allclose(c["dy"], c["jdy"], rtol=0, atol=1e-3 * np.abs(c["jdy"]).max())
-    assert np.abs(got["conv1_weight"]).max() > 0 and np.abs(got["conv2_weight"]).max() > 0
-
-
 # ---------------------------------------------------------------------------
 # the backbone: tile engine in train mode against the gather engine
 # ---------------------------------------------------------------------------
@@ -269,97 +251,6 @@ def _weights(module, seed):
             v = 0.1 * rng.randn(*t.shape)
         out[name] = torch.from_numpy(v.astype(np.float32))
     return out
-
-
-@pytest.fixture(scope="module", params=[0, 2, 99], ids=["dfs0", "dfs2", "dfs99"])
-def backbones(request):
-    """Train-mode forward and the gradients of sum(BEV^2) on the gather and
-    the tile engine (both backends), from one set of weights, at one
-    ``dense_from_stage``."""
-    dfs = request.param
-    rng = np.random.RandomState(dfs + 5)
-    feats = np.stack([rng.randn(200, 5) for _ in range(2)]).astype(np.float32)
-    coords = np.stack([_coords(s, GRID, 200, 20) for s in (dfs, dfs + 1)])
-    feats[:, -20:] = 0
-    weights, out = None, {}
-    for name, kw in ENGINES.items():
-        mod = SpMiddleResNetFHD(dense_from_stage=dfs, **SETTINGS, **kw)
-        weights = weights or _weights(mod, 31 + dfs)
-        mod.load_state_dict(weights)
-        mod.train()
-        bev, _, tele = mod(torch.from_numpy(feats), torch.from_numpy(coords))
-        bev.square().sum().backward()
-        out[name] = dict(bev=bev.detach().numpy(), telemetry=tele,
-                         stats={k: v.clone() for k, v in mod.state_dict().items()
-                                if "running" in k},
-                         grads=_port_grads(mod))
-    return dfs, out
-
-
-def test_tile_train_counters_are_zero(backbones):
-    dfs, runs = backbones
-    for name in ("xla", "pallas"):
-        tele = runs[name]["telemetry"]
-        assert sorted(tele) == sorted(COUNTERS)
-        for k, (counts, budget) in tele.items():
-            assert (int(counts.sum()), budget) == (0, 0), (name, k)
-
-
-def test_tile_train_bev_and_statistics_match_gather(backbones):
-    dfs, runs = backbones
-    t, g = runs["xla"], runs["gather"]
-    assert t["bev"].shape == g["bev"].shape and np.abs(g["bev"]).max() > 0
-    np.testing.assert_allclose(t["bev"], g["bev"], rtol=2e-4, atol=2e-4)
-    assert sorted(t["stats"]) == sorted(g["stats"])
-    for k, v in g["stats"].items():
-        np.testing.assert_allclose(t["stats"][k].numpy(), v.numpy(), rtol=2e-4, atol=2e-4,
-                                   err_msg=k)
-
-
-def test_tile_train_gradients_match_gather(backbones):
-    """Every weight from conv_input to extra_conv gets the gather engine's
-    gradient, within 2e-3 of its module's largest; conv_input's weights
-    keep the reference's (16, 5, 3, 3, 3) shape."""
-    dfs, runs = backbones
-    got, want = runs["xla"]["grads"], runs["gather"]["grads"]
-    assert sorted(got) == sorted(want)
-    scale = {}
-    for name, g in want.items():
-        module = name.rsplit(".", 1)[0]
-        scale[module] = max(scale.get(module, 1.0), float(np.abs(g).max()))
-    for name, g in want.items():
-        np.testing.assert_allclose(got[name], g, rtol=2e-3,
-                                   atol=2e-3 * scale[name.rsplit(".", 1)[0]], err_msg=name)
-    assert got["conv_input.conv_0_weight"].shape == (16, 5, 3, 3, 3)
-    for name in ("conv_input.conv_0_weight", "conv1_0.conv1_weight", "conv2_1.conv2_weight",
-                 "conv3_down.conv_weight", "conv4_1.conv2_weight", "extra_conv.conv_weight"):
-        assert np.abs(got[name]).max() > 0, name
-
-
-def test_tile_train_backends_agree_bit_for_bit(backbones):
-    """``"pallas"`` trains as ``"xla"`` does (its plan windows are not read
-    in training): the same BEV, statistics and gradients, bit for bit."""
-    dfs, runs = backbones
-    x, p = runs["xla"], runs["pallas"]
-    np.testing.assert_array_equal(p["bev"], x["bev"])
-    for k, v in x["stats"].items():
-        assert torch.equal(p["stats"][k], v), k
-    for k, v in x["grads"].items():
-        np.testing.assert_array_equal(p["grads"][k], v, err_msg=k)
-
-
-def test_tile_inference_reads_the_plan_windows_only_on_pallas():
-    """In inference ``"xla"`` reads every tap and ``"pallas"`` keeps the
-    plan windows, whose dropped targets it counts (``tilek_miss``)."""
-    feats = torch.from_numpy(np.random.RandomState(9).randn(2, 200, 5).astype(np.float32))
-    coords = torch.from_numpy(np.stack([_coords(s, GRID, 200, 20) for s in (7, 8)]))
-    misses = {}
-    for name in ("xla", "pallas"):
-        mod = SpMiddleResNetFHD(dense_from_stage=1, **SETTINGS, **ENGINES[name]).eval()
-        with torch.no_grad():
-            _, _, tele = mod(feats, coords)
-        misses[name] = int(tele["tilek_miss"][0].sum())
-    assert misses["xla"] == 0 < misses["pallas"], misses
 
 
 # ---------------------------------------------------------------------------
@@ -398,33 +289,3 @@ def ts_steps():
     return out
 
 
-def test_tile_ts_step_metrics(ts_steps):
-    got, want = ts_steps["tile"]["metrics"], ts_steps["gather"]["metrics"]
-    tele = {k: int(v) for k, v in got.items() if k.startswith("telemetry/")}
-    assert {k.split("/")[1] for k in tele} >= set(COUNTERS)
-    assert all(v == 0 for v in tele.values()), tele
-    assert sorted(k for k in got if k not in tele) == sorted(want)
-    for k, v in want.items():
-        np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-4, err_msg=k)
-    assert float(got["grad_norm"]) > 0
-
-
-def test_tile_ts_step_student_gradients(ts_steps):
-    got, want = ts_steps["tile"]["grads"], ts_steps["gather"]["grads"]
-    assert sorted(got) == sorted(want)
-    scale = {}
-    for name, g in want.items():
-        module = name.rsplit(".", 1)[0]
-        scale[module] = max(scale.get(module, 0.0), float(np.abs(g).max()))
-    floor = 1e-12 * max(scale.values())
-    for name, g in want.items():
-        np.testing.assert_allclose(got[name], g, rtol=0,
-                                   atol=1e-3 * scale[name.rsplit(".", 1)[0]] + floor,
-                                   err_msg=name)
-    for name in ("backbone.conv_input.conv_0_weight", "backbone.conv1_0.conv1_weight",
-                 "backbone.conv2_down.conv_weight", "backbone.conv2_1.conv2_weight"):
-        assert np.abs(got[name]).max() > 0, name
-
-
-def test_tile_ts_step_batchnorm_statistics(ts_steps):
-    _compare_stats(ts_steps["tile"]["stats"], ts_steps["gather"]["stats"])

@@ -6,21 +6,18 @@ against JAX by ``tests/test_torch_gather_engine.py`` and
 mode: the BEV within 1e-4 of its largest value, BN running statistics
 within 1e-5, the gradients of sum(BEV^2) within 1e-3 of their module's
 largest. The tiny frame's residual rows fit every plan's budget, so the
-window engine is exact. Also: per-stage plan windows (a 4-tuple
-``win_window``) as the reference's ``_stage_windows`` assigns them, and the
-window pass at Cin 32 -> Cout 64 (conv3_down's width) on the card."""
+window engine is exact. This file holds the frame, the runs, the
+gradients and the refusals; each (backbone, mode) case's modules, residual
+rows, BEV and statistics are checked in
+``tests/test_torch_window_dfs2_<backbone>_<mode>.py``, the per-stage plan
+windows and the window pass at Cin 32 -> Cout 64 (conv3_down's width) on
+the card in ``tests/test_torch_window_dfs2_windows.py``."""
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
 import torch
 
-from sparse2dense_tpu.models.backbones.scn import _stage_windows
-from sparse2dense_tpu.ops import window_conv as JWC
-from sparse2dense_tpu_torch.models.backbones.scn import (SpMiddleFHD, SpMiddleResNetFHD,
-                                                         WinBasicBlock, WinDownsample,
-                                                         WinSubMStage)
-from sparse2dense_tpu_torch.ops import window_conv as TWC
+from sparse2dense_tpu_torch.models.backbones.scn import SpMiddleFHD, SpMiddleResNetFHD
 from sparse2dense_tpu_torch.ops import window_kernel as TWK
 from sparse2dense_tpu_torch.training.synthetic import make_batch
 from sparse2dense_tpu_torch.utils.config import ConfigDict
@@ -99,48 +96,15 @@ def runs(frame):
     return get
 
 
-@pytest.fixture(params=[(b, t) for b in BACKBONES for t in (False, True)],
-                ids=lambda p: f"{p[0]}-{'train' if p[1] else 'eval'}")
-def engines(request, runs):
-    """(backbone, train, window module, window run, gather run)."""
-    name, train = request.param
-    return (name, train) + runs(name, train)
-
-
-def test_dfs2_modules(engines):
-    """The conv2 stage and the strided conv after it are the window engine's."""
-    name, _, mod, _, _ = engines
-    if name == "resnet":
-        assert isinstance(mod.conv2_0, WinBasicBlock) and isinstance(mod.conv3_down,
-                                                                     WinDownsample)
-        assert not isinstance(mod.conv3_0, WinBasicBlock)
-    else:
-        assert isinstance(mod.subm1, WinSubMStage) and isinstance(mod.down2, WinDownsample)
-        assert not isinstance(mod.subm2, WinSubMStage)
-
-
-def test_dfs2_residual_rows_within_budget(engines):
-    name, _, _, win, _ = engines
-    tele = win["telemetry"]
-    want = ({"conv1", "conv2_down", "conv2", "conv3_down"} if name == "resnet"
-            else {"subm0", "down1", "subm1", "down2"})
-    assert set(tele) == want
-    for key, (counts, budget) in tele.items():
-        assert int(counts.max()) <= budget, key
-
-
-def test_dfs2_bev_matches_gather(engines):
-    _, _, _, win, gather = engines
-    want = gather["bev"]
-    assert win["bev"].shape == want.shape and np.abs(want).max() > 0
-    np.testing.assert_allclose(win["bev"], want, rtol=0, atol=1e-4 * np.abs(want).max())
-
-
-def test_dfs2_batchnorm_statistics_match_gather(engines):
-    _, _, _, win, gather = engines
-    for k, v in gather["stats"].items():
-        np.testing.assert_allclose(win["stats"][k].numpy(), v.numpy(), rtol=1e-5, atol=1e-5,
-                                   err_msg=k)
+def engines_fixture(name, train):
+    """An ``engines`` fixture for one (backbone, train) case: (backbone,
+    train, window module, window run, gather run). Each case's module
+    (``tests/test_torch_window_dfs2_<backbone>_<mode>.py``) runs its four
+    checks on it."""
+    @pytest.fixture(params=[(name, train)], ids=[f"{name}-{'train' if train else 'eval'}"])
+    def engines(request, runs):
+        return request.param + runs(*request.param)
+    return engines
 
 
 @pytest.mark.parametrize("name", list(BACKBONES))
@@ -178,44 +142,6 @@ def test_dfs3_raises_and_names_the_widths():
 WINDOWS = (128, 256, 384, 512)
 
 
-def test_stage_windows_as_the_reference(frame, monkeypatch):
-    """A 4-tuple ``win_window``: each stage's plans take the reference's
-    ``_stage_windows`` entry (conv1 0, conv2_down and conv2 1, conv3_down
-    2), and each subm plan equals JAX's plan at that window."""
-    wins = _stage_windows(WINDOWS)
-    subm, strided = [], []
-    make_subm, make_strided = TWC.make_subm_plan_presorted, TWC.make_strided_plan
-
-    def rec_subm(lin, coords, grid, **kw):
-        subm.append((lin, coords, tuple(grid), kw["window"]))
-        return make_subm(lin, coords, grid, **kw)
-
-    def rec_strided(*args, **kw):
-        strided.append(kw["window"])
-        return make_strided(*args, **kw)
-
-    monkeypatch.setattr(TWC, "make_subm_plan_presorted", rec_subm)
-    monkeypatch.setattr(TWC, "make_strided_plan", rec_strided)
-    mod = SpMiddleResNetFHD(num_input_features=5, sparse_shape=GRID, engine="window",
-                            dense_from_stage=2, win_window=WINDOWS)
-    mod.load_state_dict(seeded_weights(mod, 41))
-    with torch.no_grad():
-        mod.eval()(*frame)
-    assert mod.wins == wins
-    assert [w for *_, w in subm] == [wins[0]] * 2 + [wins[1]] * 2   # a plan a sample
-    assert strided == [wins[1]] * 2 + [wins[2]] * 2
-    for lin, coords, grid, window in (subm[0], subm[2]):
-        jp = JWC.make_subm_plan_presorted(jnp.asarray(lin.numpy()), jnp.asarray(coords.numpy()),
-                                          grid, window=window)
-        tp = make_subm(lin, coords, grid, window=window)
-        for field in ("ws", "kbase", "resid_rows", "n_resid"):
-            np.testing.assert_array_equal(getattr(tp, field).numpy(),
-                                          np.asarray(getattr(jp, field)), err_msg=field)
-    with pytest.raises(ValueError, match="4 per-stage windows"):
-        SpMiddleResNetFHD(num_input_features=5, sparse_shape=GRID, engine="window",
-                          win_window=(384, 384))
-
-
 def test_window_kernel_takes_32_to_64():
     assert TWK.unsupported(128, 32, 64, 384) is None
     assert TWK.unsupported(128, 32, 64, 512) is None
@@ -224,26 +150,3 @@ def test_window_kernel_takes_32_to_64():
     assert TWK.smem_bytes(32, 64, 384) + 4096 == 202496
 
 
-@pytest.mark.cuda
-def test_window_pass_cuda_32_to_64_matches_plain(frame):
-    """The CUDA kernel at Cin 32 -> Cout 64 on a strided plan against its
-    plain version on bf16-rounded inputs."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU and nvcc")
-    _, coords = frame
-    c = coords[0].cuda()
-    lin = TWC.yxz_lin(c, GRID)
-    order = torch.argsort(lin, stable=True)
-    c, lin = c[order], lin[order]
-    down = ((2, 2, 2), (1, 1, 1), (3, 3, 3))
-    g_out = (13, 16, 16)
-    oc, ol = TWC.downsample_active_set_yxz(c, (c >= 0).all(-1), GRID, g_out, *down,
-                                           c.shape[0])
-    plan = TWC.make_strided_plan(lin, ol, oc, GRID, g_out, *down, window=128,
-                                 resid_budget=c.shape[0])
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    f = torch.randn((c.shape[0], 32), device="cuda", generator=gen).to(torch.bfloat16)
-    w = (torch.randn((27, 32, 64), device="cuda", generator=gen) * 0.1).to(torch.bfloat16)
-    got = TWK.window_pass(f, plan, w)
-    want = TWC.window_pass_plain(f.float(), plan, w.float())
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -5,7 +5,11 @@ its search relies on: window keys sorted and unique, and the three dz taps
 of a (dy, dx) run on consecutive keys. The test also records that each tap's
 targets rise with the row inside a block, GATE rows aside: the kernel does
 not use this (it searches each row), but a merge of its searches along the
-rows would."""
+rows would.
+
+Split into files of at most 4 tests (the suite's scheduler hands out files
+with more first, ahead of the two long JAX files): the plan order,
+``tests/test_torch_window_plan_order.py``."""
 import numpy as np
 import pytest
 import torch
@@ -50,19 +54,3 @@ def _plans():
     return plans
 
 
-@pytest.mark.parametrize("kind", ["subm", "strided", "z-only"])
-def test_plan_order_the_search_relies_on(kind):
-    plan = _plans()[kind]
-    lin = plan.lin[plan.lin < WC.MISS]
-    assert bool((lin[1:] > lin[:-1]).all())                     # sorted, unique
-    off = plan.offsets.reshape(3, 3, 3)                          # (dy, dx, dz)
-    assert torch.equal(off - off[:, :, :1], torch.arange(3).int().expand(3, 3, 3))
-    kb = plan.kbase.view(-1, plan.block, 3)
-    gated = kb == WC.GATE
-    assert bool(gated.any()) and bool((~gated).any())           # both kinds of rows
-    for g in range(3):
-        for j in range(9):
-            t = kb[:, :, g] + plan.offsets[g, j]
-            for b in range(kb.shape[0]):
-                row = t[b][~gated[b, :, g]]
-                assert bool((row[1:] > row[:-1]).all()), (kind, g, j, b)
