@@ -205,7 +205,32 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    on the val records: rank 0's merged detections against phase 12's one
    process within ``DP_DET_TOL``, rank 1 None. The ranks find the kernels
    phase 2 built;
-14. agreement: the tiny distillation model on the card against the same model
+14. two_stage: the flagship two-stage recipe
+   (``configs/waymo_centerpoint_voxelnet_two_stage_distill_interval_5.py``:
+   the KD_VoxelNet student frozen under the RoI head; 500 RoIs, 5 points a
+   box, BEV at stride 8 from 512 channels) at full width on the bench's
+   frame, seeded weights, the first stage's heatmap bias set so that
+   ``TS_CANDIDATES`` cells a sample pass the score threshold
+   (``phase_two_stage``): inference frames (``TS_WARMUP`` + ``TS_TIMED``,
+   then ``TS_TIMED`` with the stages synchronised: the first stage's maps
+   and its predict (decode, NMS), BEV, RoI head, predict; 6 B1 launches a
+   frame, finite boxes, scores in [0, 1]); model-level training steps at
+   batch 1 and at the recipe's 6 through ``make_train_step`` (the frozen
+   first stage, the proposal targets with the 3D IoU, the RoI head forward
+   and backward, ``OneCycleAdam``; medians of its stages and peaks, then
+   train-mode forwards and losses split by stage; the 3D IoU's host ms, event span
+   and profiled device operations; every metric finite, both RoI losses
+   above 0, a gradient on every RoI head parameter, none on the first
+   stage, which does not move; 6 B1 a sample a step and a forward); the pillar two-stage recipe's frame (no B1, B2 or B3 launch);
+   the tiny two-stage model on the card against the CPU (``TS_TINY_TOL``);
+   the det3d converter at full width (the dense teacher's weights through a
+   det3d ``.pth``, ``tools/convert_checkpoint.py`` and ``--load_from``'s
+   loader: every entry equal, head maps within ``TS_CONVERT_TOL``); and
+   ``tools/test.py --checkpoint`` on the recipe over phase 12's val
+   records (the detections' file, the mAP dict, 6 B1 a frame).
+   ``python3 chip_smoke.py two_stage`` runs this phase alone (on records
+   of its own; it prints no kernels line and no last line);
+15. agreement: the tiny distillation model on the card against the same model
    on the CPU (plain versions only), window, plane and tile engines; the
    tiny tile backbone's train-mode forward and backward on the card (B3
    under autograd) against the CPU: BEV and every gradient within
@@ -216,9 +241,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    each window-engine conv weight's gradient within 2e-2 (the tiny step is
    ill-conditioned: ``_ts_step_agreement`` says how much).
 
-TF32 is switched off for cuDNN and matmuls in phases 2, 14, the gather
-comparison of 9 and the tiny step of 11, which compare against float32
-plain versions or the CPU; the rest of phases 3 to 13 run at PyTorch's
+TF32 is switched off for cuDNN and matmuls in phases 2, 15, the gather
+comparison of 9 and the tiny runs of 11 and 14, which compare against float32
+plain versions or the CPU; the rest of phases 3 to 14 run at PyTorch's
 defaults (TF32 on in cuDNN convs, off in matmuls). With TF32 off cuDNN picks an FFT
 algorithm for the neck's 3x3 convs that costs ~200 ms a frame on an H100
 (``sparse2dense_tpu_torch/tools/profile_flagship.py``). The second-to-last
@@ -2661,7 +2686,8 @@ def phase_data(smi, tmp):
           f"as detections: {res['truth_bev_mAP']}; B1 {res['val_launches']}; phase {res['seconds']:.1f} s "
           f"(records {res['records_s']:.1f} s) | {smi}", flush=True)
     print("[data] " + json.dumps(res), flush=True)
-    return res, dict(cfg_path=cfg_path, eval_path=eval_path, untrained=untrained)
+    return res, dict(cfg_path=cfg_path, eval_path=eval_path, untrained=untrained,
+                     records=dict(root=tmp, **paths))
 
 
 # phase "dp": the flagship teacher-student step at two ranks of one sample on
@@ -2928,6 +2954,550 @@ def phase_dp(smi, data):
     return res
 
 
+# phase 14 "two_stage": the flagship two-stage recipe (the KD_VoxelNet
+# student, frozen, under the RoI head) at full width on the bench's frame.
+# Inference frames: TS_WARMUP + TS_TIMED, then TS_TIMED more with the stages
+# synchronised. Steps (``make_train_step``): TS_STEP_WARMUP + TS_STEPS at
+# batch 1 and at the recipe's samples_per_gpu of 6, then as many train-mode
+# forwards and losses with their stages synchronised. A random first stage's boxes never meet the
+# synthetic objects, so each step's batch also holds, as gt boxes after the
+# synthetic objects, TS_GT_FROM_DETECTIONS of the first stage's own boxes a
+# sample, moved by TS_GT_SHIFTS (m, in turn): the sampled RoIs then hold
+# foreground, hard and easy background and both RoI losses move
+TS_WARMUP, TS_TIMED = 3, 5
+TS_BATCHES = (1, 6)
+TS_STEP_WARMUP, TS_STEPS = 1, 4
+TS_GT_FROM_DETECTIONS = 16
+TS_GT_SHIFTS = (0.005, 0.1, 0.3, 2.0)
+TS_STEP_STAGES = ("forward", "backward", "optimizer")
+TS_FORWARD_STAGES = ("first_stage_maps", "first_stage_predict", "bev", "targets", "roi_head",
+                     "loss")
+# heatmap cells a sample above the score threshold (``_ts_heatmap_bias``)
+TS_CANDIDATES = 300
+# the tiny two-stage model (configs/tests/two_stage_tiny.py: a pillar first
+# stage, no sparse kernel; DP_RATIO 0) on the card against the CPU, float32
+# with TF32 off: the RoI head's eval maps and the train-mode loss terms with
+# the same draws, relative to the CPU's largest value (summation order only;
+# the RoIs, their labels and the sampled rows must be the same)
+TS_TINY_TOL = 1e-4
+# the converter at full width: the dense teacher's head maps after the det3d
+# round trip against the source model's, relative to their largest value
+TS_CONVERT_TOL = 1e-4
+
+
+def _ts_model(cfg, seed=0):
+    """The recipe's two-stage model on the card, seeded weights."""
+    import torch
+
+    from sparse2dense_tpu_torch.models import build_detector
+
+    return build_detector(cfg["S_model"], test_cfg=cfg["test_cfg"],
+                          voxel_generator=cfg["voxel_generator"], device="cuda",
+                          generator=torch.Generator().manual_seed(seed))
+
+
+def _ts_heatmap_bias(model, batch, cfg):
+    """Sets the first stage's heatmap output bias so that ``TS_CANDIDATES``
+    heatmap cells a sample pass the score threshold (random weights give a
+    heatmap of small spread: at the initial bias, -2.19, nearly every cell
+    passes and floods the NMS; at the flagship frame's -6 none does, and the
+    RoI head gets no RoI). -> (the bias, the first stage's valid RoIs)."""
+    import math
+
+    import torch
+
+    from sparse2dense_tpu_torch.models.heads.center_head import SepHead
+
+    heads = [m for m in model.single_det.modules() if isinstance(m, SepHead)]
+    with torch.no_grad():
+        for h in heads:
+            h.hm_out.bias.zero_()
+    with torch.inference_mode():
+        preds = model.single_det.forward_two_stage(batch)[2]
+        logits = torch.cat([p["hm"].flatten(1) for p in preds], 1)
+        kth = float(logits.topk(TS_CANDIDATES, 1).values[:, -1].min())
+    thr = cfg["test_cfg"]["score_threshold"]
+    bias = math.log(thr / (1 - thr)) - kth
+    with torch.no_grad():
+        for h in heads:
+            h.hm_out.bias.fill_(bias)
+    with torch.inference_mode():
+        valid = int(model.single_det.forward_two_stage(batch)[0]["valid"].sum())
+    return bias, valid
+
+
+class _StageClock:
+    """``mark(name)``: the device synchronised, the ms since the last mark
+    and the peak GiB since then (the peak counter reset at each mark)."""
+
+    def __init__(self):
+        import torch
+
+        self.ms, self.peak = {}, {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.t = time.perf_counter()
+
+    def __call__(self, name):
+        import torch
+
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.ms[name] = (now - self.t) * 1e3
+        self.peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        self.t = now
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def _ts_frames(model, batch, tag, want_b1):
+    """Inference frames of a two-stage model: medians of whole frames and of
+    its stages (first stage, BEV, RoI head, predict), B1 launches a frame,
+    finite boxes and scores in [0, 1]."""
+    import torch
+
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+
+    times, split, per_frame, peak = [], [], [], 0.0
+    _zero_sparse_launches()
+    for i in range(TS_WARMUP + 2 * TS_TIMED):
+        before = WK.launches
+        staged = i >= TS_WARMUP + TS_TIMED
+        clock = _StageClock()
+        with torch.inference_mode():
+            out = model(batch, mark=clock if staged else None)
+            det = model.predict(out)
+        clock("predict")
+        peak = max(peak, *clock.peak.values())
+        per_frame.append(WK.launches - before)
+        if staged:
+            split.append(clock.ms)
+        elif i >= TS_WARMUP:
+            times.append(sum(clock.ms.values()))
+    launches = _sparse_launches()
+    if per_frame != [want_b1] * len(per_frame) or launches[1:] != (0, 0):
+        raise AssertionError(f"{tag}: (B1, B2, B3) launches {launches}, B1 a frame "
+                             f"{per_frame}, expected {want_b1}")
+    valid, scores = det["valid"], det["scores"]
+    if not bool(torch.isfinite(det["box3d_lidar"][valid]).all()) or \
+            not bool(((scores >= 0) & (scores <= 1)).all()) or not bool(valid.any()):
+        raise AssertionError(f"{tag}: boxes or scores out of range, {int(valid.sum())} valid")
+    return dict(frame_ms_median=_median(times), frame_ms=times,
+                stages_ms={k: _median([s[k] for s in split]) for k in split[0]},
+                launches=launches[0], detections=int(valid.sum()),
+                rois=tuple(out["batch"]["roi_features"].shape), peak_mem_gb=peak)
+
+
+def _gt_from_first_stage(model, batch, n=TS_GT_FROM_DETECTIONS):
+    """``batch`` with ``n`` of the frozen first stage's own boxes a sample,
+    moved by TS_GT_SHIFTS in turn along (0.6, 0.8), as gt boxes after the
+    synthetic objects (x, y, z, w, l, h, yaw and the 1-based class)."""
+    import torch
+
+    with torch.inference_mode():
+        boxes = model.single_det.forward_two_stage(batch)[0]
+    gt = batch["gt_boxes_and_cls"].clone()
+    shifts = torch.tensor(TS_GT_SHIFTS, device=gt.device)
+    for b in range(gt.shape[0]):
+        rows = torch.nonzero(boxes["valid"][b])[:n, 0]
+        moved = boxes["box3d_lidar"][b, rows].clone()
+        step = shifts[torch.arange(len(rows), device=gt.device) % len(shifts)][:, None]
+        moved[:, :2] += step * torch.tensor([0.6, 0.8], device=gt.device)
+        filled = int((gt[b, :, 3:6] > 0).any(-1).sum())
+        gt[b, filled:filled + len(rows), :7] = moved
+        gt[b, filled:filled + len(rows), -1] = boxes["label_preds"][b, rows].float() + 1
+    return dict(batch, gt_boxes_and_cls=gt)
+
+
+def _ts_iou_ms(model, batch):
+    """``boxes_iou3d`` of the first stage's (B, 500) boxes against the
+    batch's (B, 500) gt slots, one batched call: the host's ms of a call
+    ending in a synchronise; the span of CUDA events over calls back to back
+    behind a sleep kernel (``cuda_ms``: once the launch queue is full, the
+    host's issue shows in it); and, from one call under ``torch.profiler``,
+    the device operations it runs (kernels, copies, fills) and the sum of
+    their device times (None when the profiler sees no device activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparse2dense_tpu_torch.ops.iou3d import boxes_iou3d
+
+    with torch.inference_mode():
+        rois = model.single_det.forward_two_stage(batch)[0]["box3d_lidar"]
+    gts = batch["gt_boxes_and_cls"][..., :7]
+    span_ms = cuda_ms(lambda: boxes_iou3d(rois, gts), reps=5)
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        boxes_iou3d(rois, gts)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        boxes_iou3d(rois, gts)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(pairs=rois.shape[0] * rois.shape[1] * gts.shape[1], host_ms=_median(host),
+                span_ms=span_ms, device_ops=len(ops) or None,
+                device_busy_ms=sum(e.time_range.elapsed_us() for e in ops) / 1e3 if ops
+                else None)
+
+
+def _ts_steps(cfg, model, batch_size):
+    """Model-level steps of the two-stage recipe at ``batch_size`` through
+    the port's training entry point (``make_train_step``, ``OneCycleAdam``
+    over the parameters that need a gradient): medians of the step's stages
+    (forward with the loss, backward, optimizer) and peaks; then as many
+    train-mode forwards and losses with a stage timer, for the forward's
+    split (the first stage's maps and its predict, BEV, targets, RoI head,
+    loss). Every
+    metric finite, both RoI losses nonzero, a nonzero gradient on every RoI
+    head parameter, none on the first stage, whose parameters and
+    statistics do not move; 6 B1 launches a sample a step and a forward."""
+    import gc
+
+    import torch
+
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+    from sparse2dense_tpu_torch.solver.optim import OneCycleAdam
+    from sparse2dense_tpu_torch.tools.profile_train_step import FRAME
+    from sparse2dense_tpu_torch.training.synthetic import make_batch
+    from sparse2dense_tpu_torch.training.train_state import make_train_step
+    from sparse2dense_tpu_torch.utils.config import frame_voxels
+
+    batch = make_batch(cfg, batch_size, max_voxels=frame_voxels(cfg, train=True), device="cuda",
+                       with_targets=True, **FRAME)
+    batch = _gt_from_first_stage(model, batch)
+    iou = _ts_iou_ms(model, batch)
+    first = {k: v.clone() for k, v in model.single_det.state_dict().items()}
+    opt = OneCycleAdam([p for p in model.parameters() if p.requires_grad], cfg["optimizer"],
+                       cfg["lr_config"], 10, cfg["optimizer_config"]["grad_clip"])
+    train_step = make_train_step(model, opt)
+    rows, split = [], []
+    for _ in range(TS_STEP_WARMUP + TS_STEPS):
+        WK.launches = 0
+        clock = _StageClock()
+        metrics = train_step(batch, mark=clock)
+        rows.append(dict(step_ms=sum(clock.ms.values()), stages=dict(clock.ms),
+                         peaks=dict(clock.peak), launches=WK.launches,
+                         metrics={k: float(v) for k, v in metrics.items()}))
+    tag = f"two_stage batch {batch_size}"
+    _check_metrics(tag, rows[-1]["metrics"])
+    if not all(r["metrics"][k] > 0 for r in rows for k in ("rcnn_loss_cls", "rcnn_loss_reg")):
+        raise AssertionError(f"{tag}: an RoI loss is 0: {[r['metrics'] for r in rows]}")
+    for name, p in model.named_parameters():
+        g = p.grad
+        if name.startswith("single_det.") and g is not None:
+            raise AssertionError(f"{tag}: the frozen {name} got a gradient")
+        if name.startswith("roi_head.") and (g is None or not bool(g.abs().max() > 0)):
+            raise AssertionError(f"{tag}: {name} got no gradient")
+    for _ in range(TS_STEP_WARMUP + TS_STEPS):
+        WK.launches = 0
+        clock = _StageClock()
+        out = model(batch, mark=clock)
+        model.loss(out, batch)
+        clock("loss")
+        split.append(dict(stages=dict(clock.ms), peaks=dict(clock.peak), launches=WK.launches,
+                          fg=int(out["targets"]["reg_valid_mask"].sum())))
+        del out
+    moved = [k for k, v in model.single_det.state_dict().items() if not torch.equal(v, first[k])]
+    if moved:
+        raise AssertionError(f"{tag}: the frozen first stage moved: {moved[:5]}")
+    if any(r["launches"] != EXPECTED_LAUNCHES["window"][0] * batch_size for r in rows + split):
+        raise AssertionError(f"{tag}: B1 launches a step {[r['launches'] for r in rows]}, "
+                             f"a forward {[r['launches'] for r in split]}")
+    timed, timed_split = rows[TS_STEP_WARMUP:], split[TS_STEP_WARMUP:]
+    res = dict(batch=batch_size, step_ms=_median([r["step_ms"] for r in timed]),
+               stages_ms={s: _median([r["stages"][s] for r in timed]) for s in TS_STEP_STAGES},
+               stages_peak_gb={s: max(r["peaks"][s] for r in timed) for s in TS_STEP_STAGES},
+               peak_mem_gb=max(max(r["peaks"].values()) for r in timed),
+               forward_stages_ms={s: _median([r["stages"][s] for r in timed_split])
+                                  for s in TS_FORWARD_STAGES},
+               forward_stages_peak_gb={s: max(r["peaks"][s] for r in timed_split)
+                                       for s in TS_FORWARD_STAGES},
+               launches_per_step=[r["launches"] for r in rows],
+               launches_per_forward=[r["launches"] for r in split],
+               fg_rois=[r["fg"] for r in split], iou=iou,
+               metrics=rows[-1]["metrics"], steps=rows, forwards=split)
+    del batch, opt, train_step
+    model.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _ts_tiny_run(dev):
+    """The tiny two-stage model (DP_RATIO 0, seeded weights) on ``dev``:
+    its eval outputs, and one train-mode forward's loss terms with draws
+    from a seeded generator on a batch whose gt boxes hold its own first
+    stage's boxes (``_gt_from_first_stage``)."""
+    import torch
+
+    from sparse2dense_tpu_torch.models import build_detector
+    from sparse2dense_tpu_torch.training.synthetic import make_batch
+    from sparse2dense_tpu_torch.utils.config import ConfigDict
+
+    cfg = ConfigDict.fromfile(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                           "configs", "tests", "two_stage_tiny.py"))
+    cfg["S_model"]["roi_head"]["model_cfg"]["DP_RATIO"] = 0.0
+    model = build_detector(cfg["S_model"], test_cfg=cfg["test_cfg"],
+                           voxel_generator=cfg["voxel_generator"], device=dev,
+                           generator=torch.Generator().manual_seed(3))
+    batch = make_batch(cfg, 2, max_voxels=256, n_points=500, n_obj=3, device=dev,
+                       with_targets=True)
+    with torch.inference_mode():
+        out = model(batch)
+    boxes = out["first_boxes"]
+    batch = _gt_from_first_stage(model, batch, len(TS_GT_SHIFTS))
+    model.train()
+    rand = torch.rand((2, 16), generator=torch.Generator().manual_seed(7))
+    tout = model(batch, rand=rand)
+    loss, logs = model.loss(tout, batch)
+    cpu = {k: v.detach().cpu() for k, v in out.items() if k.startswith("rcnn")}
+    cpu.update(valid=boxes["valid"].cpu(), labels=boxes["label_preds"].cpu(),
+               index=tout["targets"]["index"].cpu())
+    return cpu, {k: float(v.detach()) for k, v in dict(logs, loss=loss).items()}
+
+
+def _ts_tiny_agreement():
+    """``_ts_tiny_run`` on the card against the CPU: the RoIs, their labels
+    and the sampled rows equal; the RoI head's maps and the loss terms within
+    ``TS_TINY_TOL`` of the CPU's largest value."""
+    (cu, cu_m), (cp, cp_m) = _ts_tiny_run("cuda"), _ts_tiny_run("cpu")
+    for k in ("valid", "labels", "index"):
+        if not bool((cu[k] == cp[k]).all()):
+            raise AssertionError(f"tiny two-stage: {k} differs between the card and the CPU")
+    maps = max(float((cu[k] - cp[k]).abs().max() / cp[k].abs().max().clamp(min=1e-6))
+               for k in ("rcnn_cls", "rcnn_reg"))
+    loss = max(abs(v - cp_m[k]) / max(abs(cp_m[k]), 1e-6) for k, v in cu_m.items())
+    res = dict(maps=maps, loss_terms=loss, cpu_metrics=cp_m)
+    print(f"[two_stage] tiny model, cuda vs cpu: RoI head maps {maps:.3e}, loss terms "
+          f"{loss:.3e} (within {TS_TINY_TOL})", flush=True)
+    if max(maps, loss) > TS_TINY_TOL:
+        raise AssertionError(f"tiny two-stage disagrees with its CPU run: {res}")
+    return res
+
+
+def _det3d_layout(flax_path, port, module, tf_name):
+    """The det3d tensor that the converter's rule (``tf_name``) maps onto
+    the port tensor ``port``: the port's layout back to Flax's, then the
+    rule's transform inverted."""
+    import numpy as np
+    import torch
+
+    a = port.detach().cpu().numpy()
+    leaf = flax_path[-1]
+    if leaf.endswith("_kernel"):            # (Co, Ci, kz, ky, kx) -> det3d (kz, ky, kx, Ci, Co)
+        return torch.from_numpy(np.ascontiguousarray(np.transpose(a, (2, 3, 4, 1, 0))))
+    if leaf == "kernel":
+        n = a.ndim - 2
+        if isinstance(module, (torch.nn.ConvTranspose2d, torch.nn.ConvTranspose3d)):
+            flax = np.flip(np.transpose(a, tuple(range(2, 2 + n)) + (0, 1)), tuple(range(n)))
+        else:
+            flax = np.transpose(a, tuple(range(2, 2 + n)) + (1, 0))
+        inv = {"t_conv2d": lambda w: np.transpose(w, (3, 2, 0, 1)),
+               "t_convt2d": lambda w: np.transpose(w[::-1, ::-1], (2, 3, 0, 1)),
+               "t_linear": lambda w: np.transpose(w, (1, 0))}[tf_name]
+        return torch.from_numpy(np.ascontiguousarray(inv(flax)))
+    return torch.from_numpy(a.copy())
+
+
+def _ts_converter(tmp):
+    """The converter at full width: a det3d-layout state dict built from the
+    flagship dense teacher's own weights by inverting the converter's rules,
+    saved as a det3d ``.pth``, converted by ``tools/convert_checkpoint.py``
+    (``--model_key model``), loaded into a teacher of other weights by
+    ``--load_from``'s loader (``load_checkpoint`` + ``merge_params``): every
+    entry equal to the source's, and the head maps on the frame within
+    ``TS_CONVERT_TOL`` of the source model's."""
+    import logging
+
+    import torch
+
+    from sparse2dense_tpu_torch.convert import port_key
+    from sparse2dense_tpu_torch.models import build_detector
+    from sparse2dense_tpu_torch.tools import convert_checkpoint as CC
+    from sparse2dense_tpu_torch.tools.profile_train_step import FRAME
+    from sparse2dense_tpu_torch.training.checkpoint import load_checkpoint, merge_params
+    from sparse2dense_tpu_torch.training.synthetic import make_batch
+    from sparse2dense_tpu_torch.utils.config import FLAGSHIP, ConfigDict
+
+    t0 = time.perf_counter()
+    cfg = ConfigDict.fromfile(FLAGSHIP)
+    kw = dict(test_cfg=cfg["test_cfg"], voxel_generator=cfg["voxel_generator"], device="cuda")
+    src = build_detector(cfg["model"], generator=torch.Generator().manual_seed(21), **kw)
+    state, modules = src.state_dict(), dict(src.named_modules())
+    det3d = {}
+    for pat, path_tpl, tf in CC.rules_for_model(dict(cfg["model"])):
+        text = pat.pattern.strip("^$").replace("\\", "")
+        for g in range(8):
+            key = text.replace(r"(d+)", str(g))
+            path = tuple(seg.format(g) if "{" in seg else seg for seg in path_tpl)
+            name = port_key(path[0], path[1:])
+            if name in state and key not in det3d:
+                det3d[key] = _det3d_layout(path[1:], state[name],
+                                           modules.get(".".join(path[1:-1])), tf.__name__)
+    pth = os.path.join(tmp, "teacher_epoch_30.pth")
+    torch.save({"state_dict": det3d, "meta": {"epoch": 30}}, pth)
+    out = CC.main([FLAGSHIP, pth, os.path.join(tmp, "converted"), "--model_key", "model"])
+    restored, meta = load_checkpoint(out)
+    dst = build_detector(cfg["model"], generator=torch.Generator().manual_seed(22), **kw)
+    dst.load_state_dict(merge_params(dst.state_dict(), restored["model"],
+                                     logging.getLogger("chip_smoke")))
+    differ = [k for k, v in dst.state_dict().items() if not torch.equal(v, state[k])]
+    batch = make_batch(cfg, 1, max_voxels=150000, device="cuda", **FRAME)
+    with torch.inference_mode():
+        want, got = src(batch)["preds"], dst(batch)["preds"]
+    gap = max(float((got[t][k] - v).abs().max() / v.abs().max().clamp(min=1e-6))
+              for t, pd in enumerate(want) for k, v in pd.items())
+    res = dict(det3d_keys=len(det3d), port_keys=len(state), entries_differ=len(differ),
+               head_maps_rel=gap, source=meta.get("source") == pth,
+               seconds=time.perf_counter() - t0)
+    if differ or gap > TS_CONVERT_TOL or not res["source"]:
+        raise AssertionError(f"converter at full width: {res}, e.g. {differ[:5]}")
+    del src, dst
+    torch.cuda.empty_cache()
+    return res
+
+
+def _ts_test_cli(cfg, records, tmp):
+    """``tools/test.py --checkpoint`` on the two-stage recipe over phase 12's
+    val records (the seeded model's checkpoint; score threshold 0, so that
+    the untrained first stage's candidates reach the RoI head and the
+    evaluation): the detections' file, the mAP dict, 6 B1 launches a frame."""
+    import torch
+
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+    from sparse2dense_tpu_torch.tools import test as test_cli
+    from sparse2dense_tpu_torch.training.checkpoint import save_checkpoint
+    from sparse2dense_tpu_torch.utils.config import TWO_STAGE
+
+    cfg_path = os.path.join(tmp, "two_stage_records.py")
+    with open(TWO_STAGE) as f, open(cfg_path, "w") as out:
+        out.write(f.read() + DATA_APPEND.format(root=records["root"], train=records["train"],
+                                                val=records["val"]) + EVAL_APPEND)
+    model = _ts_model(cfg, seed=5)
+    ckpt = save_checkpoint(tmp, "two_stage_seeded", {"model": model.state_dict()}, latest=False)
+    del model
+    torch.cuda.empty_cache()
+    evald = os.path.join(tmp, "two_stage_eval")
+    WK.launches = 0
+    detections, (result, _), times = test_cli.main(
+        [cfg_path, "--checkpoint", ckpt, "--work_dir", evald, "--speed_test"])
+    res = dict(launches=WK.launches, ms_frame=[1000 * t for t in times],
+               detections=sum(len(d["scores"]) for d in detections.values()),
+               local_bev_mAP=result.get("local_bev_mAP"))
+    if res["launches"] != EXPECTED_LAUNCHES["window"][0] * DATA_VAL_FRAMES or \
+            sorted(detections) != [f"val_{i}" for i in range(DATA_VAL_FRAMES)] or \
+            not os.path.exists(os.path.join(evald, "detection_pred.pkl")) or \
+            res["detections"] == 0 or not math.isfinite(res["local_bev_mAP"]):
+        raise AssertionError(f"two_stage tools/test.py: {res}, {sorted(detections)}")
+    return res
+
+
+def phase_two_stage(smi, records):
+    """The two-stage recipe on the card (``TWO_STAGE``: the flagship student
+    frozen under the RoI head, 500 RoIs, 5 points a box, BEV at stride 8
+    from 512 channels): inference frames at batch 1 (window engine, 6 B1 a
+    frame; medians of the frame and of its stages); model-level training
+    steps at batch 1 and 6 (``_ts_steps``); the pillar two-stage recipe's
+    frame (``PP_TWO_STAGE``, no sparse kernel); the tiny model on the card
+    against the CPU; the converter at full width; ``tools/test.py`` on the
+    recipe over phase 12's val records (``records``: its root and info
+    paths). Launch counts set to 0 just before each run and read just
+    after."""
+    import gc
+
+    import torch
+
+    from sparse2dense_tpu_torch.training.synthetic import make_batch
+    from sparse2dense_tpu_torch.utils.config import (PP_TWO_STAGE, TWO_STAGE, ConfigDict,
+                                                     frame_voxels)
+
+    t0, res, parts = time.perf_counter(), {}, {}
+
+    def part(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    cfg = ConfigDict.fromfile(TWO_STAGE)
+    model = _ts_model(cfg)
+    batch = make_batch(cfg, 1, max_voxels=frame_voxels(cfg, train=False), n_points=170000,
+                       n_obj=32, device="cuda")
+    bias, rois = _ts_heatmap_bias(model, batch, cfg)
+    res["frame"] = dict(_ts_frames(model, batch, "two_stage", EXPECTED_LAUNCHES["window"][0]),
+                        heatmap_bias=bias, valid_rois=rois)
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("frames")
+    res["steps"] = {b: _ts_steps(cfg, model, b) for b in TS_BATCHES}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("steps")
+
+    pcfg = ConfigDict.fromfile(PP_TWO_STAGE)
+    pmodel = _ts_model(pcfg)
+    batch = make_batch(pcfg, 1, max_voxels=frame_voxels(pcfg, train=False), device="cuda",
+                       **PP_FRAME)
+    bias, rois = _ts_heatmap_bias(pmodel, batch, pcfg)
+    res["pp_frame"] = dict(_ts_frames(pmodel, batch, "two_stage pp", 0), heatmap_bias=bias,
+                           valid_rois=rois)
+    del pmodel, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("pp_frames")
+    with no_tf32():
+        res["tiny"] = _ts_tiny_agreement()
+    part("tiny")
+    with tempfile.TemporaryDirectory() as tmp:
+        res["converter"] = _ts_converter(tmp)
+        part("converter")
+        res["test_cli"] = _ts_test_cli(cfg, records, tmp)
+        part("test_cli")
+    res["seconds"], res["part_seconds"] = time.perf_counter() - t0, parts
+    f, pf = res["frame"], res["pp_frame"]
+    print(f"[two_stage] frame (batch 1, {f['rois'][1]} RoIs x {f['rois'][2]} features): median "
+          f"{f['frame_ms_median']:.2f} ms over {TS_TIMED}; stages "
+          f"{', '.join(f'{k} {v:.2f}' for k, v in f['stages_ms'].items())} ms; peak "
+          f"{f['peak_mem_gb']:.2f} GiB; {f['detections']} detections (first stage's heatmap "
+          f"bias {f['heatmap_bias']}: {f['valid_rois']} valid RoIs); B1 {f['launches']} | {smi}",
+          flush=True)
+    for b, s in res["steps"].items():
+        iou = s["iou"]
+        busy = "not measured" if iou["device_busy_ms"] is None else \
+            f"{iou['device_busy_ms']:.2f} ms over {iou['device_ops']} device operations"
+        print(f"[two_stage] make_train_step, batch {b}: median {s['step_ms']:.1f} ms ("
+              f"{', '.join(f'{k} {v:.1f}' for k, v in s['stages_ms'].items())}); peak "
+              f"{s['peak_mem_gb']:.2f} GiB (by stage: "
+              f"{', '.join(f'{k} {v:.2f}' for k, v in s['stages_peak_gb'].items())}); "
+              f"train-mode forward and loss split "
+              f"{', '.join(f'{k} {v:.1f}' for k, v in s['forward_stages_ms'].items())} ms; "
+              f"fg RoIs {s['fg_rois']}; B1 a step {s['launches_per_step']}, a forward "
+              f"{s['launches_per_forward']}; boxes_iou3d over {iou['pairs']} pairs: host "
+              f"{iou['host_ms']:.2f} ms, event span {iou['span_ms']:.2f} ms, device busy "
+              f"{busy}; rcnn_loss_cls {s['metrics']['rcnn_loss_cls']:.4f}, rcnn_loss_reg "
+              f"{s['metrics']['rcnn_loss_reg']:.4f} | {smi}", flush=True)
+    print(f"[two_stage] pillar two-stage frame: median {pf['frame_ms_median']:.2f} ms; stages "
+          f"{', '.join(f'{k} {v:.2f}' for k, v in pf['stages_ms'].items())} ms; peak "
+          f"{pf['peak_mem_gb']:.2f} GiB; {pf['valid_rois']} valid RoIs at heatmap bias "
+          f"{pf['heatmap_bias']}; (B1, B2, B3) 0 | {smi}", flush=True)
+    c, t = res["converter"], res["test_cli"]
+    print(f"[two_stage] converter at full width: {c['det3d_keys']} det3d keys onto "
+          f"{c['port_keys']} teacher entries, {c['entries_differ']} differ, head maps "
+          f"{c['head_maps_rel']:.3e} of their largest; {c['seconds']:.1f} s | {smi}", flush=True)
+    print(f"[two_stage] tools/test.py --checkpoint on the recipe: "
+          f"{', '.join(f'{x:.1f}' for x in t['ms_frame'])} ms a frame (after 2), "
+          f"{t['detections']} detections, local BEV mAP {t['local_bev_mAP']}, B1 "
+          f"{t['launches']}; phase {res['seconds']:.1f} s ("
+          f"{', '.join(f'{k} {v:.1f}' for k, v in parts.items())}) | {smi}", flush=True)
+    print("[two_stage] " + json.dumps(res), flush=True)
+    return res
+
+
 def _record(name, source, replaces, launches, rows, per="per_frame"):
     frame = [r for r in rows if r.get(per)]
     lib = [r["library_ms"] for r in frame]
@@ -2956,24 +3526,39 @@ def main() -> int:
     import sparse2dense_tpu_torch  # noqa: F401  (fails outside the repo)
 
     kind, smi = phase_device()
+    if sys.argv[1:] == ["two_stage"]:   # the two-stage phase alone, on fresh records
+        with tempfile.TemporaryDirectory() as records:
+            paths = _write_records(records)
+            phase_two_stage(smi, dict(root=records, **paths))
+        print(f"[main] chip_smoke two_stage: {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):   # each phase's seconds, printed at the end
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
     with no_tf32():
-        rows = phase_kernels()
-    probe_rows = phase_probes()
+        rows = timed("kernels", phase_kernels)
+    probe_rows = timed("probes", phase_probes)
     from sparse2dense_tpu_torch.utils.config import FRAME_BUDGETS, TILE_FRAME_BUDGETS
 
-    window = phase_main_path("window")
-    plane = phase_main_path("plane", budgets=FRAME_BUDGETS)
-    tile = phase_main_path("tile", budgets=TILE_FRAME_BUDGETS)
-    train = phase_train()
-    cli = phase_cli()
-    second = phase_second()
-    engines = phase_engines(plane, tile)
-    pp = phase_pp()
+    window = timed("window", phase_main_path, "window")
+    plane = timed("plane", phase_main_path, "plane", budgets=FRAME_BUDGETS)
+    tile = timed("tile", phase_main_path, "tile", budgets=TILE_FRAME_BUDGETS)
+    train = timed("train", phase_train)
+    cli = timed("cli", phase_cli)
+    second = timed("second", phase_second)
+    engines = timed("engines", phase_engines, plane, tile)
+    pp = timed("pp", phase_pp)
     with tempfile.TemporaryDirectory() as records:
-        data, for_dp = phase_data(smi, records)
-        dp = phase_dp(smi, for_dp)
+        data, for_dp = timed("data", phase_data, smi, records)
+        dp = timed("dp", phase_dp, smi, for_dp)
+        two_stage = timed("two_stage", phase_two_stage, smi, for_dp["records"])
     with no_tf32():
-        phase_agreement()
+        timed("agreement", phase_agreement)
 
     wrows, prows, trows = ([r for r in rows if r["kernel"] == k]
                            for k in ("window_pass", "plane_subm", "tile_subm"))
@@ -2987,7 +3572,11 @@ def main() -> int:
                 "dp_nccl_train": dp["nccl_launches"],
                 **{f"dp_gloo_{tag}_{who}": dp[tag][f"{who}_launches"]
                    for tag, *_ in DP_CASES for who in ("rank0", "rank1", "one")},
-                "dp_test_rank0": dp["test_launches"][0], "dp_test_rank1": dp["test_launches"][1]}
+                "dp_test_rank0": dp["test_launches"][0], "dp_test_rank1": dp["test_launches"][1],
+                "two_stage": two_stage["frame"]["launches"],
+                **{"two_stage_train" + ("" if b == 1 else f"_batch{b}"):
+                   sum(st["launches_per_step"]) for b, st in two_stage["steps"].items()},
+                "two_stage_test": two_stage["test_cli"]["launches"]}
     b2_paths = {"plane": plane["launches"]["plane_subm"]}
     b3_paths = {"tile": tile["launches"]["tile_subm"]}
     for tag, r in engines.items():
@@ -3095,7 +3684,7 @@ def main() -> int:
           f"resume: {pp['cli']['seconds']:.1f} s; phase pp {pp['seconds']:.1f} s; (B1, B2, B3) "
           f"launches 0 on every pp path", flush=True)
     print(f"[main] chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' build "
-          f"included", flush=True)
+          f"included; by phase {json.dumps(seconds)}", flush=True)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -15,12 +15,15 @@ from .backbones.scatter import PointPillarsScatter, PointPillarsScatter_S2D
 from .backbones.scn import SpMiddleFHD, SpMiddleResNetFHD
 from .detectors.kd import KD_PointPillars, KD_VoxelNet
 from .detectors.point_pillars import PointPillars
+from .detectors.two_stage import TwoStageDetector
 from .detectors.voxelnet import VoxelNet
 from .heads.center_head import CenterHead, SepHead
 from .heads.mg_head import MultiGroupHead
 from .necks.rpn import RPN
 from .necks.s2d_rpn import S2D_RPN
 from .readers.pillar_encoder import PillarFeatureNet, VoxelFeatureExtractorV3
+from .roi_heads.roi_head import FCStack, RoIHead
+from .second_stage.bev import BEVFeatureExtractor
 
 READERS = {"VoxelFeatureExtractorV3": VoxelFeatureExtractorV3,
            "PillarFeatureNet": PillarFeatureNet}
@@ -31,6 +34,8 @@ NECKS = {"RPN": RPN, "S2D_RPN": S2D_RPN}
 HEADS = {"CenterHead": CenterHead, "MultiGroupHead": MultiGroupHead}
 DETECTORS = {"KD_VoxelNet": KD_VoxelNet, "VoxelNet": VoxelNet,
              "PointPillars": PointPillars, "KD_PointPillars": KD_PointPillars}
+SECOND_STAGE = {"BEVFeatureExtractor": BEVFeatureExtractor}
+ROI_HEADS = {"RoIHead": RoIHead}
 
 
 def _plain(cfg):
@@ -78,7 +83,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """The reference's initialisers, drawn from ``generator``: lecun-normal
     2D convs (he-normal in the CenterHead) and linear layers, fan-in-uniform
     3D conv kernels (the PCR generators' too), zero biases, the heatmap
-    output bias at ``init_bias``, unit BN scales."""
+    output bias at ``init_bias``, unit BN scales; the RoI head's out layers
+    normal(0.001)."""
     head_mods = {id(m) for h in model.modules() if isinstance(h, CenterHead)
                  for m in h.modules()}
     for mod in model.modules():
@@ -101,6 +107,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     for mod in model.modules():
         if isinstance(mod, SepHead):
             mod.hm_out.bias.fill_(mod.init_bias)
+        if isinstance(mod, FCStack) and mod.out is not None:
+            mod.out.weight.normal_(0.0, 0.001, generator=generator)
+            mod.out.bias.zero_()
 
 
 def build_detector(cfg, test_cfg=None, voxel_generator=None, device=None,
@@ -109,9 +118,26 @@ def build_detector(cfg, test_cfg=None, voxel_generator=None, device=None,
     from ``generator`` (seed 0 if None) and move it to ``device`` (CUDA
     unless given) in eval mode. ``voxel_generator`` (the config's top-level
     dict) supplies the sparse grid; a pillar scatter takes its grid and width
-    from the reader's config."""
+    from the reader's config. A ``TwoStageDetector`` wraps the detector of
+    its ``first_stage_cfg``; every ``pretrained`` is ignored, as in the JAX
+    package (weights come from ``tools/convert_checkpoint.py`` and
+    ``--load_from`` / ``--checkpoint``)."""
     device = resolve_device(device)
-    cfg = _plain(dict(cfg))
+    model = _detector(_plain(dict(cfg)), _plain(test_cfg), voxel_generator)
+    init_weights(model, generator if generator is not None
+                 else torch.Generator().manual_seed(0))
+    return model.to(device).eval()
+
+
+def _detector(cfg: dict, test_cfg, voxel_generator) -> nn.Module:
+    if cfg["type"] == "TwoStageDetector":
+        single = _detector(cfg.pop("first_stage_cfg"), test_cfg, voxel_generator)
+        second = [_build(m, SECOND_STAGE, "second stage")
+                  for m in cfg.pop("second_stage_modules")]
+        roi_head = _build(cfg.pop("roi_head"), ROI_HEADS, "RoI head")
+        return _build(cfg, {"TwoStageDetector": TwoStageDetector}, "detector",
+                      single_det=single, second_stage=second, roi_head=roi_head,
+                      test_cfg=test_cfg)
     bb = cfg.pop("backbone")
     bb.pop("ds_factor", None)
     if bb["type"].startswith("PointPillarsScatter"):
@@ -128,7 +154,4 @@ def build_detector(cfg, test_cfg=None, voxel_generator=None, device=None,
                  bbox_head=_build(cfg.pop("bbox_head"), HEADS, "head"))
     if cfg["type"] in ("KD_VoxelNet", "KD_PointPillars") and voxel_generator is not None:
         cfg.setdefault("pc_range_full", tuple(float(v) for v in voxel_generator["range"]))
-    model = _build(cfg, DETECTORS, "detector", test_cfg=_plain(test_cfg), **parts)
-    init_weights(model, generator if generator is not None
-                 else torch.Generator().manual_seed(0))
-    return model.to(device).eval()
+    return _build(cfg, DETECTORS, "detector", test_cfg=test_cfg, **parts)

@@ -22,6 +22,8 @@ from ...ops.sparse_conv import scatter_to_dense
 from ...parallel.dist import global_sum, global_sums, world_size
 from ..heads.center_head import center_head_loss, center_head_predict
 from ..heads.mg_head import MultiGroupHead, mg_head_loss, mg_head_predict
+from ...training.train_state import Mark
+from .voxelnet import head_maps, two_stage_boxes
 
 
 def world_grid(shape: Tuple[int, int, int], pc_range_full: Sequence[float],
@@ -85,6 +87,18 @@ class KD_VoxelNet(nn.Module):
                 "gen_offset_2": go2, "gen_mask_2": gm2, "gen_offset_4": go4,
                 "gen_mask_4": gm4, "telemetry": telemetry}
 
+    def forward_two_stage(self, example, mark: Mark = None):
+        """The first stage of a ``TwoStageDetector`` -> (the fixed-size
+        detections of the detached preds, the S2D neck's BEV map (NHWC), the
+        preds, the backbone's counters); ``mark`` as ``two_stage_boxes``'. A
+        frozen stage runs in eval mode, where the neck skips the PCR
+        generators."""
+        feats = self.reader(example["voxels"], example["num_points"])
+        bev, _, telemetry = self.backbone(feats, example["coordinates"])
+        x = self.neck(bev)[0]
+        preds = self.bbox_head(x)
+        return two_stage_boxes(self, preds, example, mark), x, preds, telemetry
+
     def pcr_loss(self, out, example):
         """(mask_loss, offset_loss), each summed over the /2 and /4 streams."""
         losses = []
@@ -100,6 +114,9 @@ class KD_VoxelNet(nn.Module):
         return losses[0][0] + losses[1][0], losses[0][1] + losses[1][1]
 
     def loss(self, preds, example):
+        """The head's loss of ``preds`` (the forward's output or its
+        "preds") and its logs."""
+        preds = head_maps(preds)
         if isinstance(self.bbox_head, MultiGroupHead):
             return mg_head_loss(self.bbox_head, preds, example)
         return center_head_loss(preds, example, weight=self.bbox_head.weight,
@@ -108,8 +125,7 @@ class KD_VoxelNet(nn.Module):
     def predict(self, preds, test_cfg=None, example=None):
         """Detections of ``preds`` (the forward's output or its "preds");
         the anchor head decodes against ``example``'s "anchors"."""
-        if isinstance(preds, dict) and "preds" in preds:
-            preds = preds["preds"]
+        preds = head_maps(preds)
         cfg = test_cfg if test_cfg is not None else self.test_cfg
         if isinstance(self.bbox_head, MultiGroupHead):
             return mg_head_predict(self.bbox_head, preds, example, cfg)
@@ -127,6 +143,15 @@ class KD_PointPillars(KD_VoxelNet):
         f_s_a, f_s_b, gen_offset, gen_mask = self.backbone(feats, coords)
         return {"preds": self.bbox_head(self.neck(f_s_a)), "f_s_a": f_s_a, "f_s_b": f_s_b,
                 "gen_offset": gen_offset, "gen_mask": gen_mask, "telemetry": {}}
+
+    def forward_two_stage(self, example, mark: Mark = None):
+        """As KD_VoxelNet's, on the pillar path (the S2D scatter's F_S_a
+        through the RPN); no counters."""
+        coords = example["coordinates"]
+        feats = self.reader(example["voxels"], example["num_points"], coords)
+        x = self.neck(self.backbone(feats, coords)[0])
+        preds = self.bbox_head(x)
+        return two_stage_boxes(self, preds, example, mark), x, preds, {}
 
     def pcr_loss(self, out, example):
         """(mask_loss, offset_loss) on the full grid at depth 1."""

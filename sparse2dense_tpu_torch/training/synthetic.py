@@ -150,6 +150,8 @@ def make_batch(cfg, batch_size: int, max_voxels: int, seed: int = 0,
     gen = VoxelGenerator(vg_cfg["voxel_size"], pc_range,
                          vg_cfg["max_points_in_voxel"], max_voxels)
     model_cfg = cfg["S_model"]
+    if "first_stage_cfg" in model_cfg:   # a TwoStageDetector wraps the detector
+        model_cfg = model_cfg["first_stage_cfg"]
     n_feats = model_cfg["reader"].get("num_input_features", 5)
     names = tuple(cfg.get("class_names") or ("VEHICLE", "PEDESTRIAN", "CYCLIST"))
     # (key prefix, key suffix, voxel generator) of each stream

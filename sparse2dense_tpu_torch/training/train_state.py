@@ -41,13 +41,17 @@ def make_train_step(model, optimizer):
     """-> train_step(batch, mark=None) -> metrics: every loss of the model's
     logs, "loss", "grad_norm" (before clipping) and "telemetry/*", as 0-dim
     tensors, the global batch's under data parallelism. ``batch`` carries
-    the inputs and the head's targets. ``mark`` is called after "forward",
-    "backward", "allreduce" (more than one process) and "optimizer"."""
+    the inputs and the head's targets. A two-stage detector with a frozen
+    first stage trains at this level (the reference's own ``Trainer`` gives
+    its step no random streams); give ``optimizer`` only the parameters that
+    need a gradient, as the reference's freeze does. ``mark`` is called
+    after "forward", "backward", "allreduce" (more than one process) and
+    "optimizer"."""
 
     def train_step(batch, mark: Mark = None):
         model.train()
         out = model(batch)
-        loss, logs = model.loss(out["preds"], batch)
+        loss, logs = model.loss(out, batch)
         mark_at(mark, "forward")
         optimizer.zero_grad(set_to_none=True)
         loss.backward()

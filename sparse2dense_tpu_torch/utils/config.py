@@ -110,6 +110,11 @@ SECOND = os.path.join(CONFIGS, "waymo_second_3x_distill_interval_5.py")
 # the pillar (CenterPoint-Pillar) recipe's two stages, likewise
 PP_DENSE = os.path.join(CONFIGS, "waymo_centerpoint_pp_two_pfn_stride1_3x_dense_interval_5.py")
 PP = os.path.join(CONFIGS, "waymo_centerpoint_pp_two_pfn_stride1_3x_distill_interval_5.py")
+# the two-stage recipes: the flagship's and the pillar recipe's students as
+# frozen first stages under the RoI head
+TWO_STAGE = os.path.join(CONFIGS, "waymo_centerpoint_voxelnet_two_stage_distill_interval_5.py")
+PP_TWO_STAGE = os.path.join(
+    CONFIGS, "waymo_centerpoint_pp_two_pfn_stride1_two_stage_bev_distill_interval_5.py")
 
 
 # plane-engine budgets for the 150k-voxel synthetic frame of the chip runs
@@ -156,7 +161,8 @@ def frame_voxels(cfg, train: bool) -> int:
     reference bench's cloud) for ``cfg``: 150,000 voxels on the voxel
     models' grids, as the reference bench; the recipe's own
     ``max_voxel_num`` (train, test) for the pillar models."""
-    if cfg["S_model"]["reader"]["type"] != "PillarFeatureNet":
+    model = cfg["S_model"].get("first_stage_cfg", cfg["S_model"])   # a two-stage detector's
+    if model["reader"]["type"] != "PillarFeatureNet":
         return 150000
     budget = cfg["voxel_generator"]["max_voxel_num"]
     return budget[0 if train else 1] if isinstance(budget, (list, tuple)) else budget

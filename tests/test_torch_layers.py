@@ -8,6 +8,9 @@ with more first, ahead of the two long JAX files): the dense stages,
 ``tests/test_torch_dense_stages.py``; the neck's layers,
 ``tests/test_torch_neck_layers.py``; the head, the NMS and the all-dense
 backbone, ``tests/test_torch_head_layers.py``."""
+import os
+import pickle
+
 import numpy as np
 
 import jax
@@ -17,7 +20,7 @@ import torch
 from sparse2dense_tpu.models.backbones import scn as jscn
 from sparse2dense_tpu.models import norm as jnorm
 from sparse2dense_tpu.models.readers.pillar_encoder import VoxelFeatureExtractorV3 as JVFE
-from sparse2dense_tpu_torch.convert import _PCR, from_flax
+from sparse2dense_tpu_torch.convert import from_flax, is_pcr_key
 from sparse2dense_tpu_torch.models.backbones import scn as tscn
 from sparse2dense_tpu_torch.models import norm as tnorm
 from sparse2dense_tpu_torch.models.readers.pillar_encoder import VoxelFeatureExtractorV3 as TVFE
@@ -47,8 +50,7 @@ def flax_shapes(model, pcr=False):
     tree = {}
     for key, t in model.state_dict().items():
         *path, leaf = key.split(".")
-        if leaf == "num_batches_tracked" or (
-                not pcr and len(path) > 1 and path[1] in _PCR.get(path[0], ())):
+        if leaf == "num_batches_tracked" or (not pcr and is_pcr_key(path)):
             continue
         shape, coll = tuple(t.shape), "params"
         if leaf in ("running_mean", "running_var"):
@@ -90,6 +92,35 @@ def rand_variables(init_fn, seed=0):
 
     return {k: jax.tree_util.tree_map_with_path(fill, shapes[k])
             for k in ("params", "batch_stats") if k in shapes}
+
+
+def session_shared(tmp_path_factory, name, compute):
+    """``compute()``, once a test session: the first process that asks
+    computes it and writes it (pickled) under the session's temporary root,
+    and every later one reads it: a module of another file, or another of
+    pytest-xdist's workers (they share the parent of their base temporary
+    directories). A file lock orders them. For a reference's results that
+    two test files both check (files are split at 4 tests): keep the value
+    to NumPy arrays and plain containers."""
+    from filelock import FileLock
+
+    base = tmp_path_factory.getbasetemp()
+    root = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+    path = root / f"shared_{name}.pkl"
+    with FileLock(str(path) + ".lock"):
+        if path.exists():
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        value = compute()
+        with open(path, "wb") as f:
+            pickle.dump(value, f)
+    return value
+
+
+def to_numpy(tree):
+    """``tree`` with its JAX arrays as NumPy arrays (other leaves kept)."""
+    return jax.tree_util.tree_map(lambda x: np.asarray(x) if isinstance(x, jax.Array) else x,
+                                  tree)
 
 
 def load(module, variables):

@@ -33,7 +33,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "ops.rotated_iou", "ops.voxelize", "data.loader", "data.pipelines.loading",
                  "data.pipelines.preprocess", "data.pipelines.formating", "data.datasets.waymo",
                  "data.datasets.waymo_common", "data.datasets.wrappers", "tools.test",
-                 "parallel.dist", "parallel.launch", "tools.dryrun"):
+                 "parallel.dist", "parallel.launch", "tools.dryrun", "ops.iou3d",
+                 "models.second_stage.bev", "models.roi_heads.roi_head",
+                 "models.detectors.two_stage", "tools.convert_checkpoint"):
         assert f"sparse2dense_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"

@@ -26,6 +26,8 @@ from sparse2dense_tpu_torch.training.train_state import make_train_step
 from sparse2dense_tpu_torch.training.trainer import TS_Trainer
 from sparse2dense_tpu_torch.utils.config import ConfigDict
 
+from tests.test_torch_layers import session_shared
+
 CFG = "configs/tests/distill_tiny.py"
 FRAME = dict(max_voxels=512, n_points=3000, n_obj=6, seed=0)
 ENGINE = dict(engine="window", dense_from_stage=1, dense_compute_dtype=None)
@@ -74,8 +76,11 @@ def _step(remat_dense: bool):
 
 
 @pytest.fixture(scope="module")
-def runs():
-    return {flag: _step(flag) for flag in (True, False)}
+def runs(tmp_path_factory):
+    """Both steps with remat on and off; computed once a session for this
+    file and ``tests/test_torch_remat_grads.py`` (``session_shared``)."""
+    return session_shared(tmp_path_factory, "remat_runs",
+                          lambda: {flag: _step(flag) for flag in (True, False)})
 
 
 @pytest.mark.parametrize("tag,calls", [("ts", dict(DENSE_CALLS, _pcr=1)),

@@ -19,7 +19,8 @@ shapes are read off the port's twin (``flax_shapes``).
 
 Split off into files of at most 4 tests (the suite's scheduler hands out files
 with more first, ahead of the two long JAX files): each stage's planes,
-``tests/test_torch_tile_backbone_stages.py`` (its own ``run``)."""
+``tests/test_torch_tile_backbone_stages.py`` (its own ``run``, the
+reference's results computed once a session for both files)."""
 import numpy as np
 import pytest
 
@@ -30,7 +31,7 @@ import torch
 from sparse2dense_tpu.models.backbones.scn import SpMiddleResNetFHD as JaxFHD
 from sparse2dense_tpu_torch.models.backbones.scn import SpMiddleResNetFHD
 
-from tests.test_torch_layers import flax_shapes, load, rand_variables
+from tests.test_torch_layers import flax_shapes, load, rand_variables, session_shared, to_numpy
 from tests.test_torch_tile_detector import COUNTERS, counter_sum
 
 GRID = (41, 32, 32)
@@ -53,19 +54,28 @@ def _scene(seed=0, v=400, b=2):
     return np.stack(feats), np.stack(coords)
 
 
-@pytest.fixture(scope="module")
-def run():
-    feats, coords = _scene()
+def _reference(variables, feats, coords):
+    """The reference backbone's BEV, stage planes and telemetry (NumPy)."""
     jbb = JaxFHD(**dict(KW, tile_backend="xla"))
-    tbb = SpMiddleResNetFHD(**KW)
-    variables = rand_variables(flax_shapes(tbb), seed=17)
     (jbev, jms), coll = jax.jit(lambda v, f, c: jbb.apply(v, f, c, False, mutable=["telemetry"])
                                 )(variables, jnp.asarray(feats), jnp.asarray(coords))
+    return to_numpy(dict(jbev=jbev, jms=jms, jtele=coll["telemetry"]))
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """Both packages' backbone on the scene; the reference's results are
+    computed once a session (``session_shared``: this file and
+    ``tests/test_torch_tile_backbone_stages.py`` both check them)."""
+    feats, coords = _scene()
+    tbb = SpMiddleResNetFHD(**KW)
+    variables = rand_variables(flax_shapes(tbb), seed=17)
+    ref = session_shared(tmp_path_factory, "tile_backbone_dfs99",
+                         lambda: _reference(variables, feats, coords))
     tbb = load(tbb, variables)
     with torch.no_grad():
         tbev, tms, tele = tbb(torch.from_numpy(feats), torch.from_numpy(coords))
-    return dict(jbev=jbev, jms=jms, jtele=coll["telemetry"], tbev=tbev, tms=tms, tele=tele,
-                tbb=tbb)
+    return dict(ref, tbev=tbev, tms=tms, tele=tele, tbb=tbb)
 
 
 def test_bev_matches_jax(run):

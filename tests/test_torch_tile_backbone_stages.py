@@ -1,6 +1,7 @@
 """Each stage's tile planes of the tile backbone against JAX's (moved from
 ``tests/test_torch_tile_backbone.py``, whose ``run`` fixture, the backbone on the
-same scene in each package, runs again here)."""
+same scene in each package, runs again here: the port's side again, the
+reference's read from the session's shared results)."""
 import numpy as np
 import pytest
 

@@ -22,6 +22,8 @@ from sparse2dense_tpu_torch.ops import window_kernel as TWK
 from sparse2dense_tpu_torch.training.synthetic import make_batch
 from sparse2dense_tpu_torch.utils.config import ConfigDict
 
+from tests.test_torch_layers import session_shared
+
 GRID = (25, 32, 32)
 BACKBONES = {"resnet": SpMiddleResNetFHD, "second": SpMiddleFHD}
 
@@ -80,18 +82,24 @@ def run_backbone(cls, engine, weights, feats, coords, train):
 
 
 @pytest.fixture(scope="module")
-def runs(frame):
+def runs(frame, tmp_path_factory):
     """(backbone, train) -> (window module, window run, gather run), each
-    run once for the module."""
+    run once a session (``session_shared``: the training runs are checked
+    here and in the ``tests/test_torch_window_dfs2_*_train.py`` files)."""
     cache = {}
+
+    def compute(name, train):
+        cls = BACKBONES[name]
+        weights = seeded_weights(cls(num_input_features=5, sparse_shape=GRID), 40)
+        win_mod, win = run_backbone(cls, "window", weights, *frame, train)
+        _, gather = run_backbone(cls, "gather", weights, *frame, train)
+        return win_mod, win, gather
 
     def get(name, train):
         if (name, train) not in cache:
-            cls = BACKBONES[name]
-            weights = seeded_weights(cls(num_input_features=5, sparse_shape=GRID), 40)
-            win_mod, win = run_backbone(cls, "window", weights, *frame, train)
-            _, gather = run_backbone(cls, "gather", weights, *frame, train)
-            cache[name, train] = win_mod, win, gather
+            cache[name, train] = session_shared(
+                tmp_path_factory, f"window_dfs2_{name}_{'train' if train else 'eval'}",
+                lambda: compute(name, train))
         return cache[name, train]
     return get
 
