@@ -148,7 +148,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    5's): the student's train-mode BEV against the shipped window engine's
    on the same weights (within ``ENGINE_BEV_TOL`` of its largest value
    where every counter says the reference is exact; else printed, not
-   judged), and the teacher-student step at batch 1 (1 + 3 steps) and at
+   judged), and the teacher-student step at batch 1 (1 + 2 steps) and at
    the recipe's 3 (1 + 2): medians by stage, peaks, the window-pass and
    plane-conv launches a step (dense_from_stage 2: 33 B1 a sample; plane:
    18 B1 a sample and 36 B2 a step), every loss finite, a gradient on the
@@ -197,7 +197,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    step at two spawned ranks of one sample through gloo on the card against
    this process at batch 2 on the same samples, in four precisions
    (``DP_CASES``: float32, bf16 dense stages alone, TF32 alone, 1 step each;
-   as shipped, 3 steps; the first step's metrics and gradients within
+   as shipped, 2 steps; the first step's metrics and gradients within
    ``DP_F32_TOL`` in float32 and ``DP_TOL`` as shipped, both also read
    against the one process run again): the ranks' parameters equal to the bit
    after each step, each rank's step ms, gradient all-reduce ms, peak GiB
@@ -230,7 +230,29 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    records (the detections' file, the mAP dict, 6 B1 a frame).
    ``python3 chip_smoke.py two_stage`` runs this phase alone (on records
    of its own; it prints no kernels line and no last line);
-15. agreement: the tiny distillation model on the card against the same model
+15. nusc: the nuScenes families (``phase_nusc``): nuScenes-layout records
+   of ``NUSC_FRAMES`` 10-sweep scenes (~30k points a sweep after the
+   close-point removal; ~137k voxels a view at 0.075 x 0.075 x 0.2 m, under
+   the test budget of 160,000); B1 against its plain version on the served
+   frame's own plans (conv_input, conv1, conv2_down on the 41x1440x1440
+   grid) and conv2_down's active cells against the stage budget;
+   ``nusc_centerpoint_voxelnet_0075voxel_dcn_flip`` at full width from the
+   val records (seeded weights, its heatmap bias set so that
+   ``NUSC_CANDIDATES`` cells a frame pass the score threshold): frames of 4
+   views (DCN heads, the double-flip merge; ``NUSC_WARMUP`` +
+   ``NUSC_TIMED``, then as many split by stage: reader and backbone, neck,
+   DCN heads, merge, decode and NMS, with the host pipeline and the copy to
+   the card apart), 24 B1 launches a frame, the backbone's counters and the
+   peak; ``tools/test.py --batch_size 2 --checkpoint`` over the records
+   (each frame its own token, the results json, 48 B1 a batch; at 1 frame
+   if 8 views do not fit, with the peak); ``make_train_step`` on
+   ``0075voxel_dcn`` from the train records at batch 1 and the recipe's 4
+   (medians, peaks, finite metrics, a gradient on every DCN conv, 6 B1 a
+   sample; out of memory reported with its peak); the ``circular_nms``
+   pillar recipe's frame (no B1, B2 or B3); the tiny nuScenes model on the
+   card against the CPU (``NUSC_TINY_TOL``). ``python3 chip_smoke.py nusc``
+   runs this phase alone (it prints no kernels line and no last line);
+16. agreement: the tiny distillation model on the card against the same model
    on the CPU (plain versions only), window, plane and tile engines; the
    tiny tile backbone's train-mode forward and backward on the card (B3
    under autograd) against the CPU: BEV and every gradient within
@@ -241,9 +263,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    each window-engine conv weight's gradient within 2e-2 (the tiny step is
    ill-conditioned: ``_ts_step_agreement`` says how much).
 
-TF32 is switched off for cuDNN and matmuls in phases 2, 15, the gather
-comparison of 9 and the tiny runs of 11 and 14, which compare against float32
-plain versions or the CPU; the rest of phases 3 to 14 run at PyTorch's
+TF32 is switched off for cuDNN and matmuls in phases 2, 16, the gather
+comparison of 9 and the tiny runs of 11, 14 and 15, which compare against
+float32 plain versions or the CPU; the rest of phases 3 to 15 run at PyTorch's
 defaults (TF32 on in cuDNN convs, off in matmuls). With TF32 off cuDNN picks an FFT
 algorithm for the neck's 3x3 convs that costs ~200 ms a frame on an H100
 (``sparse2dense_tpu_torch/tools/profile_flagship.py``). The second-to-last
@@ -2107,7 +2129,7 @@ def phase_pp():
 # activations in bf16 on the dense grid, the others in float32 rows or bf16
 # plane state, so each of the nine convs from conv2 on sees up to one more
 # bf16 rounding (2^-8 relative) of its input on one side (as SECOND_BEV_TOL)
-ENGINE_WARMUP, ENGINE_STEPS = 1, 3
+ENGINE_WARMUP, ENGINE_STEPS = 1, 2
 _TILE_WEIGHTS = ("backbone.conv_input.conv_0_weight", "backbone.conv1_0.conv1_weight",
                  "backbone.conv2_down.conv_weight", "backbone.conv2_1.conv2_weight")
 ENGINE_WEIGHTS = {
@@ -2706,7 +2728,7 @@ def phase_data(smi, tmp):
 # §6). DP_TOL and DP_F32_TOL bound the first step from those readings;
 # later steps are printed (Adam's first steps move by their learning rate
 # either way a parameter whose gradient is a rounding residue).
-DP_STEPS = 3
+DP_STEPS = 2
 DP_TOL = {"metrics": 1e-2, "grads": 1.0}
 DP_F32_TOL = {"metrics": 1e-3, "grads": 1e-1}
 F32 = dict(dense_compute_dtype=None)
@@ -2757,9 +2779,9 @@ def _dp_steps(tmp, job, tol, again=False):
     gc.collect()
     torch.cuda.empty_cache()   # the ranks share the card with this process
     t0 = time.perf_counter()
-    spawn(steps_worker, 2, (path, tmp), timeout=600)
+    spawn(steps_worker, 2, ([path], tmp), timeout=600)
     res["ranks_s"] = time.perf_counter() - t0
-    ranks = [torch.load(os.path.join(tmp, f"steps_rank{r}.pt"), weights_only=False)
+    ranks = [torch.load(os.path.join(tmp, f"steps_rank{r}_0.pt"), weights_only=False)
              for r in range(2)]
     gc.collect()
     torch.cuda.empty_cache()
@@ -2966,7 +2988,7 @@ def phase_dp(smi, data):
 # foreground, hard and easy background and both RoI losses move
 TS_WARMUP, TS_TIMED = 3, 5
 TS_BATCHES = (1, 6)
-TS_STEP_WARMUP, TS_STEPS = 1, 4
+TS_STEP_WARMUP, TS_STEPS = 1, 2
 TS_GT_FROM_DETECTIONS = 16
 TS_GT_SHIFTS = (0.005, 0.1, 0.3, 2.0)
 TS_STEP_STAGES = ("forward", "backward", "optimizer")
@@ -3498,6 +3520,506 @@ def phase_two_stage(smi, records):
     return res
 
 
+# phase "nusc": the nuScenes families at full width. NUSC_* sizes: records of
+# NUSC_FRAMES scenes (a key frame and 10 sweeps of NUSC_SWEEP_POINTS each, from
+# a scene of twice that, so the sweeps share voxels as a lidar's do: ~137k
+# voxels a view at 0.075 x 0.075 x 0.2 m, under the test budget of 160,000)
+NUSC_FRAMES, NUSC_SWEEP_POINTS, NUSC_OBJECTS = 8, 30000, 32
+NUSC_WARMUP, NUSC_TIMED = 2, 5
+NUSC_VIEWS = 4   # double flip: [orig, yflip, xflip, double] a frame
+NUSC_STEP_BATCHES = (1, 4)   # the training step at batch 1 and the recipe's samples_per_gpu
+NUSC_STEP_WARMUP, NUSC_STEPS = 1, 2
+NUSC_CANDIDATES = 300   # heatmap cells a frame over the score threshold (``_nusc_heatmap_bias``)
+NUSC_FRAME_STAGES = ("reader_backbone", "neck", "heads", "merge", "decode_nms")
+NUSC_TINY_TOL = 1e-4
+NUSC_DOWN_BUDGET = 280000   # the nuScenes recipes' stage budget of conv2_down's output
+NUSC_DATA_APPEND = """
+data["workers_per_gpu"] = {workers}
+data["val"].update(root_path={root!r}, info_path={info!r}, ann_file={info!r})
+data["train"].update(root_path={root!r}, info_path={info!r}, ann_file={info!r})
+"""
+
+
+def _nusc_model(cfg, seed=0):
+    """The recipe's detector (``model``) on the card, seeded weights."""
+    import torch
+
+    from sparse2dense_tpu_torch.models import build_detector
+    from sparse2dense_tpu_torch.utils.config import detector_cfg
+
+    return build_detector(detector_cfg(cfg), test_cfg=cfg["test_cfg"],
+                          voxel_generator=cfg["voxel_generator"], device="cuda",
+                          generator=torch.Generator().manual_seed(seed))
+
+
+def _nusc_heatmap_bias(model, batch, cfg):
+    """Sets every task's heatmap output bias so that ``NUSC_CANDIDATES``
+    cells of a frame's merged (or single-view) heatmaps pass the score
+    threshold (random weights give heatmaps of small spread: at the initial
+    -2.19 every cell passes and floods the NMS) -> the bias."""
+    import math
+
+    import torch
+
+    from sparse2dense_tpu_torch.models.heads.center_head import merge_double_flip
+
+    heads = [getattr(model.bbox_head, f"task_{t}") for t in range(len(model.bbox_head.tasks))]
+    outs = [h.cls_head_out if hasattr(h, "cls_head_out") else h.hm_out for h in heads]
+    with torch.no_grad():
+        for o in outs:
+            o.bias.zero_()
+    with torch.inference_mode():
+        preds = model(batch)["preds"]
+        if cfg["test_cfg"].get("double_flip", False):
+            preds = [merge_double_flip(pd) for pd in preds]
+        logits = torch.cat([p["hm"].flatten(1) for p in preds], 1)
+        kth = float(logits.topk(NUSC_CANDIDATES, 1).values[:, -1].min())
+    thr = cfg["test_cfg"]["score_threshold"]
+    bias = math.log(thr / (1 - thr)) - kth
+    with torch.no_grad():
+        for o in outs:
+            o.bias.fill_(bias)
+    return bias
+
+
+def _nusc_window_rows(batch, grid, gen):
+    """B1 against its plain version on the nuScenes frame's own plans (the
+    key view's rows of the frame's batch, padded to the test budget as the
+    model gets them, on the 41x1440x1440 grid: conv_input 5->16 and conv1
+    16->16 on the subm plan, conv2_down 16->32 on the strided plan at the
+    recipe's stage budget), per frame 4 views x (1, 4, 1); and conv2_down's
+    active output cells against that budget (the stages past it are dense,
+    and the backbone reports only its plans' residual rows)."""
+    import torch
+
+    from sparse2dense_tpu_torch.ops import window_conv as WC
+    from sparse2dense_tpu_torch.ops.sparse_conv import conv_out_grid
+    from sparse2dense_tpu_torch.tools.bench_window_pass import window_cases
+
+    cases, *_, coords, _ = window_cases(batch, grid, gen, down_budget=NUSC_DOWN_BUDGET)
+    # conv2_down's active output cells against the recipe's stage budget
+    down = ((2, 2, 2), (1, 1, 1), (3, 3, 3))
+    out_lin = WC.downsample_active_set_yxz(coords, coords[:, 0] >= 0, grid,
+                                           conv_out_grid(grid, *down), *down, 4 * 10 ** 6)[1]
+    active = int((out_lin < WC.MISS).sum())
+    rows = []
+    for name, plan, f, cin, cout, ksize, per_view, stride, pad in cases[:3]:
+        row = _window_case_row(name + " (nusc)", plan, f, cin, cout, ksize, 0, stride, pad,
+                               coords, grid, gen)
+        row["per_frame_nusc"] = NUSC_VIEWS * per_view
+        rows.append(row)
+    torch.cuda.empty_cache()
+    return rows, dict(conv2_down_active=active, stage_budget=NUSC_DOWN_BUDGET,
+                      stage_overflow=max(0, active - NUSC_DOWN_BUDGET))
+
+
+def _nusc_frames(model, dataset, cfg, tag, want_b1):
+    """Frames of a nuScenes recipe from its val records: the host pipeline
+    (load, sweeps, flips, voxelizations) and the copy to the card timed
+    apart (the frames cycle through the records); the whole frame (``model(batch)`` + ``predict``) and, in as many
+    frames again, its stages (the reader and backbone over the views, the
+    neck, the heads, the double-flip merge, decode and NMS) with a stage
+    clock; medians; B1 launches a frame; finite boxes; the
+    split's detections equal the whole frame's; the peak; the backbone's
+    counters (the most over the frames) against their budgets."""
+    import torch
+
+    from sparse2dense_tpu_torch.data.loader import collate_tensors, to_device
+    from sparse2dense_tpu_torch.models.heads.center_head import (center_head_predict,
+                                                                 merge_double_flip)
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+
+    budget = cfg["voxel_generator"]["max_voxel_num"][1]
+    flip = bool(cfg["test_cfg"].get("double_flip", False))
+    plain_cfg = dict(cfg["test_cfg"], double_flip=False)
+    host, copy, whole, split, per_frame, counters = [], [], [], [], [], {}
+    torch.cuda.reset_peak_memory_stats()
+    _zero_sparse_launches()
+    for i in range(NUSC_WARMUP + 2 * NUSC_TIMED):
+        t = time.perf_counter()
+        example = dataset[i % len(dataset)]
+        t1 = time.perf_counter()
+        batch = to_device(collate_tensors([example], budget), torch.device("cuda"))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        batch = {k: v for k, v in batch.items() if k != "metadata"}
+        before = WK.launches
+        staged = i >= NUSC_WARMUP + NUSC_TIMED
+        with torch.inference_mode():
+            if staged:
+                clock = _StageClock()
+                f_a, _, telemetry = model._bev(batch, "")
+                clock("reader_backbone")
+                x = model.neck(f_a)
+                clock("neck")
+                preds = model.bbox_head(x)
+                clock("heads")
+                if flip:
+                    preds = [merge_double_flip(pd) for pd in preds]
+                clock("merge")
+                det = center_head_predict(preds, plain_cfg, model.bbox_head.num_classes)
+                clock("decode_nms")
+                split.append(clock.ms)
+                again = model.predict(model(batch))
+                same = all(bool(torch.equal(det[k], again[k])) for k in det)
+                if not same:
+                    raise AssertionError(f"{tag}: the stage split's detections differ from "
+                                         "the frame's")
+            else:
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                out = model(batch)
+                det = model.predict(out)
+                torch.cuda.synchronize()
+                if i >= NUSC_WARMUP:
+                    whole.append((time.perf_counter() - t3) * 1e3)
+                    host.append((t1 - t) * 1e3)
+                    copy.append((t2 - t1) * 1e3)
+                telemetry = out["telemetry"]
+        per_frame.append((WK.launches - before) // (2 if staged else 1))
+        for k, (c, b) in telemetry.items():   # the most over the frames
+            counters[k] = [max(int(c.max()), counters.get(k, [0])[0]), b]
+    launches = _sparse_launches()
+    if per_frame != [want_b1] * len(per_frame) or launches[1:] != (0, 0):
+        raise AssertionError(f"{tag}: (B1, B2, B3) launches {launches}, B1 a frame "
+                             f"{per_frame}, expected {want_b1}")
+    valid = det["valid"]
+    if not bool(torch.isfinite(det["box3d_lidar"][valid]).all()) or not bool(valid.any()):
+        raise AssertionError(f"{tag}: {int(valid.sum())} valid boxes, or not finite")
+    return dict(frame_ms_median=_median(whole), frame_ms=whole, host_ms_median=_median(host),
+                to_device_ms_median=_median(copy),
+                stages_ms={k: _median([s[k] for s in split]) for k in split[0]},
+                launches=launches[0], launches_per_frame=per_frame[0],
+                detections=int(valid.sum()), views=int(batch["voxels"].shape[0]),
+                voxels=[int((batch["coordinates"][v, :, 0] >= 0).sum())
+                        for v in range(batch["voxels"].shape[0])],
+                counters=counters, peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _nusc_steps(cfg, dataset, batch_size):
+    """``make_train_step`` on the 0075voxel_dcn recipe at ``batch_size``
+    (samples of its train pipeline from the records, keys (0, epoch, i)):
+    the medians of the step and its stages (forward with the loss,
+    backward, optimizer), the peaks; finite metrics, ``grad_norm`` > 0,
+    a nonzero gradient on every DCN head's offset and deformable convs, 6
+    B1 launches a sample a step. Out of memory: the peak it reached,
+    reported, not hidden."""
+    import gc
+
+    import torch
+
+    from sparse2dense_tpu_torch.data.loader import collate_tensors, to_device
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+    from sparse2dense_tpu_torch.solver.optim import OneCycleAdam
+    from sparse2dense_tpu_torch.training.train_state import make_train_step
+
+    model = _nusc_model(cfg, seed=7)
+    budget = cfg["voxel_generator"]["max_voxel_num"][0]
+    examples = [dataset[0, e, i % len(dataset)] for e, i in
+                ((k // len(dataset), k) for k in range(batch_size))]
+    batch = to_device(collate_tensors(examples, budget), torch.device("cuda"))
+    batch = {k: v for k, v in batch.items() if k != "metadata"}
+    opt = OneCycleAdam(model.parameters(), cfg["optimizer"], cfg["lr_config"], 10,
+                       cfg["optimizer_config"]["grad_clip"])
+    step = make_train_step(model, opt)
+    rows, res = [], dict(batch=batch_size, out_of_memory=False)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for _ in range(NUSC_STEP_WARMUP + NUSC_STEPS):
+            WK.launches = 0
+            clock = _StageClock()
+            metrics = step(batch, mark=clock)
+            rows.append(dict(step_ms=sum(clock.ms.values()), stages=dict(clock.ms),
+                             peaks=dict(clock.peak), launches=WK.launches,
+                             metrics={k: float(v) for k, v in metrics.items()}))
+    except torch.cuda.OutOfMemoryError:
+        res.update(out_of_memory=True, peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   card_gb=torch.cuda.get_device_properties(0).total_memory / 2 ** 30,
+                   free_gb=torch.cuda.mem_get_info()[0] / 2 ** 30)
+    if not res["out_of_memory"]:
+        tag = f"nusc train batch {batch_size}"
+        _check_metrics(tag, rows[-1]["metrics"])
+        dead = [n for n, p in model.named_parameters()
+                if (".conv_offset." in n or ".conv_adaption." in n)
+                and (p.grad is None or not bool(p.grad.abs().max() > 0))]
+        if dead:
+            raise AssertionError(f"{tag}: no gradient on {dead[:4]}")
+        if any(r["launches"] != EXPECTED_LAUNCHES["window"][0] * batch_size for r in rows):
+            raise AssertionError(f"{tag}: B1 a step {[r['launches'] for r in rows]}")
+        timed = rows[NUSC_STEP_WARMUP:]
+        res.update(step_ms=_median([r["step_ms"] for r in timed]),
+                   stages_ms={s: _median([r["stages"][s] for r in timed])
+                              for s in timed[0]["stages"]},
+                   stages_peak_gb={s: max(r["peaks"][s] for r in timed)
+                                   for s in timed[0]["stages"]},
+                   peak_mem_gb=max(max(r["peaks"].values()) for r in timed),
+                   launches_per_step=[r["launches"] for r in rows],
+                   voxels=[int((batch["coordinates"][b, :, 0] >= 0).sum())
+                           for b in range(batch_size)],
+                   metrics=rows[-1]["metrics"])
+    del model, opt, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _nusc_test_cli(cfg_path, model, tmp, batch_size):
+    """``tools/test.py --checkpoint --batch_size`` on the served recipe over
+    the val records (the seeded model's checkpoint): a token a frame, the
+    results json, (None, None) without the devkit, 24 B1 launches a frame.
+    Out of memory at ``batch_size`` 2: the peak at 1 frame, then a run at 1."""
+    import torch
+
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+    from sparse2dense_tpu_torch.tools import test as test_cli
+    from sparse2dense_tpu_torch.training.checkpoint import save_checkpoint
+
+    ckpt = save_checkpoint(tmp, "nusc_seeded", {"model": model.state_dict()}, latest=False)
+    evald = os.path.join(tmp, "nusc_eval")
+    res = dict(batch=batch_size)
+    WK.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        detections, result, times = test_cli.main(
+            [cfg_path, "--checkpoint", ckpt, "--work_dir", evald, "--batch_size",
+             str(batch_size), "--speed_test"])
+    except torch.cuda.OutOfMemoryError:
+        res.update(out_of_memory_at=batch_size,
+                   peak_gb_at_oom=torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.empty_cache()
+        return dict(_nusc_test_cli(cfg_path, model, tmp, 1), **res)
+    frames = len(detections)
+    res.update(launches=WK.launches, ms_batch=[1000 * t for t in times], frames=frames,
+               detections=sum(len(d["scores"]) for d in detections.values()),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    path = os.path.join(evald, "infos_pred_nusc.json")
+    with open(path) as f:
+        written = json.load(f)["results"]
+    want_frames = NUSC_FRAMES // batch_size * batch_size
+    if result != (None, None) or sorted(detections) != [f"sample_{i}" for i in
+                                                         range(want_frames)] \
+            or sorted(written) != sorted(detections) or res["detections"] == 0 \
+            or res["launches"] != 6 * NUSC_VIEWS * frames:
+        raise AssertionError(f"nusc tools/test.py: {res}, {sorted(detections)}, {result}")
+    return res
+
+
+def _nusc_tiny_cfg():
+    """``configs/tests/voxelnet_tiny.py`` as a nuScenes model: the six tasks,
+    the velocity head and code weights, DCN heads, double flip, score
+    threshold 0."""
+    from sparse2dense_tpu_torch.training.synthetic import NUSC_CLASSES
+    from sparse2dense_tpu_torch.utils.config import ConfigDict
+
+    cfg = ConfigDict.fromfile(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                           "configs", "tests", "voxelnet_tiny.py"))
+    tasks = [dict(num_class=len(c), class_names=list(c)) for c in
+             (NUSC_CLASSES[:1], NUSC_CLASSES[1:3], NUSC_CLASSES[3:5], NUSC_CLASSES[5:6],
+              NUSC_CLASSES[6:8], NUSC_CLASSES[8:10])]
+    cfg["class_names"] = list(NUSC_CLASSES)
+    cfg["S_model"]["bbox_head"].update(
+        tasks=tasks, dataset="nuscenes", weight=0.25, dcn_head=True,
+        code_weights=[1.0] * 6 + [0.2, 0.2, 1.0, 1.0],
+        common_heads={"reg": (2, 2), "height": (1, 2), "dim": (3, 2), "rot": (2, 2),
+                      "vel": (2, 2)})
+    cfg["train_cfg"]["assigner"]["target_assigner"]["tasks"] = tasks
+    cfg["test_cfg"].update(double_flip=True, score_threshold=0.0)
+    return cfg
+
+
+def _nusc_tiny_run(dev):
+    """The tiny nuScenes model (seeded weights) on ``dev``: its eval maps
+    and detections on a double-flip frame (4 views), and one training
+    step's metrics at batch 2."""
+    import torch
+
+    from sparse2dense_tpu_torch.models import build_detector
+    from sparse2dense_tpu_torch.solver.optim import OneCycleAdam
+    from sparse2dense_tpu_torch.training.synthetic import make_batch
+    from sparse2dense_tpu_torch.training.train_state import make_train_step
+
+    cfg = _nusc_tiny_cfg()
+    model = build_detector(cfg["S_model"], test_cfg=cfg["test_cfg"],
+                           voxel_generator=cfg["voxel_generator"], device=dev,
+                           generator=torch.Generator().manual_seed(4))
+    frame = dict(max_voxels=512, n_points=3000, n_obj=6)
+    batch = make_batch(cfg, 1, device=dev, **frame)
+    with torch.inference_mode():
+        out = model(batch)
+        det = model.predict(out)
+    maps = {f"{t}/{k}": v.cpu() for t, pd in enumerate(out["preds"]) for k, v in pd.items()}
+    maps.update({k: det[k].cpu() for k in ("box3d_lidar", "scores")})
+    labels = (det["valid"].cpu(), det["label_preds"].cpu())
+    batch = make_batch(cfg, 2, device=dev, with_targets=True, **frame)
+    opt = OneCycleAdam(model.parameters(), cfg["optimizer"], cfg["lr_config"], 4,
+                       cfg["optimizer_config"]["grad_clip"])
+    metrics = make_train_step(model, opt)(batch)
+    return maps, labels, {k: float(v) for k, v in metrics.items()}
+
+
+def _nusc_tiny_agreement():
+    """``_nusc_tiny_run`` on the card against the CPU: detections' validity
+    and labels equal; maps, boxes, scores and the step's metrics within
+    ``NUSC_TINY_TOL`` of the CPU's largest value."""
+    (cu, cu_l, cu_m), (cp, cp_l, cp_m) = _nusc_tiny_run("cuda"), _nusc_tiny_run("cpu")
+    if not all(bool((a == b).all()) for a, b in zip(cu_l, cp_l)):
+        raise AssertionError("tiny nusc: valid or labels differ between the card and the CPU")
+    maps = max(float((cu[k] - cp[k]).abs().max() / cp[k].abs().max().clamp(min=1e-6))
+               for k in cp)
+    step = max(abs(v - cp_m[k]) / max(abs(cp_m[k]), 1e-6) for k, v in cu_m.items())
+    res = dict(maps=maps, step=step, valid=int(cp_l[0].sum()))
+    print(f"[nusc] tiny model, cuda vs cpu: maps and detections {maps:.3e}, step metrics "
+          f"{step:.3e} (within {NUSC_TINY_TOL}); {res['valid']} detections", flush=True)
+    if max(maps, step) > NUSC_TINY_TOL:
+        raise AssertionError(f"tiny nusc disagrees with its CPU run: {res}")
+    return res
+
+
+def phase_nusc(smi):
+    """The nuScenes families on the card (``utils.config.NUSC_*``): records
+    of NUSC_FRAMES 10-sweep scenes (``training/synthetic.write_nusc_records``);
+    B1 against its plain version on the served frame's own plans; frames of
+    ``0075voxel_dcn_flip`` (4 views, DCN heads, the merge; 24 B1 a frame)
+    split by stage, with the backbone's counters; ``tools/test.py
+    --batch_size 2`` over the records (per-frame tokens); ``make_train_step``
+    on ``0075voxel_dcn`` at batch 1 and 4; the ``circular_nms`` pillar frame
+    (no sparse kernel); the tiny nuScenes model on the card against the CPU.
+    Launch counts set to 0 just before each run and read just after."""
+    import gc
+
+    import torch
+
+    from sparse2dense_tpu_torch.data.loader import build_dataset, collate_tensors, to_device
+    from sparse2dense_tpu_torch.models.builder import sparse_shape_from_voxel_cfg
+    from sparse2dense_tpu_torch.training.synthetic import write_nusc_records
+    from sparse2dense_tpu_torch.utils.config import NUSC_PP, NUSC_VOXELNET, ConfigDict
+
+    t0, res, parts = time.perf_counter(), {}, {}
+
+    def part(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free()
+    free_b, total_b = torch.cuda.mem_get_info()
+    res["card_at_start"] = dict(allocated_gb=torch.cuda.memory_allocated() / 2 ** 30,
+                                free_gb=free_b / 2 ** 30, total_gb=total_b / 2 ** 30)
+    with tempfile.TemporaryDirectory() as tmp:
+        info = write_nusc_records(tmp, NUSC_FRAMES, NUSC_SWEEP_POINTS, n_obj=NUSC_OBJECTS)
+        paths = {}
+        for name, src, workers in (("flip", NUSC_VOXELNET["0075voxel_dcn_flip"], 2),
+                                   ("dcn", NUSC_VOXELNET["0075voxel_dcn"], 0),
+                                   ("pp", NUSC_PP["circular_nms"], 0)):
+            paths[name] = os.path.join(tmp, f"nusc_{name}.py")
+            with open(src) as f, open(paths[name], "w") as out:
+                out.write(f.read() + NUSC_DATA_APPEND.format(workers=workers, root=tmp,
+                                                             info=info))
+        cfg = ConfigDict.fromfile(paths["flip"])
+        val = build_dataset(cfg.data["val"])
+        example = val[0]
+        res["records"] = dict(
+            points=len(example[0]["points"]),
+            sweep_points=[int((example[0]["points"][:, 4] == lag).sum())
+                          for lag in sorted(set(example[0]["points"][:, 4].tolist()))],
+            voxels_per_view=[int(e["num_voxels"][0]) for e in example])
+        part("records")
+        first = to_device(collate_tensors([example], cfg["voxel_generator"]["max_voxel_num"][1]),
+                          torch.device("cuda"))
+        first = {k: v for k, v in first.items() if k != "metadata"}
+        gen = torch.Generator(device="cuda").manual_seed(15)
+        res["window_rows"], res["stage"] = _nusc_window_rows(
+            first, sparse_shape_from_voxel_cfg(cfg["voxel_generator"]), gen)
+        part("b1_rows")
+
+        model = _nusc_model(cfg)
+        res["heatmap_bias"] = _nusc_heatmap_bias(model, first, cfg)
+        del first
+        res["frame"] = _nusc_frames(model, val, cfg, "nusc dcn_flip",
+                                    EXPECTED_LAUNCHES["window"][0] * NUSC_VIEWS)
+        free()
+        part("frames")
+        res["test_cli"] = _nusc_test_cli(paths["flip"], model, tmp, 2)
+        del model
+        free()
+        part("test_cli")
+
+        dcfg = ConfigDict.fromfile(paths["dcn"])
+        train = build_dataset(dcfg.data["train"])
+        res["steps"] = {b: _nusc_steps(dcfg, train, b) for b in NUSC_STEP_BATCHES}
+        free()
+        part("steps")
+
+        pcfg = ConfigDict.fromfile(paths["pp"])
+        pmodel = _nusc_model(pcfg)
+        pval = build_dataset(pcfg.data["val"])
+        first = to_device(collate_tensors([pval[0]], pcfg["voxel_generator"]["max_voxel_num"][1]),
+                          torch.device("cuda"))
+        res["pp_heatmap_bias"] = _nusc_heatmap_bias(
+            pmodel, {k: v for k, v in first.items() if k != "metadata"}, pcfg)
+        del first
+        res["pp_frame"] = _nusc_frames(pmodel, pval, pcfg, "nusc pp circular_nms", 0)
+        del pmodel
+        free()
+        part("pp_frame")
+    with no_tf32():
+        res["tiny"] = _nusc_tiny_agreement()
+    part("tiny")
+    res["seconds"], res["part_seconds"] = time.perf_counter() - t0, parts
+    _print_nusc(res, smi)
+    return res
+
+
+def _print_nusc(res, smi):
+    f, pf, t, r = res["frame"], res["pp_frame"], res["test_cli"], res["records"]
+    c = res["card_at_start"]
+    print(f"[nusc] records: {r['points']} points a frame (the key frame and 9 sweeps: "
+          f"{r['sweep_points']}), voxels a view {r['voxels_per_view']}; the card at the phase's "
+          f"start: {c['allocated_gb']:.2f} GiB allocated, {c['free_gb']:.2f} of "
+          f"{c['total_gb']:.2f} GiB free | {smi}", flush=True)
+    nonzero = {k: v for k, v in f["counters"].items() if v[0] > v[1]}
+    st = res["stage"]
+    print(f"[nusc] 0075voxel_dcn_flip counters (max count, budget): {f['counters']}; conv2_down "
+          f"active cells {st['conv2_down_active']} against the stage budget "
+          f"{st['stage_budget']}: overflow {st['stage_overflow']}; "
+          + (f"OVER BUDGET: {nonzero}" if nonzero or st["stage_overflow"] else
+             "every counter within its budget"), flush=True)
+    print(f"[nusc] 0075voxel_dcn_flip frame ({f['views']} views, {f['voxels']} voxels): median "
+          f"{f['frame_ms_median']:.2f} ms over {NUSC_TIMED} (host pipeline "
+          f"{f['host_ms_median']:.1f} ms, copy to the card {f['to_device_ms_median']:.2f} ms, "
+          f"apart); stages {', '.join(f'{k} {v:.2f}' for k, v in f['stages_ms'].items())} ms; "
+          f"peak {f['peak_mem_gb']:.2f} GiB; {f['detections']} detections (heatmap bias "
+          f"{res['heatmap_bias']:.3f}); B1 {f['launches_per_frame']} a frame | {smi}",
+          flush=True)
+    oom = (f"out of memory at batch {t['out_of_memory_at']} (peak {t['peak_gb_at_oom']:.2f} "
+           f"GiB), run at 1; " if "out_of_memory_at" in t else "")
+    print(f"[nusc] tools/test.py --batch_size {t['batch']}: {oom}"
+          f"{', '.join(f'{x:.1f}' for x in t['ms_batch'])} ms a batch (after 2), {t['frames']} "
+          f"frames keyed apart, {t['detections']} detections, peak {t['peak_mem_gb']:.2f} GiB, "
+          f"B1 {t['launches']} | {smi}", flush=True)
+    for b, s in res["steps"].items():
+        if s["out_of_memory"]:
+            print(f"[nusc] 0075voxel_dcn make_train_step, batch {b}: OUT OF MEMORY at "
+                  f"{s['peak_mem_gb']:.2f} GiB of the {s['card_gb']:.1f} GiB card "
+                  f"({s['free_gb']:.2f} GiB free after) | {smi}", flush=True)
+            continue
+        print(f"[nusc] 0075voxel_dcn make_train_step, batch {b} ({s['voxels']} voxels): median "
+              f"{s['step_ms']:.1f} ms ({', '.join(f'{k} {v:.1f}' for k, v in s['stages_ms'].items())}"
+              f"); peak {s['peak_mem_gb']:.2f} GiB (by stage: "
+              f"{', '.join(f'{k} {v:.2f}' for k, v in s['stages_peak_gb'].items())}); loss {s['metrics']['loss']:.3f}, grad_norm "
+              f"{s['metrics']['grad_norm']:.3f}; B1 a step {s['launches_per_step']} | {smi}",
+              flush=True)
+    print(f"[nusc] circular_nms pillar frame: median {pf['frame_ms_median']:.2f} ms (host "
+          f"pipeline {pf['host_ms_median']:.1f} ms apart); stages "
+          f"{', '.join(f'{k} {v:.2f}' for k, v in pf['stages_ms'].items())} ms; peak "
+          f"{pf['peak_mem_gb']:.2f} GiB; {pf['detections']} detections; (B1, B2, B3) 0; phase "
+          f"{res['seconds']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in res['part_seconds'].items())})"
+          f" | {smi}", flush=True)
+    print("[nusc] " + json.dumps({k: v for k, v in res.items() if k != "window_rows"}), flush=True)
+
+
 def _record(name, source, replaces, launches, rows, per="per_frame"):
     frame = [r for r in rows if r.get(per)]
     lib = [r["library_ms"] for r in frame]
@@ -3532,6 +4054,10 @@ def main() -> int:
             phase_two_stage(smi, dict(root=records, **paths))
         print(f"[main] chip_smoke two_stage: {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
+    if sys.argv[1:] == ["nusc"]:   # the nuScenes phase alone
+        phase_nusc(smi)
+        print(f"[main] chip_smoke nusc: {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
     seconds = {}
 
     def timed(name, fn, *args, **kw):   # each phase's seconds, printed at the end
@@ -3557,11 +4083,13 @@ def main() -> int:
         data, for_dp = timed("data", phase_data, smi, records)
         dp = timed("dp", phase_dp, smi, for_dp)
         two_stage = timed("two_stage", phase_two_stage, smi, for_dp["records"])
+    nusc = timed("nusc", phase_nusc, smi)
     with no_tf32():
         timed("agreement", phase_agreement)
 
     wrows, prows, trows = ([r for r in rows if r["kernel"] == k]
                            for k in ("window_pass", "plane_subm", "tile_subm"))
+    wrows = wrows + nusc["window_rows"]   # B1 on the nuScenes frame's plans (per_frame 0)
     b1_paths = {"window": window["launches"]["window_pass"],
                 "plane": plane["launches"]["window_pass"], "train": train["launches"],
                 f"train_batch{BIG_BATCH}": train["big"]["launches"], "cli": cli["launches"],
@@ -3576,7 +4104,10 @@ def main() -> int:
                 "two_stage": two_stage["frame"]["launches"],
                 **{"two_stage_train" + ("" if b == 1 else f"_batch{b}"):
                    sum(st["launches_per_step"]) for b, st in two_stage["steps"].items()},
-                "two_stage_test": two_stage["test_cli"]["launches"]}
+                "two_stage_test": two_stage["test_cli"]["launches"],
+                "nusc": nusc["frame"]["launches"], "nusc_test": nusc["test_cli"]["launches"],
+                **{"nusc_train" + ("" if b == 1 else f"_batch{b}"): sum(st["launches_per_step"])
+                   for b, st in nusc["steps"].items() if not st["out_of_memory"]}}
     b2_paths = {"plane": plane["launches"]["plane_subm"]}
     b3_paths = {"tile": tile["launches"]["tile_subm"]}
     for tag, r in engines.items():
@@ -3593,7 +4124,8 @@ def main() -> int:
         dict(_record("window_pass", "sparse2dense_tpu_torch/csrc/window_pass.cu",
                      "sparse2dense_tpu/ops/pallas/window_kernel.py:69",
                      sum(b1_paths.values()), wrows), launches_by_path=b1_paths,
-             dfs2_frame=_record("window_pass", "", "", 0, wrows, "per_frame_dfs2")),
+             dfs2_frame=_record("window_pass", "", "", 0, wrows, "per_frame_dfs2"),
+             nusc_frame=_record("window_pass", "", "", 0, nusc["window_rows"], "per_frame_nusc")),
         dict(_record("plane_subm", "sparse2dense_tpu_torch/csrc/plane_subm.cu",
                      "sparse2dense_tpu/ops/pallas/plane_block_kernel.py:131",
                      sum(b2_paths.values()), prows), launches_by_path=b2_paths,

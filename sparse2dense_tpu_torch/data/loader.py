@@ -5,6 +5,8 @@ DistributedSampler and DataLoader stack):
 - :func:`collate`: ragged per-frame dicts -> fixed (B, max_voxels, ...)
   arrays with -1 coordinates past a frame's voxels, the layout every port
   model consumes (det3d concatenates the rows and prepends a batch column);
+  a double-flip frame's list of 4 bundles becomes 4 consecutive rows, so a
+  batch of B frames holds 4B views in groups [orig, yflip, xflip, double];
 - :class:`ShardedSampler`: an epoch-seeded permutation, shard k of n taking
   indices k::n (DistributedSampler's semantics);
 - :class:`InputPipeline`: a ``torch.utils.data.DataLoader`` whose batch
@@ -25,7 +27,6 @@ import torch
 from torch.utils.data import DataLoader, Sampler
 
 from ..device import resolve_device
-from .pipelines.loading import NUSCENES_LATER
 
 VOXEL_STREAM_PREFIXES = ("", "dense_", "reconstruction_")
 VOXEL_STREAM_TAGS = ("", "_2", "_4")
@@ -49,8 +50,10 @@ def _voxel_keys(example):
 
 
 def collate(examples, max_voxels: int):
-    """Per-frame dicts -> one static-shape batch dict of NumPy arrays (the
-    targets as per-task lists) and "metadata", the frames' metadata."""
+    """Per-frame dicts (or double-flip lists of 4) -> one static-shape batch
+    dict of NumPy arrays (the targets as per-task lists) and "metadata", the
+    rows' metadata."""
+    examples = [b for e in examples for b in (e if isinstance(e, list) else [e])]
     batch = {}
     ex0 = examples[0]
     for vk, ck, nk in _voxel_keys(ex0):
@@ -174,15 +177,16 @@ class InputPipeline:
 
 def build_dataset(cfg):
     """A dataset from the reference's schema (``data.train``, ``val`` or
-    ``test``): ``WaymoDataset`` with its pipeline. The nuScenes datasets
-    raise."""
+    ``test``): ``WaymoDataset`` or ``NuScenesDataset`` with its pipeline."""
+    from .datasets.nuscenes import NuScenesDataset
     from .datasets.waymo import WaymoDataset
     from .pipelines.formating import build_pipeline
 
     cfg = dict(cfg)
     kind = cfg.pop("type")
-    if kind != "WaymoDataset":
-        raise NotImplementedError(f"{kind}: {NUSCENES_LATER}")
+    registry = {"WaymoDataset": WaymoDataset, "NuScenesDataset": NuScenesDataset}
+    if kind not in registry:
+        raise NotImplementedError(kind)
     pipeline = build_pipeline(cfg.pop("pipeline"))
     cfg.pop("ann_file", None)
-    return WaymoDataset(pipeline=pipeline, **cfg)
+    return registry[kind](pipeline=pipeline, **cfg)

@@ -2,19 +2,17 @@
 ``sparse2dense_tpu/data/pipelines/formating.py`` (det3d's
 datasets/pipelines/formating.py:14-117). ``Reformat`` turns a pipeline
 result into a flat example dict: the voxel streams, the points and the
-head's targets. Double-flip bundles (``Reformat(double_flip=True)``) raise:
-they come with the nuScenes families (ROADMAP Queue 1 item 9).
+head's targets. With ``double_flip``, outside training, it returns the
+list of 4 bundles [orig, yflip, xflip, double] of a frame, which ``collate``
+flattens into consecutive batch rows.
 """
 from __future__ import annotations
-
-from .preprocess import DOUBLE_FLIP_LATER
 
 
 class Reformat:
     def __init__(self, distillation=False, **kwargs):
-        if kwargs.get("double_flip", False):
-            raise NotImplementedError(f"Reformat(double_flip=True): {DOUBLE_FLIP_LATER}")
         self.distillation = distillation
+        self.double_flip = kwargs.get("double_flip", False)
 
     def __call__(self, res, info):
         lidar = res["lidar"]
@@ -38,6 +36,12 @@ class Reformat:
                 bundle[f"reconstruction_num_points{tag}"] = rv["num_points"]
         if res["mode"] in ("train", "val") and "targets" in lidar:
             bundle.update(lidar["targets"])
+        if self.double_flip and res["mode"] != "train":
+            views = (lidar[f"{key}_voxels"] for key in ("yflip", "xflip", "double_flip"))
+            flips = [dict(metadata=res.get("metadata"), voxels=v["voxels"], shape=v["shape"],
+                          num_points=v["num_points"], num_voxels=v["num_voxels"],
+                          coordinates=v["coordinates"]) for v in views]
+            return [bundle] + flips, info
         return bundle, info
 
 

@@ -17,11 +17,16 @@ The sample's ``np.random.RandomState`` is ``res["rng"]`` (the dataset sets
 it): it feeds the db sampler, the augmentations and the point shuffles, in
 the reference's order.
 
-``Voxelization`` emits the base voxel stream and, for distillation, the
-dense voxels and the reconstruction voxels at 1x, 2x and 4x the voxel size,
-under the train budget in training and the test budget otherwise.
-``DoubleFlip`` (test-time augmentation) raises: it comes with the nuScenes
-families (ROADMAP Queue 1 item 9).
+A nuScenes frame takes the same path with its 9-dof boxes (x, y, z, w, l,
+h, vx, vy, yaw: the flips, the rotation and the scaling move the
+velocities too) and its points with the time-lag channel.
+
+``DoubleFlip`` (test-time augmentation) adds the y-flipped, x-flipped and
+doubly flipped copies of the points. ``Voxelization`` emits the base voxel
+stream and, for distillation, the dense voxels and the reconstruction
+voxels at 1x, 2x and 4x the voxel size, under the train budget in training
+and the test budget otherwise; with ``double_flip``, outside training, also
+the three flipped streams.
 """
 from __future__ import annotations
 
@@ -32,10 +37,6 @@ import numpy as np
 from ...core import augment, box_np_ops
 from ...core.sampler import build_dbsampler, dense_points_for_box
 from ...ops.voxelize import VoxelGenerator
-
-DOUBLE_FLIP_LATER = ("double-flip test-time augmentation comes with the nuScenes families, "
-                     "a later slice (ROADMAP Queue 1 item 9)")
-
 
 def _dict_select(d, inds):
     for k, v in d.items():
@@ -117,7 +118,7 @@ class Preprocess:
 
     def __call__(self, res, info):
         res["mode"] = self.mode
-        if res["type"] != "WaymoDataset":
+        if res["type"] not in ("WaymoDataset", "NuScenesDataset"):
             raise NotImplementedError(res["type"])
         rng = res.get("rng")
         points = res["lidar"].get("combined", res["lidar"]["points"])
@@ -199,9 +200,30 @@ def filter_gt_box_outside_range(gt_boxes, bv_range):
             & (gt_boxes[:, 1] >= bv_range[1]) & (gt_boxes[:, 1] <= bv_range[3]))
 
 
+def flip_views(points: np.ndarray):
+    """The double-flip views of a cloud: [the cloud, y negated, x negated,
+    both] (the flipped three are copies)."""
+    views = [points]
+    for cols in ([1], [0], [0, 1]):
+        v = points.copy()
+        v[:, cols] = -v[:, cols]
+        views.append(v)
+    return views
+
+
 class DoubleFlip:
+    """Test-time augmentation: the points with y negated, with x negated and
+    with both, as ``yflip_points``, ``xflip_points`` and
+    ``double_flip_points``."""
+
     def __init__(self, **kwargs):
-        raise NotImplementedError(f"DoubleFlip: {DOUBLE_FLIP_LATER}")
+        pass
+
+    def __call__(self, res, info):
+        flips = flip_views(res["lidar"]["points"])[1:]
+        for key, v in zip(("yflip", "xflip", "double_flip"), flips):
+            res["lidar"][f"{key}_points"] = v
+        return res, info
 
 
 class Voxelization:
@@ -209,14 +231,13 @@ class Voxelization:
         cfg = dict(cfg if cfg is not None else kwargs["cfg"])
         if kwargs.get("distillation") is not None:
             cfg["distillation"] = kwargs["distillation"]
-        if cfg.get("double_flip", False):
-            raise NotImplementedError(f"Voxelization(double_flip=True): {DOUBLE_FLIP_LATER}")
         self.range = np.asarray(cfg["range"], np.float32)
         self.voxel_size = np.asarray(cfg["voxel_size"], np.float32)
         self.max_points_in_voxel = cfg["max_points_in_voxel"]
         mv = cfg["max_voxel_num"]
         self.max_voxel_num = [mv, mv] if isinstance(mv, int) else list(mv)
         self.distillation = cfg.get("distillation", False)
+        self.double_flip = cfg.get("double_flip", False)
 
         def gen(mult):
             return VoxelGenerator(self.voxel_size * mult, self.range, self.max_points_in_voxel,
@@ -250,4 +271,8 @@ class Voxelization:
             recon = lidar["reconstruction_points"].astype(np.float32)
             for tag, g in self.voxel_generator_recon.items():
                 lidar[f"reconstruction_voxels{tag}"] = self._pack(*g.generate(recon, max_voxels))
+        if self.double_flip and res["mode"] != "train":
+            for key in ("yflip", "xflip", "double_flip"):
+                lidar[f"{key}_voxels"] = self._pack(
+                    *self.voxel_generator.generate(lidar[f"{key}_points"], max_voxels))
         return res, info

@@ -17,6 +17,7 @@ from .detectors.kd import KD_PointPillars, KD_VoxelNet
 from .detectors.point_pillars import PointPillars
 from .detectors.two_stage import TwoStageDetector
 from .detectors.voxelnet import VoxelNet
+from .dcn import DCNSepHead, DeformConv, FeatureAdaption
 from .heads.center_head import CenterHead, SepHead
 from .heads.mg_head import MultiGroupHead
 from .necks.rpn import RPN
@@ -81,12 +82,15 @@ def _trunc_normal_(t: torch.Tensor, fan_in: int, scale: float, gen: torch.Genera
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """The reference's initialisers, drawn from ``generator``: lecun-normal
-    2D convs (he-normal in the CenterHead) and linear layers, fan-in-uniform
-    3D conv kernels (the PCR generators' too), zero biases, the heatmap
-    output bias at ``init_bias``, unit BN scales; the RoI head's out layers
+    2D convs (he-normal in the CenterHead's SepHeads and deformable convs)
+    and linear layers, fan-in-uniform 3D conv kernels (the PCR generators'
+    too), zero biases, zero offset convs, the heatmap output bias at
+    ``init_bias``, unit BN scales; the RoI head's out layers
     normal(0.001)."""
     head_mods = {id(m) for h in model.modules() if isinstance(h, CenterHead)
                  for m in h.modules()}
+    head_mods -= {id(m) for d in model.modules() if isinstance(d, DCNSepHead)
+                  for m in (d.cls_head_conv, d.cls_head_out)}
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
             w = mod.weight
@@ -97,6 +101,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 mod.bias.zero_()
         elif isinstance(mod, nn.Linear):
             _trunc_normal_(mod.weight, mod.weight.shape[1], 1.0, generator)
+        elif isinstance(mod, DeformConv):   # (Cout, Cin, K)
+            _trunc_normal_(mod.weight, mod.weight[0].numel(), 2.0, generator)
     for name, p in model.named_parameters():
         if p.dim() == 5:  # 3D conv kernels (Cout, Cin, kz, ky, kx)
             limit = math.sqrt(3.0 / p[0].numel())
@@ -105,8 +111,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         if isinstance(mod, (nn.Conv3d, nn.ConvTranspose3d)):
             mod.bias.zero_()
     for mod in model.modules():
-        if isinstance(mod, SepHead):
+        if isinstance(mod, SepHead) and hasattr(mod, "hm_out"):
             mod.hm_out.bias.fill_(mod.init_bias)
+        if isinstance(mod, DCNSepHead):
+            mod.cls_head_out.bias.fill_(mod.init_bias)
+        if isinstance(mod, FeatureAdaption):
+            mod.conv_offset.weight.zero_()
         if isinstance(mod, FCStack) and mod.out is not None:
             mod.out.weight.normal_(0.0, 0.001, generator=generator)
             mod.out.bias.zero_()

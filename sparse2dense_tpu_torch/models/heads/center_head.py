@@ -1,7 +1,10 @@
 """CenterPoint head, decode and post-processing (counterpart of
 ``sparse2dense_tpu/models/heads/center_head.py``). Maps are NHWC at the
 public functions; the convs run NCHW. Outputs have static shapes with a
-validity mask instead of ragged tensors."""
+validity mask instead of ragged tensors. With ``dcn_head`` each task's
+head is a ``DCNSepHead`` (``models/dcn.py``); with the test config's
+``double_flip`` the batch holds 4 views a frame, and predict merges each
+group's maps before the decode (:func:`merge_double_flip`)."""
 from __future__ import annotations
 
 from typing import Any, Sequence
@@ -10,8 +13,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.nms import rotated_nms
+from ...ops.nms import circle_nms, rotated_nms
 from ...ops.topk import top_k
+from ..dcn import DCNSepHead
 from ..losses.centernet import fast_focal_loss, reg_loss
 from ..norm import BatchNorm
 
@@ -53,8 +57,6 @@ class CenterHead(nn.Module):
                  init_bias: float = -2.19, share_conv_channel: int = 64,
                  num_hm_conv: int = 2, dcn_head: bool = False):
         super().__init__()
-        if dcn_head:
-            raise NotImplementedError("DCN heads come with the nuScenes families, a later slice")
         self.tasks = tuple(dict(t) for t in tasks)
         self.dataset, self.weight, self.code_weights = dataset, weight, tuple(code_weights)
         self.shared_conv = nn.Conv2d(in_channels, share_conv_channel, 3, padding=1)
@@ -62,7 +64,11 @@ class CenterHead(nn.Module):
         for t, num_cls in enumerate(self.num_classes):
             heads = dict(common_heads)
             heads["hm"] = (num_cls, num_hm_conv)
-            setattr(self, f"task_{t}", SepHead(share_conv_channel, heads, init_bias=init_bias))
+            if dcn_head:
+                head = DCNSepHead(share_conv_channel, heads, num_cls, init_bias=init_bias)
+            else:
+                head = SepHead(share_conv_channel, heads, init_bias=init_bias)
+            setattr(self, f"task_{t}", head)
 
     @property
     def num_classes(self):
@@ -133,10 +139,9 @@ def _gather(x, idx):
 
 
 def post_process_task(boxes, hm, test_cfg, task_id):
-    """Score/range mask, top-k to ``nms_pre_max_size`` and rotated NMS for
-    one task; dict of (B, post_max, ...) tensors plus a validity mask."""
-    if test_cfg.get("circular_nms", False):
-        raise NotImplementedError("circle NMS comes with the nuScenes families, a later slice")
+    """Score/range mask, top-k to ``nms_pre_max_size`` and rotated NMS (or,
+    with ``circular_nms``, circle NMS at the task's ``min_radius``) for one
+    task; dict of (B, post_max, ...) tensors plus a validity mask."""
     nms_cfg = test_cfg["nms"]
     pre_max, post_max = int(nms_cfg["nms_pre_max_size"]), int(nms_cfg["nms_post_max_size"])
     iou_thr = float(nms_cfg["nms_iou_threshold"])
@@ -150,8 +155,13 @@ def post_process_task(boxes, hm, test_cfg, task_id):
     top_boxes = _gather(boxes, top_idx)
     top_labels = _gather(labels, top_idx)
     bev = top_boxes[..., [0, 1, 3, 4, -1]]  # cx cy dx dy yaw
-    sel = torch.stack([rotated_nms(bx, s, iou_thr, post_max)
-                       for bx, s in zip(bev, top_scores)]).long()
+    if test_cfg.get("circular_nms", False):
+        min_radius = test_cfg["min_radius"][task_id]
+        sel = torch.stack([circle_nms(bx[:, :2], s, min_radius, post_max)
+                           for bx, s in zip(bev, top_scores)]).long()
+    else:
+        sel = torch.stack([rotated_nms(bx, s, iou_thr, post_max)
+                           for bx, s in zip(bev, top_scores)]).long()
     sel_safe = sel.clamp(min=0)
     out_scores = _gather(top_scores, sel_safe)
     out_valid = (sel >= 0) & torch.isfinite(out_scores)
@@ -163,12 +173,39 @@ def post_process_task(boxes, hm, test_cfg, task_id):
     }
 
 
+def merge_double_flip(pd):
+    """One task's NHWC maps over a batch in groups of 4 views [orig, yflip,
+    xflip, double] -> the maps of the B/4 frames: each view un-flipped (H
+    for the y flip, W for the x flip), the signs of its reg, rot (sin, cos)
+    and vel fixed, the four averaged."""
+    g = {}
+    for k, v in pd.items():
+        b4, h, w, c = v.shape
+        v = v.reshape(b4 // 4, 4, h, w, c)
+        g[k] = torch.stack([v[:, 0], v[:, 1].flip(1), v[:, 2].flip(2), v[:, 3].flip(1, 2)], 1)
+    out = {k: g[k].mean(1) for k in ("hm", "height", "dim")}
+    reg = g["reg"].clone()
+    reg[:, 1, ..., 1] = 1 - reg[:, 1, ..., 1]
+    reg[:, 2, ..., 0] = 1 - reg[:, 2, ..., 0]
+    reg[:, 3, ..., 0] = 1 - reg[:, 3, ..., 0]
+    reg[:, 3, ..., 1] = 1 - reg[:, 3, ..., 1]
+    out["reg"] = reg.mean(1)
+    # the signs of each view's (sin, cos) of the yaw, and of its (vx, vy)
+    sign = torch.tensor([[1, 1], [1, -1], [-1, 1], [-1, -1]], dtype=g["rot"].dtype,
+                        device=g["rot"].device).view(1, 4, 1, 1, 2)
+    for k in ("rot", "vel"):
+        if k in g:
+            out[k] = (g[k] * sign).mean(1)
+    return out
+
+
 def center_head_predict(preds, test_cfg, num_classes):
-    """All tasks: decode + NMS, concatenated with per-task label offsets."""
-    if test_cfg.get("double_flip", False):
-        raise NotImplementedError("double-flip TTA comes with the tools slice")
+    """All tasks: decode + NMS (after :func:`merge_double_flip` with the
+    config's ``double_flip``), concatenated with per-task label offsets."""
     rets, flag = [], 0
     for task_id, pd in enumerate(preds):
+        if test_cfg.get("double_flip", False):
+            pd = merge_double_flip(pd)
         boxes, hm = decode_preds(pd, test_cfg)
         r = post_process_task(boxes, hm, test_cfg, task_id)
         r["label_preds"] = r["label_preds"] + flag

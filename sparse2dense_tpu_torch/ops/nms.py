@@ -1,5 +1,5 @@
-"""Greedy rotated NMS with static output shapes (counterpart of
-``sparse2dense_tpu/ops/nms.py``).
+"""Greedy rotated NMS and circle NMS with static output shapes (counterpart
+of ``sparse2dense_tpu/ops/nms.py``).
 
 Blocked greedy, exact: each round takes the top ``_BLOCK`` alive candidates,
 resolves them against each other with a short sequential pass, then lets the
@@ -63,3 +63,17 @@ def rotated_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     return _blocked_nms(boxes, scores,
                         lambda c, o: suppression_matrix(c, o, iou_threshold),
                         post_max_size)
+
+
+def circle_nms(centers: torch.Tensor, scores: torch.Tensor, min_radius: float,
+               post_max_size: int) -> torch.Tensor:
+    """Greedy centre-distance NMS: a kept candidate suppresses every other
+    whose BEV centre lies strictly within ``min_radius`` of its own.
+    centers (K, 2); padded entries carry score -inf. Returns
+    (post_max_size,) int32, -1 padded."""
+    thresh2 = torch.tensor(min_radius, dtype=centers.dtype, device=centers.device) ** 2
+
+    def suppress(cand, others):
+        return ((cand[:, None, :] - others[None, :, :]) ** 2).sum(-1) < thresh2
+
+    return _blocked_nms(centers, scores, suppress, post_max_size)

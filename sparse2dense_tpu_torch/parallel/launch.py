@@ -175,23 +175,24 @@ def run_steps(student, step: Callable, batch: dict, steps: int,
     return dict(rows=rows)
 
 
-def steps_worker(job_path: str, out_dir: str) -> None:
-    """The steps of the job saved at ``job_path`` in this rank: rank r of W
-    takes samples ``r*B:(r+1)*B`` of ``job["batch"]`` (B =
-    ``job["per_rank"]``), on ``job["device"]``; after each step the
-    largest gap between its parameters and rank 0's. Writes
-    ``<out_dir>/steps_rank<r>.pt``."""
-    job = torch.load(job_path, weights_only=False)
-    rank, world = dist.init_distributed("pytorch", job["device"])
-    device = dist.rank_device(job["device"])
-    student, step = build_job(job, device)
-    b = job["per_rank"]
-    batch = _to(slice_batch(job["batch"], rank * b, (rank + 1) * b), device, job)
-    gaps = []
-    out = run_steps(student, step, batch, job["steps"],
-                    after=lambda: gaps.append(dist.max_param_gap(student.parameters())))
-    out.update(param_gaps=gaps, world=world, rank=rank)
-    torch.save(out, os.path.join(out_dir, f"steps_rank{rank}.pt"))
+def steps_worker(job_paths: Sequence[str], out_dir: str) -> None:
+    """The steps of the jobs saved at ``job_paths``, in turn, in this rank
+    (one process group; the jobs' devices alike): rank r of W takes samples
+    ``r*B:(r+1)*B`` of ``job["batch"]`` (B = ``job["per_rank"]``), on
+    ``job["device"]``; after each step the largest gap between its
+    parameters and rank 0's. Job i writes ``<out_dir>/steps_rank<r>_<i>.pt``."""
+    jobs = [torch.load(p, weights_only=False) for p in job_paths]
+    rank, world = dist.init_distributed("pytorch", jobs[0]["device"])
+    device = dist.rank_device(jobs[0]["device"])
+    for i, job in enumerate(jobs):
+        student, step = build_job(job, device)
+        b = job["per_rank"]
+        batch = _to(slice_batch(job["batch"], rank * b, (rank + 1) * b), device, job)
+        gaps = []
+        out = run_steps(student, step, batch, job["steps"],
+                        after=lambda: gaps.append(dist.max_param_gap(student.parameters())))
+        out.update(param_gaps=gaps, world=world, rank=rank)
+        torch.save(out, os.path.join(out_dir, f"steps_rank{rank}_{i}.pt"))
     dist.close_distributed()
 
 

@@ -28,12 +28,14 @@ from . import bench_variants as BV
 TOL_ABS, TOL_REL = 1e-4, 1e-4
 
 
-def window_cases(batch, grid, gen):
+def window_cases(batch, grid, gen, down_budget: int = 320000):
     """(name, plan, features, cin, cout, ksize, launches a frame, stride,
-    padding) of the window pass on the flagship frame's rows: the voxel-mean
-    features (5 channels) and a seeded 16-channel state on the sorted rows,
-    their subm plan and the strided plans of conv2_down and of a z-only
-    (3,1,1) conv, all at window 384. Also returns the sorted coords."""
+    padding) of the window pass on the flagship frame's rows (or another
+    frame's, on its ``grid``, with conv2_down's stage budget
+    ``down_budget``): the voxel-mean features (5 channels) and a seeded
+    16-channel state on the sorted rows, their subm plan and the strided
+    plans of conv2_down and of a z-only (3,1,1) conv, all at window 384.
+    Also returns the sorted coords."""
     vfe = (batch["voxels"].sum(-2) / batch["num_points"].clamp(min=1)[..., None])[0]
     feats5, coords, lin = WC.sort_rows(vfe, batch["coordinates"][0], grid)
     subm = WC.make_subm_plan_presorted(lin, coords, grid, window=384)
@@ -50,7 +52,7 @@ def window_cases(batch, grid, gen):
     cases = [
         ("conv_input 5->16", subm, feats5, 5, 16, (3, 3, 3), 1, (1, 1, 1), (1, 1, 1)),
         ("conv1 16->16", subm, feats16, 16, 16, (3, 3, 3), 4, (1, 1, 1), (1, 1, 1)),
-        ("conv2_down 16->32", strided((2, 2, 2), (1, 1, 1), (3, 3, 3), 320000),
+        ("conv2_down 16->32", strided((2, 2, 2), (1, 1, 1), (3, 3, 3), down_budget),
          feats16, 16, 32, (3, 3, 3), 1, (2, 2, 2), (1, 1, 1)),
         ("z-only (3,1,1) 16->16", strided((2, 1, 1), (0, 0, 0), (3, 1, 1), 300000),
          feats16, 16, 16, (3, 1, 1), 0, (2, 1, 1), (0, 0, 0)),

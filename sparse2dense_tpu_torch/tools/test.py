@@ -5,7 +5,8 @@ the shape of the reference's tools/dist_test.py, docs/WAYMO.md:103-121).
         [--work_dir D] [--batch_size B] [--max_voxels V] [--speed_test]
         [--testset] [--device cuda|cpu] [--launcher none|pytorch]
 
-Builds ``cfg.S_model`` (seeded weights, then the student of ``--checkpoint``,
+Builds ``cfg.S_model`` (``cfg.model`` for a recipe without one, such as
+the nuScenes recipes; seeded weights, then the model of ``--checkpoint``,
 a checkpoint of the port's ``tools/train.py``, through ``merge_params``),
 the ``cfg.data.val`` loader (``cfg.data.test`` with ``--testset``) at the
 voxel generator's test budget, predicts every frame
@@ -63,11 +64,11 @@ def main(argv: Optional[Sequence[str]] = None):
     from ..models import build_detector
     from ..training.checkpoint import load_checkpoint, merge_params
     from ..training.trainer import gather_detections, predict
-    from ..utils.config import ConfigDict
+    from ..utils.config import ConfigDict, detector_cfg
 
     device = rank_device(args.device)
     cfg = ConfigDict.fromfile(args.config)
-    model = build_detector(cfg.S_model, test_cfg=cfg.test_cfg,
+    model = build_detector(detector_cfg(cfg), test_cfg=cfg.test_cfg,
                            voxel_generator=cfg.get("voxel_generator"), device=device,
                            generator=torch.Generator().manual_seed(0))
     if args.checkpoint:

@@ -13,7 +13,8 @@ The reference's semantics: with ``cfg.distillation`` the teacher is built
 from ``cfg.model`` (its weights from ``--load_from`` or ``cfg.load_from``,
 through ``merge_params``) and the student from ``cfg.S_model``, and training
 runs the teacher-student step (``TS_Trainer``); otherwise a plain detector
-trains from ``cfg.S_model``. The batch is ``cfg.data.samples_per_gpu``
+trains from ``cfg.S_model`` (``cfg.model`` for a recipe without one, such as
+the nuScenes recipes). The batch is ``cfg.data.samples_per_gpu``
 unless ``--batch_size`` is given: a process's batch, the JAX CLI's
 per-device batch; the one-cycle schedule covers the epoch's steps (of one
 process's shard) times the epochs. The frames come from ``cfg.data.train``
@@ -111,7 +112,7 @@ def main(argv: Optional[Sequence[str]] = None):
     from ..training.checkpoint import load_checkpoint, merge_params
     from ..training.hooks import build_hooks
     from ..training.trainer import TS_Trainer, Trainer
-    from ..utils.config import ConfigDict
+    from ..utils.config import ConfigDict, detector_cfg
 
     device = rank_device(args.device)
     cfg = ConfigDict.fromfile(args.config)
@@ -136,7 +137,7 @@ def main(argv: Optional[Sequence[str]] = None):
     epoch_len = len(train_loader)
     kw = dict(test_cfg=cfg.test_cfg, voxel_generator=cfg.get("voxel_generator"),
               device=device)
-    student = build_detector(cfg.S_model, generator=torch.Generator().manual_seed(args.seed),
+    student = build_detector(detector_cfg(cfg), generator=torch.Generator().manual_seed(args.seed),
                              **kw)
     broadcast_state(student)
     optimizer = OneCycleAdam(student.parameters(), cfg.optimizer, cfg.lr_config,

@@ -2,9 +2,13 @@
 voxelized and padded to a static budget, with the head's targets and the
 distillation streams of a training batch. A copy of the reference's
 ``sparse2dense_tpu/training/synthetic.py`` (CenterHead and MultiGroupHead
-targets); for the same seed it yields bit-identical arrays. Beside it,
-``synth_voxels``: a voxel scene with no point cloud, for the
-microbenchmarks."""
+targets); for the same seed it yields bit-identical arrays. A nuScenes
+config's frame (a CenterHead of ``dataset="nuscenes"``) goes further than
+the reference's: its boxes move (non-zero velocities, drawn after the
+reference's draws) and its points' last feature is a sweep's time lag;
+under the test config's ``double_flip`` a frame without targets is 4 views
+in the loader's layout. Beside it, ``synth_voxels``: a voxel scene with no
+point cloud, for the microbenchmarks."""
 from __future__ import annotations
 
 from typing import Optional
@@ -14,8 +18,10 @@ import torch
 
 from ..data.pipelines.assign_label import AssignLabel
 from ..data.pipelines.assign_target import AssignTarget
+from ..data.pipelines.preprocess import flip_views
 from ..device import resolve_device
 from ..ops.voxelize import VoxelGenerator
+from ..utils.config import detector_cfg
 
 
 def pad_to(a: np.ndarray, n: int, fill=0):
@@ -82,7 +88,9 @@ def make_points(rng: np.random.RandomState, n_points: int, pc_range,
 
 
 def make_gt(rng: np.random.RandomState, n_obj: int, pc_range,
-            class_names=("VEHICLE", "PEDESTRIAN", "CYCLIST")):
+            class_names=("VEHICLE", "PEDESTRIAN", "CYCLIST"), moving: bool = False):
+    """(boxes (n, 9) x y z w l h vx vy yaw, 1-based classes, names); the
+    velocities are 0 unless ``moving``."""
     lo = np.asarray(pc_range[:3]) * 0.6
     hi = np.asarray(pc_range[3:]) * 0.6
     centers = rng.uniform(lo, hi, size=(n_obj, 3)).astype(np.float32)
@@ -92,7 +100,79 @@ def make_gt(rng: np.random.RandomState, n_obj: int, pc_range,
     boxes = np.concatenate([centers, dims, vel, rot], axis=1)  # 9-dof layout
     classes = rng.randint(1, len(class_names) + 1, size=n_obj)
     names = np.asarray(list(class_names))[classes - 1]
+    if moving:
+        boxes[:, 6:8] = rng.uniform(-4, 4, size=(n_obj, 2))
     return boxes, classes, names
+
+
+NUSC_SWEEPS, NUSC_SWEEP_S = 10, 0.05   # a nuScenes frame's sweeps, 20 Hz apart
+
+
+def add_time_lags(rng: np.random.RandomState, pts: np.ndarray) -> np.ndarray:
+    """``pts`` with its last feature a time lag: each point from one of the
+    frame's ``NUSC_SWEEPS`` sweeps, ``NUSC_SWEEP_S`` s apart."""
+    pts[:, -1] = rng.randint(0, NUSC_SWEEPS, len(pts)) * np.float32(NUSC_SWEEP_S)
+    return pts
+
+
+NUSC_CLASSES = ("car", "truck", "construction_vehicle", "bus", "trailer", "barrier",
+                "motorcycle", "bicycle", "pedestrian", "traffic_cone")
+
+
+def write_nusc_records(root: str, n_samples: int, n_points: int,
+                       sweep_points: Optional[int] = None, n_obj: int = 8,
+                       pc_range=(-54, -54, -5.0, 54, 54, 3.0)) -> str:
+    """nuScenes-layout records of ``n_samples`` synthetic scenes under
+    ``root``: ``samples/<s>.bin`` and ``sweeps/<s>_<k>.bin``, float32 rows of
+    (x, y, z, intensity, ring), and ``infos.pkl``, the list of infos
+    (``lidar_path``, ``sweeps``: ``lidar_path``, ``transform_matrix`` (4x4,
+    the sweep's sensor pose in the key frame) and ``time_lag``, ``gt_boxes``
+    (N, 9) x y z w l h vx vy yaw, one with NaN velocities as the devkit
+    writes for a box without them, ``gt_names``, ``gt_boxes_velocity`` (N,
+    3), ``token``), seeded by the sample's index. A scene is a cloud of 2 *
+    ``n_points``; the key frame sees ``n_points`` of them and the k-th of
+    ``NUSC_SWEEPS`` sweeps ``sweep_points`` (``n_points`` by default), with
+    2 cm of range noise, from a sensor ``k * NUSC_SWEEP_S`` s earlier, the ego
+    moving ~10 m/s along x. So the sweeps return from the same surfaces, as
+    a lidar's do, and share voxels. Returns the infos' path."""
+    import os
+    import pickle
+
+    os.makedirs(os.path.join(root, "samples"), exist_ok=True)
+    os.makedirs(os.path.join(root, "sweeps"), exist_ok=True)
+    sweep_points = sweep_points or n_points
+    pc_range = np.asarray(pc_range, np.float32)
+    infos = []
+    for s in range(n_samples):
+        rng = np.random.RandomState(s)
+        boxes, _, names = make_gt(rng, n_obj, pc_range, NUSC_CLASSES, moving=True)
+        scene = make_points(rng, 2 * n_points, pc_range, boxes, 5)
+        lidar_path = os.path.join(root, "samples", f"{s}.bin")
+        key = scene[rng.choice(len(scene), n_points, replace=False)]
+        key.astype(np.float32).tofile(lidar_path)
+        sweeps = []
+        for k in range(1, NUSC_SWEEPS + 1):
+            dt = k * NUSC_SWEEP_S
+            yaw = rng.uniform(-0.01, 0.01) * k
+            pose = np.eye(4)
+            pose[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+            pose[:3, 3] = [-10.0 * dt, rng.normal(0, 0.05), 0.0]
+            pts = scene[rng.choice(len(scene), sweep_points, replace=False)].astype(np.float64)
+            pts[:, :3] += rng.normal(0, 0.02, (sweep_points, 3))
+            pts[:, :3] = (pts[:, :3] - pose[:3, 3]) @ pose[:3, :3]   # in the sweep's frame
+            path = os.path.join(root, "sweeps", f"{s}_{k}.bin")
+            pts.astype(np.float32).tofile(path)
+            sweeps.append(dict(lidar_path=path, transform_matrix=pose, time_lag=dt))
+        gt = boxes.copy()
+        gt[0, 6:8] = np.nan
+        infos.append(dict(lidar_path=lidar_path, sweeps=sweeps, gt_boxes=gt, gt_names=names,
+                          gt_boxes_velocity=np.concatenate(
+                              [gt[:, 6:8], np.zeros((len(gt), 1), np.float32)], 1),
+                          token=f"sample_{s}"))
+    path = os.path.join(root, "infos.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(infos, f)
+    return path
 
 
 def synth_voxels(v: int, seed: int = 0):
@@ -143,13 +223,16 @@ def make_batch(cfg, batch_size: int, max_voxels: int, seed: int = 0,
     in inference too). With ``distillation``, also the streams the reference's Voxelization stage
     makes when ``cfg.distillation`` is set: "dense_*" (the same cloud with
     extra in-box points) and "reconstruction_*{,_2,_4}" (the cloud
-    voxelized at 1x, 2x and 4x the voxel size)."""
+    voxelized at 1x, 2x and 4x the voxel size). A nuScenes config's frames
+    have moving boxes and time lags; with its test config's ``double_flip``
+    and no targets, the batch holds 4 * ``batch_size`` rows, each frame's
+    views [orig, yflip, xflip, double] in a row."""
     device = resolve_device(device)
     vg_cfg = cfg["voxel_generator"]
     pc_range = np.asarray(vg_cfg["range"], np.float32)
     gen = VoxelGenerator(vg_cfg["voxel_size"], pc_range,
                          vg_cfg["max_points_in_voxel"], max_voxels)
-    model_cfg = cfg["S_model"]
+    model_cfg = detector_cfg(cfg)
     if "first_stage_cfg" in model_cfg:   # a TwoStageDetector wraps the detector
         model_cfg = model_cfg["first_stage_cfg"]
     n_feats = model_cfg["reader"].get("num_input_features", 5)
@@ -163,6 +246,9 @@ def make_batch(cfg, batch_size: int, max_voxels: int, seed: int = 0,
                                                     max_voxels))
             for tag, mult in (("", 1), ("_2", 2), ("_4", 4))]
     head_type = model_cfg["bbox_head"]["type"]
+    nusc = model_cfg["bbox_head"].get("dataset") == "nuscenes"
+    double_flip = nusc and not with_targets and bool(
+        (cfg.get("test_cfg") or {}).get("double_flip", False))
     if with_targets and head_type not in ("CenterHead", "MultiGroupHead"):
         raise NotImplementedError(f"targets of {head_type} come with its model family, a "
                                   "later slice")
@@ -175,15 +261,20 @@ def make_batch(cfg, batch_size: int, max_voxels: int, seed: int = 0,
     targets = []
     for i in range(batch_size):
         rng = np.random.RandomState(seed + i)
-        gt_boxes, gt_classes, gt_names = make_gt(rng, n_obj, pc_range, names)
+        gt_boxes, gt_classes, gt_names = make_gt(rng, n_obj, pc_range, names, moving=nusc)
         pts = make_points(rng, n_points, pc_range, gt_boxes, n_feats)
+        if nusc:
+            pts = add_time_lags(rng, pts)
         dense_pts = (np.concatenate([pts, make_points(rng, n_points // 2, pc_range, gt_boxes,
                                                       n_feats)], axis=0)
                      if distillation else None)
         for pre, suf, g in streams:
-            v, c, n = g.generate(dense_pts if pre == "dense_" else pts)
-            for lst, a, fill in zip(arrays[pre, suf], (v, c, n), (0, -1, 0)):
-                lst.append(pad_to(a, max_voxels, fill=fill))
+            clouds = [dense_pts] if pre == "dense_" else flip_views(pts) if double_flip \
+                else [pts]
+            for cloud in clouds:
+                v, c, n = g.generate(cloud)
+                for lst, a, fill in zip(arrays[pre, suf], (v, c, n), (0, -1, 0)):
+                    lst.append(pad_to(a, max_voxels, fill=fill))
         if with_targets or anchor_head:
             res = {"mode": "train" if with_targets else "val", "type": "WaymoDataset",
                    "lidar": {"voxels": {"shape": gen.grid_size, "range": pc_range,

@@ -141,11 +141,16 @@ def predict(model, data_loader, times: Optional[list] = None) -> Dict[str, dict]
     """The eval-mode ``model``'s detections over ``data_loader``: token ->
     {"box3d_lidar", "scores", "label_preds"} (NumPy, the valid ones); a
     frame without metadata is keyed ``frame_p{rank}_{n}`` (the reference's
-    key, unique over the processes). With ``times``,
-    each batch's forward and predict seconds (synchronized) are appended."""
+    key, unique over the processes). Under double flip (the model's test
+    config) a batch of B frames holds 4B views and the merged output B
+    rows: row b is keyed by its group's first view, ``metadata[4 * b]`` (the
+    reference keys it by ``metadata[b]``, a view of frame b // 4: at B <= 4
+    every row takes frame 0's token and overwrites it). With ``times``, each
+    batch's forward and predict seconds (synchronized) are appended."""
     was_training = model.training
     model.eval()
     detections, proc = {}, rank()
+    views = 4 if (getattr(model, "test_cfg", None) or {}).get("double_flip", False) else 1
     try:
         for batch in data_loader:
             meta = batch.get("metadata") or []
@@ -158,8 +163,8 @@ def predict(model, data_loader, times: Optional[list] = None) -> Dict[str, dict]
                 times.append(time.perf_counter() - t0)
             for b in range(boxes.shape[0]):
                 m = valid[b]
-                token = (meta[b]["token"] if b < len(meta) and meta[b]
-                         else f"frame_p{proc}_{len(detections)}")
+                m_b = meta[views * b] if views * b < len(meta) else None
+                token = m_b["token"] if m_b else f"frame_p{proc}_{len(detections)}"
                 detections[token] = {"box3d_lidar": boxes[b][m], "scores": scores[b][m],
                                      "label_preds": labels[b][m]}
     finally:

@@ -115,6 +115,24 @@ PP = os.path.join(CONFIGS, "waymo_centerpoint_pp_two_pfn_stride1_3x_distill_inte
 TWO_STAGE = os.path.join(CONFIGS, "waymo_centerpoint_voxelnet_two_stage_distill_interval_5.py")
 PP_TWO_STAGE = os.path.join(
     CONFIGS, "waymo_centerpoint_pp_two_pfn_stride1_two_stage_bev_distill_interval_5.py")
+# the nuScenes recipes (one detector each, under ``model``): CenterPoint-VoxelNet
+# at 0.1 m, at 0.075 m with translation noise, with DCN heads (the one that
+# trains) and with DCN heads and double-flip test-time augmentation (the one
+# that serves); CenterPoint-Pillar with rotated NMS, with circle NMS, and on
+# the demo's records
+NUSC_VOXELNET = {v: os.path.join(CONFIGS, f"nusc_centerpoint_voxelnet_{v}.py")
+                 for v in ("01voxel", "0075voxel_fix_bn_z", "0075voxel_dcn",
+                           "0075voxel_dcn_flip")}
+NUSC_PP = {v: os.path.join(CONFIGS, "nusc_centerpoint_pp_02voxel_two_pfn_10sweep"
+                           + ("" if v == "base" else f"_{v}") + ".py")
+           for v in ("base", "circular_nms", "demo")}
+
+
+def detector_cfg(cfg):
+    """The model config a recipe trains and serves: ``S_model`` (a plain
+    detector, or the student of a distillation), else ``model`` (the
+    nuScenes recipes name their one detector so)."""
+    return cfg["S_model"] if "S_model" in cfg else cfg["model"]
 
 
 # plane-engine budgets for the 150k-voxel synthetic frame of the chip runs
@@ -161,7 +179,8 @@ def frame_voxels(cfg, train: bool) -> int:
     reference bench's cloud) for ``cfg``: 150,000 voxels on the voxel
     models' grids, as the reference bench; the recipe's own
     ``max_voxel_num`` (train, test) for the pillar models."""
-    model = cfg["S_model"].get("first_stage_cfg", cfg["S_model"])   # a two-stage detector's
+    model = detector_cfg(cfg)
+    model = model.get("first_stage_cfg", model)   # a two-stage detector's
     if model["reader"]["type"] != "PillarFeatureNet":
         return 150000
     budget = cfg["voxel_generator"]["max_voxel_num"]

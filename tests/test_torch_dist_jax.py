@@ -55,8 +55,8 @@ def run(tmp_path_factory):
                batch=make_batch(tcfg, 2, device="cpu", with_targets=True, **FRAME),
                state={"student": from_flax(variables, student)})
     torch.save(job, tmp / "job.pt")
-    spawn(steps_worker, 2, (str(tmp / "job.pt"), str(tmp)), threads=1, timeout=300)
-    ranks = [torch.load(tmp / f"steps_rank{r}.pt", weights_only=False) for r in range(2)]
+    spawn(steps_worker, 2, ([str(tmp / "job.pt")], str(tmp)), threads=1, timeout=300)
+    ranks = [torch.load(tmp / f"steps_rank{r}_0.pt", weights_only=False) for r in range(2)]
     grads = jax.tree_util.tree_map(lambda a, b: np.asarray(a) - np.asarray(b),
                                    variables["params"], after.params)
     return dict(

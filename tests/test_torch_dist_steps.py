@@ -28,27 +28,37 @@ JOBS = {
 }
 
 
-def run_job(kind, tmp):
-    config, frame = JOBS[kind]
-    cfg = ConfigDict.fromfile(config)
-    batch = make_batch(cfg, 2, device="cpu", with_targets=True, distillation=kind == "ts",
-                       **frame)
-    job = dict(config=config, kind=kind, batch=batch, per_rank=1, steps=2,
-               device="cpu", dtype="float64")
-    torch.save(job, tmp / "job.pt")
-    spawn(steps_worker, 2, (str(tmp / "job.pt"), str(tmp)), threads=1, timeout=300)
-    ranks = [torch.load(tmp / f"steps_rank{r}.pt", weights_only=False) for r in range(2)]
-    return ranks, one_process_steps(job, "cpu")["rows"]
+def run_jobs(tmp):
+    """Both jobs at two ranks (one spawn, one process group) and in this
+    process: {kind: (the ranks' runs, the one process's rows)}."""
+    jobs, paths = {}, []
+    for kind, (config, frame) in JOBS.items():
+        cfg = ConfigDict.fromfile(config)
+        batch = make_batch(cfg, 2, device="cpu", with_targets=True, distillation=kind == "ts",
+                           **frame)
+        jobs[kind] = dict(config=config, kind=kind, batch=batch, per_rank=1, steps=2,
+                          device="cpu", dtype="float64")
+        paths.append(str(tmp / f"job_{kind}.pt"))
+        torch.save(jobs[kind], paths[-1])
+    spawn(steps_worker, 2, (paths, str(tmp)), threads=1, timeout=300)
+    return {kind: ([torch.load(tmp / f"steps_rank{r}_{i}.pt", weights_only=False)
+                    for r in range(2)], one_process_steps(job, "cpu")["rows"])
+            for i, (kind, job) in enumerate(jobs.items())}
 
 
 @pytest.fixture(scope="module")
-def plain(tmp_path_factory):
-    return run_job("plain", tmp_path_factory.mktemp("dp_plain"))
+def runs(tmp_path_factory):
+    return run_jobs(tmp_path_factory.mktemp("dp_steps"))
 
 
 @pytest.fixture(scope="module")
-def ts(tmp_path_factory):
-    return run_job("ts", tmp_path_factory.mktemp("dp_ts"))
+def plain(runs):
+    return runs["plain"]
+
+
+@pytest.fixture(scope="module")
+def ts(runs):
+    return runs["ts"]
 
 
 def check_metrics_and_gradients(ranks, want):

@@ -10,7 +10,9 @@ backbones on the engine's defaults, as JAX's own training tests run it
 
 The backbone gets seeded random voxel features and the coordinates of a
 synthetic frame; both packages the same Flax tree (``from_flax``). JAX runs
-op by op here (no jit: its gather convs compile slower than they run).
+op by op here (no jit: its gather convs compile slower than they run), the
+three ``dense_from_stage`` values' references in one process once a test
+session (``jax_refs``: the three share most of their ops' compiles).
 Tolerances: the BEV map within 1e-4 of its largest value (float32 sums in
 other orders), BN running statistics 1e-5; the step as
 ``tests/test_torch_distill.py``."""
@@ -28,9 +30,10 @@ from sparse2dense_tpu_torch.models.backbones.scn import (SparseBasicBlock, Spars
                                                          SpMiddleResNetFHD, SubMStage)
 
 from tests.test_torch_distill import _compare_stats, ts_and_teacher_steps
-from tests.test_torch_layers import flax_shapes, rand_variables
+from tests.test_torch_layers import flax_shapes, rand_variables, session_shared, to_numpy
 
 GRID = (25, 32, 32)
+DFS = (0, 2, 99)   # this file's, ``_dfs2.py``'s and ``_dfs99.py``'s
 
 
 @pytest.fixture(scope="module")
@@ -57,6 +60,28 @@ def make_backbone(dfs):
     return dfs, jmod, variables, tmod
 
 
+def _jax_backbone_refs(frame):
+    """JAX's BEV maps of the backbone at each of ``DFS``: in eval mode, and
+    in train mode with its BN running statistics."""
+    feats, coords = (jnp.asarray(a) for a in frame)
+    refs = {}
+    for dfs in DFS:
+        _, jmod, variables, _ = make_backbone(dfs)
+        bev, _ = jmod.apply(variables, feats, coords, train=False)
+        (train_bev, _), mutated = jmod.apply(variables, feats, coords, train=True,
+                                             mutable=["batch_stats"])
+        refs[dfs] = dict(eval=np.asarray(bev), train=np.asarray(train_bev),
+                         stats=to_numpy(mutated["batch_stats"]))
+    return refs
+
+
+@pytest.fixture(scope="module")
+def jax_refs(frame, tmp_path_factory):
+    """``_jax_backbone_refs``, once a test session."""
+    return session_shared(tmp_path_factory, "gather_backbones",
+                          lambda: _jax_backbone_refs(frame))
+
+
 def test_gather_modules_by_stage(backbone):
     """The stages before ``dense_from_stage`` are the gather engine's."""
     dfs, _, _, tmod = backbone
@@ -68,14 +93,11 @@ def test_gather_modules_by_stage(backbone):
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
-def test_gather_backbone_against_jax(backbone, frame, train):
+def test_gather_backbone_against_jax(backbone, frame, jax_refs, train):
     dfs, jmod, variables, tmod = backbone
     feats, coords = frame
-    if train:
-        (jbev, _), mutated = jmod.apply(variables, jnp.asarray(feats), jnp.asarray(coords),
-                                        train=True, mutable=["batch_stats"])
-    else:
-        jbev, _ = jmod.apply(variables, jnp.asarray(feats), jnp.asarray(coords), train=False)
+    ref = jax_refs[dfs]
+    jbev = ref["train" if train else "eval"]
     tmod.load_state_dict(from_flax(variables, tmod))
     tmod.train(train)
     with torch.set_grad_enabled(train):
@@ -88,7 +110,7 @@ def test_gather_backbone_against_jax(backbone, frame, train):
     assert np.abs(want).max() > 0
     if train:
         _compare_stats({k: v for k, v in tmod.state_dict().items() if "running" in k},
-                       from_flax({"batch_stats": mutated["batch_stats"]}, tmod))
+                       from_flax({"batch_stats": ref["stats"]}, tmod))
         bev.square().sum().backward()   # plain autograd through gather_conv
         assert tmod.conv_input.conv_0_weight.grad.abs().max() > 0
 

@@ -5,7 +5,8 @@ JAX in eval and in train mode."""
 import pytest
 
 from tests.test_torch_gather_engine import (  # noqa: F401 (fixtures and tests)
-    frame, make_backbone, test_gather_backbone_against_jax, test_gather_modules_by_stage)
+    frame, jax_refs, make_backbone, test_gather_backbone_against_jax,
+    test_gather_modules_by_stage)
 
 
 @pytest.fixture(scope="module", params=[2], ids=lambda d: f"dfs{d}")

@@ -35,7 +35,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "data.datasets.waymo_common", "data.datasets.wrappers", "tools.test",
                  "parallel.dist", "parallel.launch", "tools.dryrun", "ops.iou3d",
                  "models.second_stage.bev", "models.roi_heads.roi_head",
-                 "models.detectors.two_stage", "tools.convert_checkpoint"):
+                 "models.detectors.two_stage", "tools.convert_checkpoint", "models.dcn",
+                 "ops.dynamic_voxelize", "data.datasets.nuscenes", "data.datasets.nusc_eval"):
         assert f"sparse2dense_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"

@@ -1,8 +1,8 @@
 """The CLIs on records (moved from ``tests/test_torch_val.py``, whose records
 and ``trained`` fixture they use): ``tools/train.py`` on the tiny distillation
 config's data block (window engine) for an epoch, ``tools/test.py`` on its
-checkpoint, and what the port leaves to later slices raises and names its
-ROADMAP item."""
+checkpoint, and the stages of later slices: what the port leaves to them
+raises and names itself, what they ported builds."""
 import os
 
 import numpy as np
@@ -62,13 +62,19 @@ def test_later_slices_raise_and_name_their_item(trained, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
                                            "MASTER_PORT not set"):
         test_cli.main([cfg, "--device", "cpu", "--launcher", "pytorch"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_pipeline([dict(type="DoubleFlip")])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Reformat(double_flip=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Voxelization(cfg=dict(ConfigDict.fromfile(cfg).voxel_generator, double_flip=True))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        LoadPointCloudFromFile(dataset="NuScenesDataset")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tloader.build_dataset(dict(type="NuScenesDataset", pipeline=[]))
+    # the nuScenes stages are ported (the nuScenes families' slice): they
+    # build; a dataset the port does not know raises and names itself
+    stages = build_pipeline([dict(type="DoubleFlip"), dict(type="Reformat", double_flip=True)])
+    assert [type(t).__name__ for t in stages.transforms] == ["DoubleFlip", "Reformat"]
+    assert Reformat(double_flip=True).double_flip
+    assert Voxelization(cfg=dict(ConfigDict.fromfile(cfg).voxel_generator,
+                                 double_flip=True)).double_flip
+    assert LoadPointCloudFromFile(dataset="NuScenesDataset").type == "NuScenesDataset"
+    nusc = tloader.build_dataset(dict(type="NuScenesDataset", pipeline=[],
+                                      info_path=str(tmp_path / "infos.pkl"),
+                                      root_path=str(tmp_path)))
+    assert type(nusc).__name__ == "NuScenesDataset"
+    with pytest.raises(NotImplementedError, match="KittiDataset"):
+        LoadPointCloudFromFile(dataset="KittiDataset")
+    with pytest.raises(NotImplementedError, match="KittiDataset"):
+        tloader.build_dataset(dict(type="KittiDataset", pipeline=[]))
