@@ -25,7 +25,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      32->32 on the 320,000 conv2_down output rows, the strided conv3_down
      32->64) the same way as the frame's, and Cin 32 -> Cout 64 on the
      edge cases above (GATE groups, clipped windows, all-padding blocks,
-     z-only);
+     z-only); the plans ``dense_from_stage`` 3 and 99 add
+     (``_window_deep_cases``: the conv3 blocks' subm plan 64->64, the
+     strided conv4_down 64->128, the conv4 blocks' subm plan 128->128 and
+     the z-only extra_conv 128->128, and SECOND's z-only extra_conv 64->64,
+     at ``DFS99_FRAME_SETTINGS``), the streamed widths on the edge cases
+     (one window buffer and two), and the window backward a step at
+     ``dense_from_stage`` 3 and 99;
    - the plane subm conv on the plane states, masks and plans of conv2
      (32), conv3 (64) and conv4 (128) of the same frame on the plane
      engine, in bfloat16 within one bf16 rounding step,
@@ -137,8 +143,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    at the recipe's 4 (1 + 2): 9 window passes a sample, every loss finite,
    ``grad_norm`` > 0, a gradient on subm0's and down1's weights, medians by
    stage and peaks (at batch 4 a step that runs out of memory is reported
-   with its stages' peaks); and the CLI chain of phase 8 for SECOND's two
-   configs (dense teacher at batch 1, distillation at 4);
+   with its stages' peaks); the student at ``dense_from_stage`` 3 and 99
+   (the flagship's frame settings; 1 + 3 frames each, 10 and 14 window
+   passes a frame, every counter and stage within its budget); and the CLI
+   chain of phase 8 for SECOND's two configs (dense teacher at batch 1,
+   distillation at 4);
 10. engines: the flagship's training past the shipped engine, teacher and
    student alike: the window engine at ``dense_from_stage=2`` (plan windows
    ``utils.config.DFS2_FRAME_SETTINGS``: plan windows, residual and stage
@@ -153,6 +162,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    plane-conv launches a step (dense_from_stage 2: 33 B1 a sample; plane:
    18 B1 a sample and 36 B2 a step), every loss finite, a gradient on the
    engine's convs, every backbone run's counters within their budgets;
+   then the window engine at ``dense_from_stage`` 3 and 99
+   (``DFS3_FRAME_SETTINGS``, ``DFS99_FRAME_SETTINGS``; 16 and 21 window
+   passes a frame, 48 and 63 a step at batch 1): the frame, every
+   residual and stage counter within its budget (else the phase fails),
+   the train-mode BEV against the shipped engine (judged), the step at
+   batch 1 with a gradient on every window conv past conv2_down;
    then the tile engine (``tile_backend="pallas"``, which trains as "xla"
    does) at ``TILE_FRAME_BUDGETS`` the same way (its frame is phase 6's),
    at ``dense_from_stage`` 2 (batch 1 and 3; 27 B3 launches a step: the
@@ -283,6 +298,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOPS = 989e12         # dense bf16 tensor-core peak
@@ -292,7 +308,8 @@ BF16_FLOOR = 1e-3              # times max|p|: outputs near zero
 # launches a frame of (window_pass, plane_subm, tile_subm) per engine; the
 # window engine at dense_from_stage 2 adds the conv2 blocks' 4 and conv3_down
 EXPECTED_LAUNCHES = {"window": (6, 0, 0), "plane": (6, 12, 0), "tile": (0, 0, 9),
-                     "window_dfs2": (11, 0, 0)}
+                     "window_dfs2": (11, 0, 0), "window_dfs3": (16, 0, 0),
+                     "window_dfs99": (21, 0, 0)}
 WARMUP_FRAMES, TIMED_FRAMES = 3, 8   # a frame's time still falls over its first ~3
 # the window engine at dense_from_stage 2, teacher and student alike, at
 # ``profile_train_step.engine_settings("window", 2)``: plan windows, residual
@@ -300,6 +317,13 @@ WARMUP_FRAMES, TIMED_FRAMES = 3, 8   # a frame's time still falls over its first
 # its window passes a frame by case of the kernel phase
 DFS2_WINDOW_LAUNCHES = {"conv_input 5->16": 1, "conv1 16->16": 4, "conv2_down 16->32": 1,
                         "conv2 32->32": 4, "conv3_down 32->64": 1}
+# dense_from_stage 3 adds the conv3 blocks and conv4_down, 99 the conv4 blocks
+# and the z-only extra_conv (``utils.config.DFS3_FRAME_SETTINGS``,
+# ``DFS99_FRAME_SETTINGS``)
+DFS3_WINDOW_LAUNCHES = dict(DFS2_WINDOW_LAUNCHES, **{"conv3 64->64": 4,
+                                                     "conv4_down 64->128": 1})
+DFS99_WINDOW_LAUNCHES = dict(DFS3_WINDOW_LAUNCHES, **{"conv4 128->128": 4,
+                                                      "extra_conv (3,1,1) 128->128": 1})
 
 
 @contextlib.contextmanager
@@ -414,8 +438,9 @@ def _window_case_row(name, plan, f, cin, cout, ksize, per_frame, stride, pad, co
     plain_ms = cuda_ms(lambda: WC.window_pass_plain(fb.float(), plan, wd.float()),
                        reps=3, warmup=1)
     v_in, vo, nb = plan.lin.shape[0], plan.out_lin.shape[0], plan.ws.shape[0]
+    n_taps = ksize[0] * ksize[1] * ksize[2]   # the live taps' weights: 3 on a z-only plan
     nbytes = (v_in * cin * 2 + v_in * 4 + nb * 128 * 3 * 4 + nb * 3 * 4 + 9 * 3 * 4
-              + 27 * cin * cout * 2 + vo * cout * 4)
+              + n_taps * cin * cout * 2 + vo * cout * 4)
     hits = _hits(plan, ksize)
     flops = 2.0 * hits * cin * cout
     bound_ms, bound_by = bound(nbytes, flops)
@@ -427,7 +452,9 @@ def _window_case_row(name, plan, f, cin, cout, ksize, per_frame, stride, pad, co
                n_resid=int(plan.n_resid), hits=hits, max_abs_err=float(err.max()),
                n_bad=bad, ms=ms, cold_ms=cold_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bytes=nbytes, flops=flops, bound_by=bound_by, library_ms=library_ms,
-               per_frame=per_frame, per_frame_dfs2=DFS2_WINDOW_LAUNCHES.get(name, 0))
+               per_frame=per_frame, per_frame_dfs2=DFS2_WINDOW_LAUNCHES.get(name, 0),
+               per_frame_dfs3=DFS3_WINDOW_LAUNCHES.get(name, 0),
+               per_frame_dfs99=DFS99_WINDOW_LAUNCHES.get(name, 0))
     print("[kernels] " + json.dumps(row), flush=True)
     if bad:
         raise AssertionError(f"{name}: {bad} outputs beyond {TOL_ABS} + {TOL_REL}*|p|")
@@ -446,11 +473,12 @@ def _window_rows(batch, grid, gen):
     cases, feats5, feats16, coords, lin = window_cases(batch, grid, gen)
     rows = [_window_case_row(*case, coords, grid, gen) for case in cases]
     torch.cuda.empty_cache()
-    rows += [_window_case_row(*case, gen) for case in _window_dfs2_cases(coords, lin, grid,
-                                                                         gen)]
+    deep = _window_dfs2_cases(coords, lin, grid, gen) + _window_deep_cases(coords, grid, gen)
+    rows += [_window_case_row(*case, gen) for case in deep]
     torch.cuda.empty_cache()
     rows += _window_edge_rows(feats5, feats16, coords, lin, grid, gen)
-    return rows + _window_backward_rows(cases, feats16, coords, lin, grid, gen)
+    rows += _window_backward_rows(cases, feats16, coords, lin, grid, gen)
+    return rows + _window_deep_backward_rows(deep, rows[-1]["window_backward_ms"], gen)
 
 
 def _window_dfs2_cases(coords, lin, grid, gen):
@@ -480,6 +508,50 @@ def _window_dfs2_cases(coords, lin, grid, gen):
     return [("conv2 32->32", subm, f32, 32, 32, (3, 3, 3), 0, (1, 1, 1), (1, 1, 1), c2, g2),
             ("conv3_down 32->64", strided, f32, 32, 64, (3, 3, 3), 0, (2, 2, 2), (1, 1, 1),
              c2, g2)]
+
+
+def _window_deep_cases(coords, grid, gen):
+    """The window plans ``dense_from_stage`` 3 and 99 add on the flagship
+    frame, at the windows, stage and residual budgets of
+    ``DFS99_FRAME_SETTINGS`` (the same dict as ``DFS3_FRAME_SETTINGS``): the conv3 blocks' subm plan 64->64 and the strided
+    conv4_down 64->128 on a seeded 64-channel state of the conv3_down output
+    rows; the conv4 blocks' subm plan 128->128 and the z-only extra_conv
+    (3,1,1) 128->128 on a seeded 128-channel state of the conv4_down output
+    rows; and SECOND's z-only extra_conv at 64->64 on the same plan. Cases
+    as ``_window_case_row`` takes them."""
+    import torch
+
+    from sparse2dense_tpu_torch.ops import window_conv as WC
+    from sparse2dense_tpu_torch.ops.sparse_conv import conv_out_grid
+    from sparse2dense_tpu_torch.utils.config import DFS99_FRAME_SETTINGS as DFS99
+
+    wins, budgets, resid = DFS99["win_window"], DFS99["stage_budgets"], DFS99["win_resid_budget"]
+    down = ((2, 2, 2), (1, 1, 1), (3, 3, 3))
+    down4 = ((2, 2, 2), (0, 1, 1), (3, 3, 3))
+    zonly = ((2, 1, 1), (0, 0, 0), (3, 1, 1))
+    chain, c, g = [], coords, grid
+    for k, conv in enumerate((down, down, down4, zonly)):
+        g_out = conv_out_grid(g, *conv)
+        oc, ol = WC.downsample_active_set_yxz(c, c[:, 0] >= 0, g, g_out, *conv, budgets[k])
+        chain.append((c, g, oc, ol, g_out))
+        c, g = oc, g_out
+    (_, _, c3, l3, g3), (_, _, c4, l4, g4), (_, _, c5, l5, g5) = chain[1:]
+    f64 = torch.randn(l3.shape[0], 64, device="cuda", generator=gen) * (l3 < WC.MISS)[:, None]
+    f128 = torch.randn(l4.shape[0], 128, device="cuda", generator=gen) * (l4 < WC.MISS)[:, None]
+    subm3 = WC.make_subm_plan_presorted(l3, c3, g3, window=wins[2])
+    strided4 = WC.make_strided_plan(l3, l4, c4, g3, g4, *down4, window=wins[3],
+                                    resid_budget=resid)
+    subm4 = WC.make_subm_plan_presorted(l4, c4, g4, window=wins[3])
+    extra = WC.make_strided_plan(l4, l5, c5, g4, g5, *zonly, window=wins[3], resid_budget=resid)
+    return [("conv3 64->64", subm3, f64, 64, 64, (3, 3, 3), 0, (1, 1, 1), (1, 1, 1), c3, g3),
+            ("conv4_down 64->128", strided4, f64, 64, 128, (3, 3, 3), 0, (2, 2, 2), (0, 1, 1),
+             c3, g3),
+            ("conv4 128->128", subm4, f128, 128, 128, (3, 3, 3), 0, (1, 1, 1), (1, 1, 1), c4,
+             g4),
+            ("extra_conv (3,1,1) 128->128", extra, f128, 128, 128, (3, 1, 1), 0, (2, 1, 1),
+             (0, 0, 0), c4, g4),
+            ("SECOND extra_conv (3,1,1) 64->64", extra, f128[:, :64].contiguous(), 64, 64,
+             (3, 1, 1), 0, (2, 1, 1), (0, 0, 0), c4, g4)]
 
 
 # window-pass backwards of a training step by plan: the student's conv_input
@@ -559,6 +631,49 @@ def _window_backward_rows(cases, feats16, coords, lin, grid, gen):
     return rows
 
 
+# the student's window-pass backwards a step past the shipped ones, by plan,
+# at dense_from_stage 3 and 99 (the conv2 blocks, conv3_down, the conv3
+# blocks, conv4_down; at 99 also the conv4 blocks and extra_conv), each plan
+# with its reader table
+DEEP_BACKWARDS = {3: {"conv2 32->32": 4, "conv3_down 32->64": 1, "conv3 64->64": 4,
+                      "conv4_down 64->128": 1}}
+DEEP_BACKWARDS[99] = dict(DEEP_BACKWARDS[3], **{"conv4 128->128": 4,
+                                                "extra_conv (3,1,1) 128->128": 1})
+
+
+def _window_deep_backward_rows(cases, shipped_ms, gen):
+    """The window backward (``window_pass_grad`` and the reader table) timed
+    at the plans ``dense_from_stage`` 2, 3 and 99 add, and the student's
+    window backward a step at 3 and 99: the shipped step's ``shipped_ms``
+    plus ``DEEP_BACKWARDS``."""
+    import torch
+
+    from sparse2dense_tpu_torch.ops import window_conv as WC
+
+    per_plan = {}
+    for name, plan, f, cin, cout, ksize, *_ in cases:
+        if name not in DEEP_BACKWARDS[99]:
+            continue
+        wd = WC.taps_zyx_to_dyx(torch.randn((cout, cin) + ksize, device="cuda", generator=gen))
+        g = torch.randn((plan.out_lin.shape[0], cout), device="cuda", generator=gen)
+        readers = WC.reader_table(plan)
+        ms = cuda_ms(lambda: WC.window_pass_grad(f, wd, readers, g), reps=3, warmup=1)
+        table_ms = cuda_ms(lambda: WC.reader_table(plan), reps=3, warmup=1)
+        per_plan[name] = (ms, table_ms)
+        print("[kernels] " + json.dumps(dict(kernel="window_pass", case=f"backward time {name}",
+                                             v_out=plan.out_lin.shape[0], backward_ms=ms,
+                                             reader_table_ms=table_ms)), flush=True)
+        del readers, g
+        torch.cuda.empty_cache()
+    row = dict(kernel="window_pass", case="deep backward a step", per_frame=0, max_abs_err=0.0)
+    for dfs, counts in DEEP_BACKWARDS.items():
+        # one reader table a plan: the conv2 and conv3 (and conv4) blocks share theirs
+        row[f"window_backward_ms_dfs{dfs}"] = shipped_ms + sum(
+            per_plan[name][0] * n + per_plan[name][1] for name, n in counts.items())
+    print("[kernels] window backward a training step: " + json.dumps(row), flush=True)
+    return [row]
+
+
 def _densify_rows(feats, coords, grid):
     """(V, C) rows at zyx coords (-1: padding) -> dense (1, C, D, H, W)."""
     import torch
@@ -582,7 +697,11 @@ def _window_edge_rows(feats5, feats16, coords, lin, grid, gen):
     needs (all-padding blocks), the z-only (3,1,1) plan, and Cin 5 on the
     strided and z-only plans; and Cin 32 -> Cout 64 (conv3_down's width at
     ``dense_from_stage=2``) on a seeded 32-channel state: GATE groups, the
-    clipped windows, all-padding blocks and the z-only plan."""
+    clipped windows, all-padding blocks and the z-only plan; and the
+    streamed widths (64->64, 64->128, 128->128) on seeded 64- and
+    128-channel states: GATE groups, clipped windows with two window
+    buffers and with one, a window of 1,024 rows (one buffer), all-padding
+    blocks and the z-only plan."""
     import torch
 
     from sparse2dense_tpu_torch.ops import window_conv as WC
@@ -592,7 +711,8 @@ def _window_edge_rows(feats5, feats16, coords, lin, grid, gen):
     n = 30037
     f5, f16, cc, ll = feats5[:n], feats16[:n], coords[:n], lin[:n]
     active = int((ll < WC.MISS).sum())
-    f32 = torch.randn(n, 32, device="cuda", generator=gen) * (ll < WC.MISS)[:, None]
+    f32, f64, f128 = (torch.randn(n, c, device="cuda", generator=gen) * (ll < WC.MISS)[:, None]
+                      for c in (32, 64, 128))
 
     def strided(stride, pad, ksize, budget):
         g_out = conv_out_grid(grid, stride, pad, ksize)
@@ -627,6 +747,28 @@ def _window_edge_rows(feats5, feats16, coords, lin, grid, gen):
          (3, 3, 3)),
         ("z-only (3,1,1) 32->64", strided((2, 1, 1), (0, 0, 0), (3, 1, 1), n), f32, 64,
          (3, 1, 1)),
+        # the streamed widths, with two window buffers and with one
+        ("residual rows (window 128) 64->64",
+         WC.make_subm_plan_presorted(ll, cc, grid, window=128, resid_budget=n), f64, 64,
+         (3, 3, 3)),
+        ("residual rows (window 128) 128->128",
+         WC.make_subm_plan_presorted(ll, cc, grid, window=128, resid_budget=n), f128, 128,
+         (3, 3, 3)),
+        ("window clipped at the end of V_in 64->128",
+         WC.make_subm_plan_presorted(ll, cc, grid, window=384, resid_budget=n), f64, 128,
+         (3, 3, 3)),
+        ("window clipped at the end of V_in, one buffer 128->128",
+         WC.make_subm_plan_presorted(ll, cc, grid, window=384, resid_budget=n), f128, 128,
+         (3, 3, 3)),
+        ("window 1024, one buffer 64->64",
+         WC.make_subm_plan_presorted(ll, cc, grid, window=1024, resid_budget=n), f64, 64,
+         (3, 3, 3)),
+        ("all-padding blocks (budget 3x) 64->128", strided(*down, 3 * n_down), f64, 128,
+         (3, 3, 3)),
+        ("z-only (3,1,1) 64->64", strided((2, 1, 1), (0, 0, 0), (3, 1, 1), n), f64, 64,
+         (3, 1, 1)),
+        ("z-only (3,1,1) 128->128", strided((2, 1, 1), (0, 0, 0), (3, 1, 1), n), f128, 128,
+         (3, 1, 1)),
     ]
     rows = []
     for name, plan, f, cout, ksize in cases:
@@ -649,6 +791,7 @@ def _window_edge_rows(feats5, feats16, coords, lin, grid, gen):
                    blocks_all_gate=int(gate.all(1).all(1).sum()),
                    windows_at_the_end=int(((start == (v_in - window) // 128)
                                            & ~gate.all(1)).sum()),
+                   buffers=WK.window_buffers(cin, cout, window),
                    max_abs_err=float(err.max()), max_abs_ref=float(want.abs().max()), n_bad=bad,
                    per_frame=0)
         print("[kernels] " + json.dumps(row), flush=True)
@@ -1272,6 +1415,28 @@ def _probe_record(row):
             "library_ms": row["library_cold_ms"]}
 
 
+@contextlib.contextmanager
+def _stage_rows(backbone, rows):
+    """Forward hooks that put, for each strided window conv of
+    ``backbone``, its valid output rows (the most of a sample) and its stage
+    budget less one into ``rows`` under "<module> rows (budget less one)": a
+    strided window conv's output set is cut at its budget, so it dropped
+    nothing while its valid rows stay below the budget."""
+    from sparse2dense_tpu_torch.models.backbones.scn import WinDownsample
+
+    def hook(mod, args, out, name):
+        rows[f"{name} rows (budget less one)"] = [int(out[3].sum(-1).max()),
+                                                   out[3].shape[1] - 1]
+
+    hooks = [mod.register_forward_hook(partial(hook, name=name))
+             for name, mod in backbone.named_modules() if isinstance(mod, WinDownsample)]
+    try:
+        yield rows
+    finally:
+        for h in hooks:
+            h.remove()
+
+
 def phase_main_path(engine: str, budgets=None, overrides=None, tag=None):
     """The flagship on one engine: launches per frame of each kernel, with
     every count set to 0 just before the frames and read just after; every
@@ -1318,12 +1483,19 @@ def phase_main_path(engine: str, budgets=None, overrides=None, tag=None):
     valid = det["valid"]
     if not bool(torch.isfinite(det["box3d_lidar"][valid]).all()):
         raise AssertionError(f"{engine}: non-finite boxes")
+    stage_rows = {}
+    if engine == "window":   # one more frame, outside the timed ones
+        with _stage_rows(model.backbone, stage_rows), torch.inference_mode():
+            model(batch)
+        over = {k: v for k, v in stage_rows.items() if v[0] > v[1]}
+        if over:
+            raise AssertionError(f"{tag}: a strided window conv filled its stage budget: {over}")
     res = dict(engine=tag, budgets=budgets, frame_ms_median=sorted(times)[len(times) // 2],
                frame_ms_min=min(times), frame_ms_max=max(times), frame_ms=times,
                launches=launches, launches_per_frame=per_frame, detections=int(valid.sum()),
                max_heatmap=float(torch.sigmoid(out["preds"][0]["hm"]).max()),
                telemetry={k: int(v[0].max()) for k, v in out["telemetry"].items()},
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+               stage_rows=stage_rows, peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
     print("[main] " + json.dumps(res), flush=True)
     del model, out
     torch.cuda.empty_cache()
@@ -1861,12 +2033,79 @@ def phase_second():
     with no_tf32():
         agreement = _second_agreement(batch, model)
     print("[second] gather against window, one frame: " + json.dumps(agreement), flush=True)
-    del model, out, batch
+    del model, out
     torch.cuda.empty_cache()
+    deep = {dfs: _second_deep_frames(batch, dfs) for dfs in SECOND_DEEP_LAUNCHES}
+    del batch
     steps = {b: _second_steps(b) for b in SECOND_BATCHES}
     cli = phase_cli("second")
-    return dict(frame=frame, agreement=agreement, steps=steps, cli=cli,
+    return dict(frame=frame, agreement=agreement, deep=deep, steps=steps, cli=cli,
                 train_launches=sum(r.get("launches", 0) for r in steps.values()))
+
+
+SECOND_DEEP_FRAMES = 3   # timed, after one warm-up
+# window passes a SECOND frame by dense_from_stage: subm0 2, down1 1, subm1 2,
+# down2 1, then subm2 3 and down3 1, then subm3 3 and extra_conv 1
+SECOND_DEEP_LAUNCHES = {3: 10, 99: 14}
+
+
+def _second_deep_frames(batch, dfs):
+    """SECOND's student with the window engine at ``dense_from_stage``
+    ``dfs`` (3 or 99; ``profile_train_step.engine_settings("window", dfs)``,
+    the flagship's frame settings: the two backbones' strided convs make the
+    same active sets), seeded weights, on the phase's frame: 1 warm-up and
+    ``SECOND_DEEP_FRAMES`` timed frames, ``SECOND_DEEP_LAUNCHES[dfs]`` window
+    passes each (the count set to 0 just before and read just after), every
+    counter and stage within its budget, finite maps and detections."""
+    import torch
+
+    from sparse2dense_tpu_torch.models import build_detector
+    from sparse2dense_tpu_torch.ops import window_kernel as WK
+    from sparse2dense_tpu_torch.tools import profile_train_step as PT
+    from sparse2dense_tpu_torch.utils.config import SECOND, flagship
+
+    cfg = flagship("window", path=SECOND)
+    cfg["S_model"]["backbone"].update(PT.engine_settings("window", dfs))
+    model = build_detector(cfg["S_model"], test_cfg=cfg["test_cfg"],
+                           voxel_generator=cfg["voxel_generator"], device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    times, per_frame = [], []
+    WK.launches = 0
+    for i in range(1 + SECOND_DEEP_FRAMES):
+        before = WK.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = model(batch)
+            det = model.predict(out, example=batch)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+        per_frame.append(WK.launches - before)
+    launches = WK.launches
+    stage_rows = {}
+    with _stage_rows(model.backbone, stage_rows), torch.inference_mode():
+        model(batch)
+    tag = f"second dense_from_stage {dfs}"
+    if per_frame != [SECOND_DEEP_LAUNCHES[dfs]] * len(per_frame):
+        raise AssertionError(f"{tag}: window-pass launches per frame {per_frame}")
+    counters = dict({k: [int(v[0].max()), v[1]] for k, v in out["telemetry"].items()},
+                    **stage_rows)
+    over = {k: v for k, v in counters.items() if v[0] > v[1]}
+    if over:
+        raise AssertionError(f"{tag}: counters over their budgets: {over}")
+    maps = [v for pd in out["preds"] for v in pd.values()]
+    valid = det["valid"]
+    if not all(bool(torch.isfinite(m).all()) for m in maps) or not int(valid.sum()) or \
+            not bool(torch.isfinite(det["box3d_lidar"][valid]).all()):
+        raise AssertionError(f"{tag}: non-finite maps or no finite detections")
+    res = dict(dense_from_stage=dfs, frame_ms_median=sorted(times)[len(times) // 2],
+               frame_ms=times, launches=launches, launches_per_frame=per_frame,
+               counters=counters, detections=int(valid.sum()))
+    print("[second] " + json.dumps(res), flush=True)
+    del model, out
+    torch.cuda.empty_cache()
+    return res
 
 
 # the pillar recipe (phase "pp"): the bench's cloud (170k points, 32
@@ -2132,9 +2371,16 @@ def phase_pp():
 ENGINE_WARMUP, ENGINE_STEPS = 1, 2
 _TILE_WEIGHTS = ("backbone.conv_input.conv_0_weight", "backbone.conv1_0.conv1_weight",
                  "backbone.conv2_down.conv_weight", "backbone.conv2_1.conv2_weight")
+_DFS2_WEIGHTS = ("backbone.conv2_down.conv_weight", "backbone.conv2_0.conv1_weight",
+                 "backbone.conv2_1.conv2_weight", "backbone.conv3_down.conv_weight")
+_DFS3_WEIGHTS = _DFS2_WEIGHTS + ("backbone.conv3_0.conv1_weight", "backbone.conv3_1.conv2_weight",
+                                 "backbone.conv4_down.conv_weight")
 ENGINE_WEIGHTS = {
-    "window_dfs2": ("backbone.conv2_down.conv_weight", "backbone.conv2_0.conv1_weight",
-                    "backbone.conv2_1.conv2_weight", "backbone.conv3_down.conv_weight"),
+    "window_dfs2": _DFS2_WEIGHTS,
+    "window_dfs3": _DFS3_WEIGHTS,
+    "window_dfs99": _DFS3_WEIGHTS + ("backbone.conv4_0.conv1_weight",
+                                     "backbone.conv4_1.conv2_weight",
+                                     "backbone.extra_conv.conv_weight"),
     "plane": ("backbone.conv2_down.conv_weight", "backbone.conv2_0.conv1_weight",
               "backbone.conv3_down.conv_weight", "backbone.conv4_1.conv2_weight",
               "backbone.extra_conv.conv_weight"),
@@ -2145,7 +2391,8 @@ ENGINE_WEIGHTS = {
 # (B1 a sample, B2 a step, B3 a step) of a teacher-student step: the
 # teacher's two streams and the student each run the frame's kernels once
 # (B2 and B3 take the batch flattened)
-ENGINE_LAUNCHES = {"window_dfs2": (3 * 11, 0, 0), "plane": (3 * 6, 3 * 12, 0),
+ENGINE_LAUNCHES = {"window_dfs2": (3 * 11, 0, 0), "window_dfs3": (3 * 16, 0, 0),
+                   "window_dfs99": (3 * 21, 0, 0), "plane": (3 * 6, 3 * 12, 0),
                    "tile": (0, 0, 3 * 9), "tile_dfs99": (0, 0, 3 * 17)}
 ENGINE_BEV_TOL = 9 * 2.0 ** -8
 
@@ -2161,7 +2408,6 @@ def _engine_agreement(batch, settings):
     import torch
 
     from sparse2dense_tpu_torch.models import build_detector
-    from sparse2dense_tpu_torch.models.backbones.scn import WinDownsample
     from sparse2dense_tpu_torch.utils.config import FLAGSHIP, ConfigDict
 
     bevs, tele, weights = {}, {}, None
@@ -2175,25 +2421,12 @@ def _engine_agreement(batch, settings):
             weights = model.state_dict()
         model.load_state_dict(weights)
         model.train()
-        rows, hooks = {}, []
-        down = model.backbone.conv3_down
-        if isinstance(down, WinDownsample):
-            # a strided window conv's output set is cut at its stage budget:
-            # it dropped nothing while its valid rows stay below the budget
-            hooks.append(down.register_forward_hook(
-                lambda mod, args, out: rows.update(n=int(out[3].sum(-1).max()),
-                                                   budget=out[3].shape[1])))
-        try:
-            with torch.no_grad():
-                feats = model.reader(batch["voxels"], batch["num_points"])
-                bev, _, t = model.backbone(feats, batch["coordinates"])
-        finally:
-            for h in hooks:
-                h.remove()
+        rows = {}
+        with _stage_rows(model.backbone, rows), torch.no_grad():
+            feats = model.reader(batch["voxels"], batch["num_points"])
+            bev, _, t = model.backbone(feats, batch["coordinates"])
         bevs[tag] = bev.float()
-        tele[tag] = {k: [int(v[0].max()), v[1]] for k, v in t.items()}
-        if rows:
-            tele[tag]["conv3_down rows (budget less one)"] = [rows["n"], rows["budget"] - 1]
+        tele[tag] = dict({k: [int(v[0].max()), v[1]] for k, v in t.items()}, **rows)
         del model
     exact = all(c <= b for t in tele.values() for c, b in t.values())
     diff = float((bevs["engine"] - bevs["shipped"]).abs().max())
@@ -2268,18 +2501,20 @@ def phase_engines(plane_frame, tile_frame):
     res = {}
     for tag, settings, frame, batches in (
             ("window_dfs2", PT.engine_settings("window", 2), None, (1, BIG_BATCH)),
+            ("window_dfs3", PT.engine_settings("window", 3), None, (1,)),
+            ("window_dfs99", PT.engine_settings("window", 99), None, (1,)),
             ("plane", PT.engine_settings("plane"), plane_frame, (1, BIG_BATCH)),
             ("tile", PT.engine_settings("tile"), tile_frame, (1, BIG_BATCH)),
             ("tile_dfs99", PT.engine_settings("tile", 99), None, (1,))):
-        if tag == "window_dfs2":
+        if tag.startswith("window_dfs"):
             frame = phase_main_path("window", overrides=settings, tag=tag)
         batch = make_batch(flagship(), 1, max_voxels=150000, n_points=170000, n_obj=32,
                            device="cuda")
         r = dict(settings=settings, frame=frame, agreement=_engine_agreement(batch, settings))
         print(f"[engines] {tag} student in train mode against the shipped engine: "
               + json.dumps(r["agreement"]), flush=True)
-        if tag.startswith("tile") and not r["agreement"]["exact"]:
-            raise AssertionError(f"{tag}: a tile counter is above 0: {r['agreement']}")
+        if tag.startswith(("tile", "window_dfs")) and not r["agreement"]["exact"]:
+            raise AssertionError(f"{tag}: a counter is over its budget: {r['agreement']}")
         del batch
         r["steps"] = {b: _engine_steps(tag, settings, b) for b in batches}
         res[tag] = r
@@ -4094,6 +4329,7 @@ def main() -> int:
                 "plane": plane["launches"]["window_pass"], "train": train["launches"],
                 f"train_batch{BIG_BATCH}": train["big"]["launches"], "cli": cli["launches"],
                 "second": second["frame"]["launches"], "second_train": second["train_launches"],
+                **{f"second_dfs{dfs}": r["launches"] for dfs, r in second["deep"].items()},
                 "second_cli": second["cli"]["launches"], "data_train": data["train_launches"],
                 "data_val": data["val_launches"],
                 "data_val_untrained": data["untrained_val_launches"],
@@ -4111,7 +4347,7 @@ def main() -> int:
     b2_paths = {"plane": plane["launches"]["plane_subm"]}
     b3_paths = {"tile": tile["launches"]["tile_subm"]}
     for tag, r in engines.items():
-        if tag == "window_dfs2":
+        if tag.startswith("window_dfs"):
             b1_paths[tag] = r["frame"]["launches"]["window_pass"]
         for b, st in r["steps"].items():
             key = f"{tag}_train" + ("" if b == 1 else f"_batch{b}")
@@ -4125,6 +4361,8 @@ def main() -> int:
                      "sparse2dense_tpu/ops/pallas/window_kernel.py:69",
                      sum(b1_paths.values()), wrows), launches_by_path=b1_paths,
              dfs2_frame=_record("window_pass", "", "", 0, wrows, "per_frame_dfs2"),
+             dfs3_frame=_record("window_pass", "", "", 0, wrows, "per_frame_dfs3"),
+             dfs99_frame=_record("window_pass", "", "", 0, wrows, "per_frame_dfs99"),
              nusc_frame=_record("window_pass", "", "", 0, nusc["window_rows"], "per_frame_nusc")),
         dict(_record("plane_subm", "sparse2dense_tpu_torch/csrc/plane_subm.cu",
                      "sparse2dense_tpu/ops/pallas/plane_block_kernel.py:131",
@@ -4167,12 +4405,28 @@ def main() -> int:
           f"{b3_bwd['tile_backward_ms_dfs2']:.3f} ms at dense_from_stage 2 (bound "
           f"{b3_bwd['tile_backward_bound_ms_dfs2']:.3f}), {b3_bwd['tile_backward_ms_dfs99']:.3f} "
           f"ms at 99 (bound {b3_bwd['tile_backward_bound_ms_dfs99']:.3f})", flush=True)
+    b1_deep = [r for r in wrows if r.get("case") == "deep backward a step"][0]
+    for dfs in (3, 99):
+        rec = record["kernels"][0][f"dfs{dfs}_frame"]
+        print(f"[kernels] window_pass a dense_from_stage={dfs} frame "
+              f"({sum(r[f'per_frame_dfs{dfs}'] for r in wrows if r.get(f'per_frame_dfs{dfs}'))} "
+              f"launches): L2-warm {rec['ms']:.4f} ms, L2-cold {rec['cold_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms, plain {rec['plain_ms']:.1f} ms, cuDNN "
+              f"{rec['library_ms']:.1f} ms; window backward a training step "
+              f"{b1_deep[f'window_backward_ms_dfs{dfs}']:.3f} ms", flush=True)
+    for dfs, r in second["deep"].items():
+        print(f"[second] dense_from_stage {dfs}: frame median {r['frame_ms_median']:.1f} ms, "
+              f"{r['launches_per_frame'][0]} window passes a frame; counters "
+              f"{json.dumps(r['counters'])}", flush=True)
     for tag, r in engines.items():
         frame = (f"frame median {r['frame']['frame_ms_median']:.1f} ms" if r["frame"] else
                  "no frame")
         print(f"[engines] {tag}: {frame}; student train-mode BEV against the shipped engine "
               f"{r['agreement']['rel_to_max']:.3e} of its largest value "
               f"({'judged' if r['agreement']['exact'] else 'not judged'})", flush=True)
+        if tag in ("window_dfs3", "window_dfs99"):
+            print(f"[engines] {tag}: the student's residual rows and stage rows against their "
+                  f"budgets {json.dumps(r['agreement']['counters']['engine'])}", flush=True)
         for b, t in r["steps"].items():
             print(f"[engines] {tag} teacher-student step, batch {b}: median {t['step_ms']:.1f} "
                   f"ms ({', '.join(f'{k} {v:.1f}' for k, v in t['stages_ms'].items())}); peak "

@@ -474,6 +474,8 @@ _STAGES = [  # (name, channels, down stride, down padding, down ksize)
     ("conv3", 64, (2, 2, 2), (1, 1, 1), (3, 3, 3)),
     ("conv4", 128, (2, 2, 2), (0, 1, 1), (3, 3, 3)),
 ]
+# extra_conv's (stride, padding, ksize): a z-only conv halving the depth
+EXTRA_CONV = ((2, 1, 1), (0, 0, 0), (3, 1, 1))
 
 
 class _DenseStages(nn.Module):
@@ -493,7 +495,7 @@ class _DenseStages(nn.Module):
         grid = self.sparse_shape
         for _, _, stride, pad, ksz in _STAGES:
             grid = conv_out_grid(grid, stride, pad, ksz)
-        return self.out_channels * conv_out_grid(grid, (2, 1, 1), (0, 0, 0), (3, 1, 1))[0]
+        return self.out_channels * conv_out_grid(grid, *EXTRA_CONV)[0]
 
     def _dense(self, module, *args):
         """``module(*args)`` for a dense module; in training, with
@@ -530,9 +532,10 @@ class SpMiddleResNetFHD(_DenseStages):
     forward(voxel_features (B, V, C), coords (B, V, 3) zyx)
       -> (bev NHWC (B, H/8, W/8, 128*2), multi_scale, telemetry)
     where telemetry maps each counter to (per-sample counts (B,), budget):
-    the window plan groups (the subm plans of "conv1" and, at
-    ``dense_from_stage`` 2, "conv2"; the strided "conv2_down" and
-    "conv3_down") to their residual rows and budget; with the plane engine
+    the window plan groups (the subm plans of "conv1" and of each later
+    sparse stage, "conv2" to "conv4"; the strided "conv2_down" to
+    "conv4_down" and, past stage 4, "extra_conv") to their residual rows and
+    budget; with the plane engine
     "plane_drop", "planek_miss", "plane_chunk_drop" and "down_drop", with
     the tile engine "conv1_tile_drop", "tilek_miss" and "down_drop" (each
     summed over the stages) to budget 0. The result is exact while every
@@ -543,9 +546,12 @@ class SpMiddleResNetFHD(_DenseStages):
     convs through neighbour tables (``ops/sparse_conv.py``), the rest
     dense; it has no telemetry. ``engine="window"``: ``dense_from_stage`` 1
     runs conv1 and conv2_down sparse and the rest dense (the shipped
-    setting); 2 also the conv2 blocks and conv3_down; 0 runs every stage
-    dense. ``win_window`` is an int or the four stages' plan windows (conv1,
-    conv2 with conv2_down, conv3_down, conv4). ``engine="plane"`` runs conv1
+    setting); 2 also the conv2 blocks and conv3_down; 3 also the conv3
+    blocks and conv4_down; 4 also the conv4 blocks; above 4 also
+    ``extra_conv`` (every stage sparse); 0 runs every stage dense.
+    ``win_window`` is an int or the four stages' plan windows (conv1, conv2
+    with conv2_down, conv3 with conv3_down, conv4 with conv4_down and
+    ``extra_conv``). ``engine="plane"`` runs conv1
     and conv2_down on the window engine and conv2..conv4 as fused plane
     convs (in training the plane conv under autograd, ``PlaneKBlock``), with
     the reference's plane knobs: per-stage z-chunk heights ``tile_tz``, chunk
@@ -590,11 +596,6 @@ class SpMiddleResNetFHD(_DenseStages):
             raise ValueError(f"tile_backend={tile_backend!r}: 'xla' or 'pallas'")
         if engine == "tile" and tuple(tile_size) != (4, 4):
             raise ValueError(f"the tile kernel needs 4x4 BEV tiles, got {tile_size}")
-        if engine == "window" and dfs not in (0, 1, 2):
-            raise NotImplementedError(
-                f"dense_from_stage={dense_from_stage}: sparse stages past conv3_down need the "
-                "window kernel at 64->64, 64->128 and 128->128 channels (weights streamed "
-                "through shared memory), a later slice")
         super().__init__(remat_dense, dense_compute_dtype)
         self.engine = engine
         self.sparse_shape = tuple(sparse_shape)
@@ -656,12 +657,11 @@ class SpMiddleResNetFHD(_DenseStages):
         if engine == "plane" or engine == "tile" and self.dfs > 4:
             self.extra_conv = TileZConv(128, 128, d=grid[0], tz=self.tile_tz[3],
                                         compute_dtype=cd)
-        elif engine == "gather" and self.dfs > 4:
-            self.extra_conv = SparseDownsample(
-                128, 128, grid, (2, 1, 1), (0, 0, 0), (3, 1, 1),
-                out_budget=stage_budgets[3] if stage_budgets else None)
+        elif self.dfs > 4:
+            self.extra_conv = _sparse_extra_conv(engine, 128, grid, stage_budgets, self.wins[3],
+                                                 win_resid_budget)
         else:
-            self.extra_conv = DenseDownsample(128, 128, (2, 1, 1), (0, 0, 0), (3, 1, 1),
+            self.extra_conv = DenseDownsample(128, 128, *EXTRA_CONV,
                                               compute_dtype=cd)
 
     def _window_stages(self, feats, coords, grid, telemetry, multi_scale):
@@ -722,6 +722,10 @@ class SpMiddleResNetFHD(_DenseStages):
             else:
                 x = self._dense(blocks[1], self._dense(blocks[0], x, mask), mask)
                 multi_scale[name] = (x, grid)
+        if self.dfs > 4:
+            return _window_extra_conv(self, feats, coords, lin, telemetry), multi_scale, telemetry
+        if x is None:
+            x, mask = self._dense_stream(feats, coords, valid, grid)
         x, mask = self._dense(self.extra_conv, x, mask)
         return dense_to_bev(x), multi_scale, telemetry
 
@@ -959,17 +963,19 @@ class SpMiddleFHD(_DenseStages):
       -> (bev NHWC (B, H/8, W/8, 64*2), conv4, telemetry)
     where conv4 is the last subm stage's output with its grid, ((features,
     coords, valid), grid) while it is sparse, else (dense NCDHW, grid); and
-    telemetry, on the window engine, maps each sparse subm stage ("subm0",
-    "subm1": its subm plans) and strided conv ("down1", "down2": its strided
-    plans) to their residual rows a sample and their
-    budget. The result is exact while every count is within its budget.
+    telemetry, on the window engine, maps each sparse subm stage ("subm0"
+    to "subm3": its subm plans) and strided conv ("down1" to "down3" and,
+    past stage 4, "extra_conv": its strided plans) to their residual rows a
+    sample and their budget. The result is exact while every count is
+    within its budget.
 
     ``engine="gather"`` (the reference's default) runs the stages before
     ``dense_from_stage`` (any; past 4 also ``extra_conv``) as gather-GEMM
     convs, ``engine="window"`` as windowed convs (the window pass, the
     hand-written CUDA kernel on the card); ``dense_from_stage`` 1 (the
-    shipped setting) runs subm0 and down1 sparse, 2 also subm1 and down2, 0
-    every stage dense. The
+    shipped setting) runs subm0 and down1 sparse, 2 also subm1 and down2, 3
+    also subm2 and down3, 4 also subm3, above 4 also ``extra_conv``, 0 every
+    stage dense. The
     later stages are masked dense 3D convs, rematerialised in training
     unless ``remat_dense`` is False. The parameters do not depend on the
     engine, so one checkpoint serves both.
@@ -987,11 +993,6 @@ class SpMiddleFHD(_DenseStages):
         if engine not in ("gather", "window"):
             raise NotImplementedError(
                 f"engine={engine!r}: SpMiddleFHD runs engine='gather' and 'window' in this port")
-        if engine == "window" and dfs not in (0, 1, 2):
-            raise NotImplementedError(
-                f"dense_from_stage={dense_from_stage}: sparse stages past down2 need the window "
-                "kernel at 64->64 channels (weights streamed through shared memory), a later "
-                "slice")
         super().__init__(remat_dense, dense_compute_dtype)
         self.engine, self.dfs = engine, dfs
         self.sparse_shape = tuple(sparse_shape)
@@ -1016,11 +1017,10 @@ class SpMiddleFHD(_DenseStages):
                     DenseSubMStage(chans[0], chans, compute_dtype=cd))
             cin, grid = chans[-1], conv_out_grid(grid, stride, pad, ksz)
         if dfs > 4:
-            self.extra_conv = SparseDownsample(
-                64, 64, grid, (2, 1, 1), (0, 0, 0), (3, 1, 1),
-                out_budget=stage_budgets[3] if stage_budgets else None)
+            self.extra_conv = _sparse_extra_conv(engine, 64, grid, stage_budgets, self.wins[3],
+                                                 win_resid_budget)
         else:
-            self.extra_conv = DenseDownsample(64, 64, (2, 1, 1), (0, 0, 0), (3, 1, 1),
+            self.extra_conv = DenseDownsample(64, 64, *EXTRA_CONV,
                                               compute_dtype=cd)
 
     def forward(self, voxel_features, coords):
@@ -1067,6 +1067,8 @@ class SpMiddleFHD(_DenseStages):
             else:
                 x = self._dense(getattr(self, name), x, mask)
                 conv4 = (x, grid)
+        if self.dfs > 4 and window:
+            return _window_extra_conv(self, feats, coords, lin, telemetry), conv4, telemetry
         if self.dfs > 4:
             feats, coords, valid, g4 = self.extra_conv(feats, coords, valid)
             return sparse_to_bev(feats, coords, valid, g4), conv4, telemetry
@@ -1074,6 +1076,27 @@ class SpMiddleFHD(_DenseStages):
             x, mask = self._dense_stream(feats, coords, valid, grid)
         x, _ = self._dense(self.extra_conv, x, mask)
         return dense_to_bev(x), conv4, telemetry
+
+
+def _sparse_extra_conv(engine, ch, grid, stage_budgets, window, resid_budget):
+    """``extra_conv`` past stage 4: the sparse z-only (3, 1, 1) stride
+    (2, 1, 1) conv of ``ch`` channels on the gather or the window engine
+    (the plan window of stage 4, the window engine's residual budget), its
+    output cut at the fourth stage budget."""
+    budget = stage_budgets[3] if stage_budgets else None
+    if engine == "gather":
+        return SparseDownsample(ch, ch, grid, *EXTRA_CONV, out_budget=budget)
+    return WinDownsample(ch, ch, grid, *EXTRA_CONV, out_budget=budget, window=window,
+                         resid_budget=resid_budget)
+
+
+def _window_extra_conv(backbone, feats, coords, lin, telemetry):
+    """The window engine's sparse ``extra_conv`` and its BEV (spconv's
+    ``.dense()``), with its plans' residual rows in ``telemetry``."""
+    feats, coords, _, valid, g4, plans = backbone.extra_conv(feats, coords, lin)
+    telemetry["extra_conv"] = (torch.stack([p.n_resid for p in plans]),
+                               backbone.win_resid_budget)
+    return sparse_to_bev(feats, coords, valid, g4)
 
 
 def _win_windows(win) -> Tuple[int, int, int, int]:

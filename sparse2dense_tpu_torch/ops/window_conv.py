@@ -204,41 +204,26 @@ def _plan(in_lin, out_lin, out_coords, grid_in, grid_out, stride, padding,
 
 def window_pass_plain(features: torch.Tensor, plan: ConvPlan,
                       weights: torch.Tensor) -> torch.Tensor:
-    """Plain version of the window pass (port of the reference's
-    ``_window_pass_reference``): per block and dy group, compare the window
-    keys with every row's tap targets (``base``, ``tap_ok``, ``windowed``)
-    and contract the one-hot matches with the window features. Computes in
-    the dtype it is given; returns (V_out, Cout) float32."""
+    """Plain version of the window pass: each output row sums, over the taps
+    of the dy groups the window pass owns, the features of the input row the
+    tap hits (:func:`hit_table`) times the tap's weights, in float32 whatever
+    it is given; returns (V_out, Cout) float32. The reference's
+    ``_window_pass_reference`` computes the same sums by a one-hot compare of
+    each block's window keys with the rows' targets (the hit table finds the
+    same rows: a windowed group's window holds every rank its targets can
+    have); ``tests/test_torch_window_pass.py`` holds the two equal. One
+    gather of every (row, tap) hit, the misses on a zero row, and a product
+    a tap, summed tap after tap as the reference sums them."""
     v_in, cin = features.shape
-    vo = plan.out_lin.shape[0]
-    nb, block, window = plan.ws.shape[0], plan.block, plan.window
-    pad_vo = nb * block
-    dev = features.device
-    feats = features.float()
+    hits = hit_table(plan)
+    rows = torch.cat([features.float(), features.new_zeros((1, cin), dtype=torch.float32)])
+    g = F.embedding(torch.where(hits >= 0, hits, v_in).long(), rows,
+                    padding_idx=v_in)                                 # (V_out, 27, Cin)
     w = weights.float()
-    lin_pad = torch.cat([plan.lin, torch.full((window,), MISS, dtype=_I32, device=dev)])
-    feat_pad = torch.cat([feats, feats.new_zeros((window, cin))])
-
-    def pad_rows(x, fill):
-        out = torch.full((pad_vo,) + x.shape[1:], fill, dtype=x.dtype, device=dev)
-        out[:vo] = x
-        return out.view(nb, block, *x.shape[1:])
-
-    base = pad_rows(plan.base, MISS)
-    tap_ok = pad_rows(plan.tap_ok, False)
-    windowed = pad_rows(plan.windowed, False)
-    ar = torch.arange(window, device=dev)
-    out = feats.new_zeros((nb, block, w.shape[-1]))
-    for dyi in range(3):
-        idx = plan.ws[:, dyi].long().clamp(0, v_in)[:, None] + ar  # (nb, W)
-        wl, wf = lin_pad[idx], feat_pad[idx]
-        diff = wl[:, None, :] - base[:, :, dyi, None]               # (nb, blk, W)
-        gate = windowed[:, :, dyi, None]
-        for j in range(9):
-            k = dyi * 9 + j
-            hit = (diff == plan.offsets[dyi, j]) & tap_ok[:, :, k, None] & gate
-            out = out + torch.bmm(hit.float(), wf @ w[k])
-    return out.view(pad_vo, -1)[:vo]
+    out = g.new_zeros((g.shape[0], w.shape[-1]))
+    for k in range(27):
+        out = out + g[:, k] @ w[k]
+    return out
 
 
 def hit_table(plan: ConvPlan) -> torch.Tensor:

@@ -25,9 +25,15 @@ from .window_conv import ConvPlan, reader_table, window_pass_grad, window_pass_p
 SOURCE = os.path.join(cuda_build.CSRC, "window_pass.cu")
 LIBRARY = os.path.join(cuda_build.BUILD_DIR, "libwindow_pass.so")
 BLOCK = 128
-# (cin_pad, Cout) pairs the kernel is instantiated for (Cin <= 16 pads to 16)
-WIDTHS = ((16, 16), (16, 32), (32, 16), (32, 32), (32, 64))
+# (cin_pad, Cout) pairs the kernel is instantiated for (Cin <= 16 pads to 16):
+# with all 27 taps' weights resident in shared memory, and with the taps
+# streamed through a ring of RING slots (the resident layout would not fit)
+RESIDENT = ((16, 16), (16, 32), (32, 16), (32, 32), (32, 64))
+STREAMED = ((64, 64), (64, 128), (128, 128))
+WIDTHS = RESIDENT + STREAMED
+RING = 2
 SMEM_LIMIT = 232448        # dynamic shared memory a Hopper block may use
+TABLE_RESERVE = 4096       # kept for a block's table of a byte a plan block it takes
 
 launches = 0               # kernel launches since the caller last reset it
 _lib: Optional[ctypes.CDLL] = None
@@ -43,7 +49,7 @@ def load(library: str) -> ctypes.CDLL:
     """A built kernel library, with the C interface's types declared."""
     lib = ctypes.CDLL(library)
     lib.s2d_window_pass.restype = ctypes.c_int
-    lib.s2d_window_pass.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.s2d_window_pass.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     return lib
 
 
@@ -76,17 +82,39 @@ def window_weights(w: torch.Tensor) -> torch.Tensor:
     """(27, Cin, Cout) weights -> the kernel's layout (27, Cout, cin_pad + 8):
     per tap and output channel a row of the input channels (the K-contiguous
     B rows of ``ldmatrix``), zero past Cin; the 8 extra values a row spread
-    the rows over the shared-memory banks."""
+    the rows over the shared-memory banks. At the streamed widths each tap's
+    (Cout, cin_pad + 8) slice is the unit one bulk copy brings."""
     cin = w.shape[1]
     return F.pad(w.transpose(1, 2), (0, cin_pad(cin) + 8 - cin)).contiguous()
 
 
-def smem_bytes(cin: int, cout: int, window: int) -> int:
+def streamed(cin: int, cout: int) -> bool:
+    """Whether the kernel streams the taps' weights at these widths."""
+    return (cin_pad(cin), cout) in STREAMED
+
+
+def weight_bytes(cin: int, cout: int) -> int:
+    """Shared memory of a block's weights: all 27 taps, or the ring of RING
+    taps and a zero row of cin_pad values (the streamed widths)."""
+    tap = cout * (cin_pad(cin) + 8) * 2
+    return RING * tap + 2 * cin_pad(cin) if streamed(cin, cout) else 27 * tap
+
+
+def smem_bytes(cin: int, cout: int, window: int, buffers: int = 2) -> int:
     """Dynamic shared memory of a kernel block, without its table of a byte
     a plan block: head (barriers, offsets, zero row, hit table), weights,
-    and two window buffers (keys, the block's kbase rows, features)."""
+    and ``buffers`` window buffers (keys, the block's kbase rows, features)."""
     head = 256 + BLOCK * 9 * 4
-    return head + 27 * cout * (cin_pad(cin) + 8) * 2 + 2 * (window * (4 + 2 * cin) + BLOCK * 12)
+    return head + weight_bytes(cin, cout) + buffers * (window * (4 + 2 * cin) + BLOCK * 12)
+
+
+def window_buffers(cin: int, cout: int, window: int) -> int:
+    """The window buffers a block takes: 2 (the next unit's window lands
+    while this one is contracted) where they fit, else 1 (the streamed
+    widths only: a unit's window is fetched when it starts)."""
+    if not streamed(cin, cout) or smem_bytes(cin, cout, window, 2) + TABLE_RESERVE <= SMEM_LIMIT:
+        return 2
+    return 1
 
 
 def unsupported(block: int, cin: int, cout: int, window: int) -> Optional[str]:
@@ -96,9 +124,10 @@ def unsupported(block: int, cin: int, cout: int, window: int) -> Optional[str]:
         return f"plan block {block} (the kernel takes {BLOCK})"
     if (cin_pad(cin), cout) not in WIDTHS:
         return (f"Cin {cin} -> Cout {cout} (the kernel is built for Cin <= 16 or 32 -> "
-                f"Cout 16 or 32, and Cin 32 -> Cout 64)")
-    # 4 KB kept for the block's table of a byte a plan block it takes
-    if window % 128 or smem_bytes(cin, cout, window) + 4096 > SMEM_LIMIT:
+                f"Cout 16 or 32, Cin 32 -> Cout 64, Cin 64 -> Cout 64 or 128, and "
+                f"Cin 128 -> Cout 128)")
+    buffers = window_buffers(cin, cout, window)
+    if window % 128 or smem_bytes(cin, cout, window, buffers) + TABLE_RESERVE > SMEM_LIMIT:
         return f"window {window} x Cin {cin} (a multiple of 128 within shared memory)"
     return None
 
@@ -144,7 +173,8 @@ def window_pass_cuda(features: torch.Tensor, plan: ConvPlan, weights: torch.Tens
         err = lib.s2d_window_pass(
             feat.data_ptr(), lin.data_ptr(), kbase.data_ptr(),
             plan.ws.data_ptr(), plan.offsets.data_ptr(), w.data_ptr(), out.data_ptr(),
-            v_in, nb, cin, cout, window, dy_mask, j_mask, stream)
+            v_in, nb, cin, cout, window, dy_mask, j_mask, window_buffers(cin, cout, window),
+            stream)
     if err != 0:
         raise RuntimeError(f"window-pass kernel launch failed: CUDA error {err}")
     launches += 1

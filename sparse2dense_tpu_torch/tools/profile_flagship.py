@@ -1,7 +1,7 @@
 """Where the time of a flagship frame goes, on one NVIDIA GPU.
 
     python3 -m sparse2dense_tpu_torch.tools.profile_flagship [--frames 3] [--no-tf32]
-        [--engine window|plane|tile|gather] [--config PATH]
+        [--engine window|plane|tile|gather] [--dense-from-stage N] [--config PATH]
 
 Runs the flagship KD_VoxelNet + S2D_RPN (random weights from a seeded
 generator, heatmap bias -6 as in chip_smoke.py), or the student of the
@@ -15,7 +15,10 @@ window engine (the config as it is), the gather engine (the engine set
 alone), the plane engine (the reference bench's override, with the plane
 and tile budgets ``utils.config.FRAME_BUDGETS`` that this frame needs to
 drop nothing) or the tile engine (the override ``engine="tile",
-tile_backend="pallas"``, with ``utils.config.TILE_FRAME_BUDGETS``), and
+tile_backend="pallas"``, with ``utils.config.TILE_FRAME_BUDGETS``);
+``--dense-from-stage`` sets the backbone's (the window engine's 2, 3 and 99
+with the frame settings ``profile_train_step.engine_settings`` gives:
+``utils.config.DFS2_FRAME_SETTINGS`` and the others), and
 prints one JSON line per measurement:
 
 - ``stages``: per-module wall time (ms, median over the frames) of the
@@ -43,7 +46,7 @@ from collections import defaultdict
 import torch
 
 
-def _flagship(engine: str, config: str = None):
+def _flagship(engine: str, config: str = None, dense_from_stage: int = None):
     from sparse2dense_tpu_torch.models import build_detector
     from sparse2dense_tpu_torch.training.synthetic import make_batch
     from sparse2dense_tpu_torch.utils.config import (FLAGSHIP, FRAME_BUDGETS,
@@ -52,6 +55,10 @@ def _flagship(engine: str, config: str = None):
 
     budgets = {"plane": FRAME_BUDGETS, "tile": TILE_FRAME_BUDGETS}.get(engine)
     cfg = flagship(engine, budgets, config or FLAGSHIP)
+    if dense_from_stage is not None:
+        from .profile_train_step import engine_settings
+
+        cfg["S_model"]["backbone"].update(engine_settings(engine, dense_from_stage))
     if cfg["S_model"]["bbox_head"]["type"] == "CenterHead":
         cfg["S_model"]["bbox_head"]["init_bias"] = -6.0
     model = build_detector(cfg["S_model"], test_cfg=cfg["test_cfg"],
@@ -158,6 +165,7 @@ def main():
     ap.add_argument("--engine", choices=("window", "plane", "tile", "gather"), default="window")
     ap.add_argument("--config", default=None,
                     help="a recipe config whose student runs (default: the flagship's)")
+    ap.add_argument("--dense-from-stage", dest="dfs", type=int, default=None)
     ap.add_argument("--no-tf32", action="store_true",
                     help="full float32 in cuDNN convs (PyTorch's default lets them use "
                          "TF32), as chip_smoke.py's comparison phases run")
@@ -166,9 +174,10 @@ def main():
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    model, batch = _flagship(args.engine, args.config)
+    model, batch = _flagship(args.engine, args.config, args.dfs)
     _frame(model, batch)  # warm-up: kernel build, allocator
     print(json.dumps({"gpu": smi, "config": args.config, "engine": args.engine,
+                      "dense_from_stage": args.dfs,
                       "tf32": torch.backends.cudnn.allow_tf32,
                       "stages": stage_times(model, batch, args.frames)}), flush=True)
     print(json.dumps({"device": device_profile(model, batch)}), flush=True)

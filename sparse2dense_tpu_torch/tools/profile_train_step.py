@@ -17,7 +17,8 @@ weights: the recipe's teacher checkpoint is not in the repository), with
 (``--engine plane`` at ``utils.config.FRAME_BUDGETS``, ``--engine tile`` at
 ``TILE_FRAME_BUDGETS`` with ``tile_backend="pallas"`` and, unless given,
 the reference's ``dense_from_stage`` 2, the window engine's
-``--dense-from-stage 2`` at ``DFS2_FRAME_SETTINGS``: the frame needs them), a
+``--dense-from-stage`` 2, 3 and 99 at ``DFS2_FRAME_SETTINGS``,
+``DFS3_FRAME_SETTINGS`` and ``DFS99_FRAME_SETTINGS``: the frame needs them), a
 training batch of ``--batch`` synthetic frames (the bench's frame: 170k
 points, 32 objects, 150k voxels, seeds 0, 1, ...; with the head's
 targets and the distillation streams; the pillar recipe's frame keeps its
@@ -53,9 +54,11 @@ def engine_settings(engine: str = "window", dense_from_stage=None) -> dict:
     override, for the plane engine at ``FRAME_BUDGETS``, for the tile engine
     (``tile_backend="pallas"``, which trains as "xla" does) at
     ``TILE_FRAME_BUDGETS`` and the reference's ``dense_from_stage`` 2 unless
-    one is given, for the window engine at ``dense_from_stage=2`` with
-    ``DFS2_FRAME_SETTINGS`` (the bench's frame needs these budgets)."""
-    from ..utils.config import DFS2_FRAME_SETTINGS, FRAME_BUDGETS, TILE_FRAME_BUDGETS
+    one is given, for the window engine at ``dense_from_stage`` 2, 3 and 99
+    with ``DFS2_FRAME_SETTINGS``, ``DFS3_FRAME_SETTINGS`` and
+    ``DFS99_FRAME_SETTINGS`` (the bench's frame needs these budgets)."""
+    from ..utils.config import (DFS2_FRAME_SETTINGS, DFS3_FRAME_SETTINGS, DFS99_FRAME_SETTINGS,
+                                FRAME_BUDGETS, TILE_FRAME_BUDGETS)
 
     out = {} if engine == "window" else dict(engine=engine)
     if engine == "plane":
@@ -64,8 +67,9 @@ def engine_settings(engine: str = "window", dense_from_stage=None) -> dict:
         out.update(TILE_FRAME_BUDGETS, tile_backend="pallas", dense_from_stage=2)
     if dense_from_stage is not None:
         out["dense_from_stage"] = dense_from_stage
-    if engine == "window" and dense_from_stage == 2:
-        out.update(DFS2_FRAME_SETTINGS)
+    if engine == "window" and dense_from_stage in (2, 3, 99):
+        out.update({2: DFS2_FRAME_SETTINGS, 3: DFS3_FRAME_SETTINGS,
+                    99: DFS99_FRAME_SETTINGS}[dense_from_stage])
     return out
 
 

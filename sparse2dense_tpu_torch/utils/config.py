@@ -174,6 +174,20 @@ DFS2_FRAME_SETTINGS = dict(win_window=(384, 384, 512, 384), win_resid_budget=327
                            stage_budgets=(320000, 240000, 90000, 48000))
 
 
+# window-engine knobs at dense_from_stage=3 and 99 for the same frame: those
+# of dense_from_stage 2, with stage 4's plan window (conv4_down, the conv4
+# blocks and extra_conv) at 512, the widest the window kernel holds at
+# 128->128. The frame's conv4_down output holds 73,792 active cells and
+# extra_conv's 42,568, within the recipe's stage budgets of 90,000 and
+# 48,000. conv4_down's strided plan leaves 21,120 rows to the residual pass
+# at a window of 512 (24,576 at 384), past the recipe's residual budget of
+# 16,384 and within 32,768; the conv3 and conv4 blocks' subm plans and
+# extra_conv's leave none. Counted on an H100 by ``tools/window_budgets.py``.
+DFS3_FRAME_SETTINGS = DFS99_FRAME_SETTINGS = dict(
+    win_window=(384, 384, 512, 512), win_resid_budget=32768,
+    stage_budgets=(320000, 240000, 90000, 48000))
+
+
 def frame_voxels(cfg, train: bool) -> int:
     """Voxel budget of the chip runs' synthetic frame (170k points, the
     reference bench's cloud) for ``cfg``: 150,000 voxels on the voxel

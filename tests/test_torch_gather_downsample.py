@@ -9,6 +9,9 @@ from sparse2dense_tpu.tools.profile_model import synth_voxels as jax_synth_voxel
 from sparse2dense_tpu_torch.training.synthetic import synth_voxels
 
 from tests.test_torch_gather_oracle import STRIDED, check_downsample
+from tests.test_torch_layers import eager_cache_fixture
+
+eager_cache = eager_cache_fixture()   # eager JAX references: op compiles cached
 
 
 @pytest.mark.parametrize("stride,padding,ksize", STRIDED)

@@ -12,7 +12,8 @@ The backbone gets seeded random voxel features and the coordinates of a
 synthetic frame; both packages the same Flax tree (``from_flax``). JAX runs
 op by op here (no jit: its gather convs compile slower than they run), the
 three ``dense_from_stage`` values' references in one process once a test
-session (``jax_refs``: the three share most of their ops' compiles).
+session (``jax_refs``: the three share most of their ops' compiles), the
+ops' compiles kept in the persistent cache (``eager_compiles_cached``).
 Tolerances: the BEV map within 1e-4 of its largest value (float32 sums in
 other orders), BN running statistics 1e-5; the step as
 ``tests/test_torch_distill.py``."""
@@ -30,7 +31,8 @@ from sparse2dense_tpu_torch.models.backbones.scn import (SparseBasicBlock, Spars
                                                          SpMiddleResNetFHD, SubMStage)
 
 from tests.test_torch_distill import _compare_stats, ts_and_teacher_steps
-from tests.test_torch_layers import flax_shapes, rand_variables, session_shared, to_numpy
+from tests.test_torch_layers import (eager_compiles_cached, flax_shapes, rand_variables,
+                                     session_shared, to_numpy)
 
 GRID = (25, 32, 32)
 DFS = (0, 2, 99)   # this file's, ``_dfs2.py``'s and ``_dfs99.py``'s
@@ -65,13 +67,14 @@ def _jax_backbone_refs(frame):
     in train mode with its BN running statistics."""
     feats, coords = (jnp.asarray(a) for a in frame)
     refs = {}
-    for dfs in DFS:
-        _, jmod, variables, _ = make_backbone(dfs)
-        bev, _ = jmod.apply(variables, feats, coords, train=False)
-        (train_bev, _), mutated = jmod.apply(variables, feats, coords, train=True,
-                                             mutable=["batch_stats"])
-        refs[dfs] = dict(eval=np.asarray(bev), train=np.asarray(train_bev),
-                         stats=to_numpy(mutated["batch_stats"]))
+    with eager_compiles_cached():
+        for dfs in DFS:
+            _, jmod, variables, _ = make_backbone(dfs)
+            bev, _ = jmod.apply(variables, feats, coords, train=False)
+            (train_bev, _), mutated = jmod.apply(variables, feats, coords, train=True,
+                                                 mutable=["batch_stats"])
+            refs[dfs] = dict(eval=np.asarray(bev), train=np.asarray(train_bev),
+                             stats=to_numpy(mutated["batch_stats"]))
     return refs
 
 

@@ -12,6 +12,9 @@ from sparse2dense_tpu_torch.ops import sparse_conv as TSC
 from sparse2dense_tpu_torch.ops import window_conv as TWC
 
 from tests.test_torch_gather_oracle import GRID, PLAN_INTS, STRIDED, TOL, _eq, _scene
+from tests.test_torch_layers import eager_cache_fixture
+
+eager_cache = eager_cache_fixture()   # eager JAX references: op compiles cached
 
 
 def test_batched_forms_match():

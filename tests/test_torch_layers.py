@@ -8,10 +8,12 @@ with more first, ahead of the two long JAX files): the dense stages,
 ``tests/test_torch_dense_stages.py``; the neck's layers,
 ``tests/test_torch_neck_layers.py``; the head, the NMS and the all-dense
 backbone, ``tests/test_torch_head_layers.py``."""
+import contextlib
 import os
 import pickle
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -92,6 +94,33 @@ def rand_variables(init_fn, seed=0):
 
     return {k: jax.tree_util.tree_map_with_path(fill, shapes[k])
             for k in ("params", "batch_stats") if k in shapes}
+
+
+@contextlib.contextmanager
+def eager_compiles_cached():
+    """JAX run op by op inside, with every op's compile written to the
+    persistent compilation cache: the suite keeps only compiles of 1 s or
+    more (``tests/conftest.py``), and an eager reference compiles hundreds
+    of ops of ~0.05 s each, every run. Inside, a machine pays them once and
+    later runs load them; what JAX computes is the same."""
+    key = "jax_persistent_cache_min_compile_time_secs"
+    old = getattr(jax.config, key)
+    jax.config.update(key, 0.0)
+    try:
+        yield
+    finally:
+        jax.config.update(key, old)
+
+
+def eager_cache_fixture():
+    """A module-scoped autouse fixture that runs its test module inside
+    :func:`eager_compiles_cached`: assign it to a name of the module, for a
+    module whose JAX references run op by op."""
+    @pytest.fixture(scope="module", autouse=True)
+    def eager_cache():
+        with eager_compiles_cached():
+            yield
+    return eager_cache
 
 
 def session_shared(tmp_path_factory, name, compute):

@@ -156,7 +156,8 @@ def test_window_kernel_admission():
     assert WK.unsupported(WK.BLOCK, 16, 16, 384) is None
     assert WK.unsupported(WK.BLOCK, 32, 32, 768) is None
     assert "plan block 256" in WK.unsupported(256, 16, 16, 512)
-    assert "Cout 64" in WK.unsupported(WK.BLOCK, 64, 64, 384)
+    assert WK.unsupported(WK.BLOCK, 64, 64, 384) is None   # streamed weights
+    assert "Cout 64" in WK.unsupported(WK.BLOCK, 128, 64, 384)
     assert "window 200" in WK.unsupported(WK.BLOCK, 16, 16, 200)
     assert "window 8192" in WK.unsupported(WK.BLOCK, 32, 32, 8192)
 

@@ -25,7 +25,9 @@ from sparse2dense_tpu_torch.models.heads.center_head import merge_double_flip
 from sparse2dense_tpu_torch.ops.nms import circle_nms
 
 from tests.test_double_flip import _make_variants
-from tests.test_torch_layers import flax_shapes, rand_variables
+from tests.test_torch_layers import eager_cache_fixture, flax_shapes, rand_variables
+
+eager_cache = eager_cache_fixture()   # eager JAX references: op compiles cached
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 HEADS = (("dim", (3, 2)), ("height", (1, 2)), ("hm", (2, 2)), ("reg", (2, 2)),

@@ -35,7 +35,9 @@ from sparse2dense_tpu_torch.training.synthetic import make_batch
 from sparse2dense_tpu_torch.training.train_state import make_train_step
 from sparse2dense_tpu_torch.utils.config import ConfigDict
 
-from tests.test_torch_layers import flax_shapes, rand_variables
+from tests.test_torch_layers import eager_cache_fixture, flax_shapes, rand_variables
+
+eager_cache = eager_cache_fixture()   # eager JAX references: op compiles cached
 
 TINY = "configs/tests/voxelnet_tiny.py"
 NUSC_TASKS = [dict(num_class=1, class_names=["car"]),

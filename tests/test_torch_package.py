@@ -36,7 +36,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "parallel.dist", "parallel.launch", "tools.dryrun", "ops.iou3d",
                  "models.second_stage.bev", "models.roi_heads.roi_head",
                  "models.detectors.two_stage", "tools.convert_checkpoint", "models.dcn",
-                 "ops.dynamic_voxelize", "data.datasets.nuscenes", "data.datasets.nusc_eval"):
+                 "ops.dynamic_voxelize", "data.datasets.nuscenes", "data.datasets.nusc_eval",
+                 "tools.window_budgets"):
         assert f"sparse2dense_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"
@@ -72,7 +73,8 @@ def test_entry_points_need_cuda_or_an_explicit_device():
 
 def test_other_engines_raise():
     from sparse2dense_tpu_torch.models.backbones.scn import (
-        PlaneKBlock, SpMiddleFHD, SpMiddleResNetFHD, TileKBlock)
+        PlaneKBlock, SpMiddleFHD, SpMiddleResNetFHD, TileKBlock, WinBasicBlock, WinDownsample,
+        WinSubMStage)
 
     kw = dict(num_input_features=5, sparse_shape=(41, 32, 32))
     plane = SpMiddleResNetFHD(engine="plane", **kw)
@@ -88,10 +90,10 @@ def test_other_engines_raise():
     assert SpMiddleResNetFHD(engine="gather", **kw).engine == "gather"
     with pytest.raises(NotImplementedError, match="column"):
         SpMiddleResNetFHD(engine="column", **kw)
-    with pytest.raises(NotImplementedError, match="dense_from_stage"):
-        SpMiddleResNetFHD(engine="window", dense_from_stage=3, **kw)
+    deep = SpMiddleResNetFHD(engine="window", dense_from_stage=99, **kw)
+    assert isinstance(deep.conv4_1, WinBasicBlock) and isinstance(deep.extra_conv, WinDownsample)
     for engine in ("plane", "tile", "column"):
         with pytest.raises(NotImplementedError, match=engine):
             SpMiddleFHD(engine=engine, **kw)
-    with pytest.raises(NotImplementedError, match="dense_from_stage"):
-        SpMiddleFHD(engine="window", dense_from_stage=3, **kw)
+    deep = SpMiddleFHD(engine="window", dense_from_stage=3, **kw)
+    assert isinstance(deep.subm2, WinSubMStage) and not isinstance(deep.subm3, WinSubMStage)

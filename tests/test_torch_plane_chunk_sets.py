@@ -7,7 +7,10 @@ import jax.numpy as jnp
 from sparse2dense_tpu.ops import plane_conv as JPK
 from sparse2dense_tpu_torch.ops import plane_conv as TPK
 
+from tests.test_torch_layers import eager_cache_fixture
 from tests.test_torch_plane_conv import GRID, _assert_ts, _plane_sets, _t
+
+eager_cache = eager_cache_fixture()   # eager JAX references: op compiles cached
 
 
 def test_chunk_sets_and_permutations_bit_exact():

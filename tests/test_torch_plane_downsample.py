@@ -9,7 +9,10 @@ import jax.numpy as jnp
 from sparse2dense_tpu.ops import tile_planes
 from sparse2dense_tpu_torch.ops import tile_planes as TTP
 
+from tests.test_torch_layers import eager_cache_fixture
 from tests.test_torch_plane_conv import JTP, _assert_ts, _chunk_scene, _t, _ts_torch
+
+eager_cache = eager_cache_fixture()   # eager JAX references: op compiles cached
 
 
 @pytest.mark.parametrize("grid,tz,tz_out,pad,budget_out", [

@@ -4,7 +4,10 @@ from ``tests/test_torch_pp.py``, whose ``models``, ``teacher_run`` and
 ``student_run`` fixtures they use)."""
 import numpy as np
 
+from tests.test_torch_layers import eager_cache_fixture
 from tests.test_torch_pp import models, student_run, teacher_run  # noqa: F401 (fixtures)
+
+eager_cache = eager_cache_fixture()   # eager JAX references: op compiles cached
 
 
 def test_point_pillars_inference_maps(teacher_run):

@@ -8,7 +8,10 @@ from sparse2dense_tpu.models.heads import mg_head as jmg
 from sparse2dense_tpu_torch.models.heads import mg_head as tmg
 from sparse2dense_tpu_torch.training.synthetic import make_batch
 
+from tests.test_torch_layers import eager_cache_fixture
 from tests.test_torch_second import FRAME, batches, head  # noqa: F401 (fixtures)
+
+eager_cache = eager_cache_fixture()   # eager JAX references: op compiles cached
 
 
 def test_make_batch_anchor_targets_bit_exact(batches):

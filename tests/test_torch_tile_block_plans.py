@@ -3,7 +3,10 @@
 mask and its plane layouts integer bit-exact at tz 8/4/2/6."""
 import pytest
 
+from tests.test_torch_layers import eager_cache_fixture
 from tests.test_torch_tile_kernel import PLAN_CASES, check_block_plan_and_state
+
+eager_cache = eager_cache_fixture()   # eager JAX references: op compiles cached
 
 
 @pytest.mark.parametrize("tz,budget,seed,v,w", PLAN_CASES[:4])

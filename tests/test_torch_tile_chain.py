@@ -5,7 +5,10 @@ equal to the reference's at budgets and a window under which each counter
 fires."""
 import numpy as np
 
+from tests.test_torch_layers import eager_cache_fixture
 from tests.test_torch_tile_kernel import _Jax, _Torch, chain
+
+eager_cache = eager_cache_fixture()   # eager JAX references: op compiles cached
 
 
 def test_tile_chain_matches_jax_with_drops():

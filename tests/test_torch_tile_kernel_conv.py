@@ -5,7 +5,10 @@ the case)."""
 import numpy as np
 import pytest
 
+from tests.test_torch_layers import eager_cache_fixture
 from tests.test_torch_tile_kernel import TOL, _conv_case
+
+eager_cache = eager_cache_fixture()   # eager JAX references: op compiles cached
 
 
 @pytest.mark.parametrize("tz,c,co,relu,residual,window,budget,seed,v", [

@@ -3,7 +3,10 @@
 ``tests/test_torch_tile_kernel.py``)."""
 import numpy as np
 
+from tests.test_torch_layers import eager_cache_fixture
 from tests.test_torch_tile_kernel import GRID, _scene, _sets, _t
+
+eager_cache = eager_cache_fixture()   # eager JAX references: op compiles cached
 
 
 def test_batched_plan_state_and_layouts_bit_exact():

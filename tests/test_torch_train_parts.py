@@ -28,7 +28,9 @@ from sparse2dense_tpu_torch.models.necks import s2d_rpn as ts2d
 from sparse2dense_tpu_torch.training.synthetic import make_batch
 from sparse2dense_tpu_torch.utils.config import ConfigDict
 
-from tests.test_torch_layers import flax_shapes, load, rand_variables
+from tests.test_torch_layers import eager_cache_fixture, flax_shapes, load, rand_variables
+
+eager_cache = eager_cache_fixture()   # eager JAX references: op compiles cached
 
 CFG = "configs/tests/distill_tiny.py"
 FRAME = dict(max_voxels=256, n_points=1500, n_obj=5, seed=3)

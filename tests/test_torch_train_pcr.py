@@ -18,8 +18,10 @@ from sparse2dense_tpu_torch.models.detectors import kd as tkd
 from sparse2dense_tpu_torch.solver.optim import OneCycleAdam
 
 from tests.test_torch_distill import assert_grads_close
-from tests.test_torch_layers import flax_shapes, load, rand_variables
+from tests.test_torch_layers import eager_cache_fixture, flax_shapes, load, rand_variables
 from tests.test_torch_train_parts import REL, batches, t  # noqa: F401 (fixtures)
+
+eager_cache = eager_cache_fixture()   # eager JAX references: op compiles cached
 
 
 def test_pcr_targets_and_losses(batches):

@@ -23,7 +23,9 @@ from sparse2dense_tpu_torch.models.roi_heads import roi_head as troi
 from sparse2dense_tpu_torch.models.second_stage import bev as tbev
 from sparse2dense_tpu_torch.ops.iou3d import boxes_iou3d
 
-import tests.test_torch_layers  # noqa: F401  (one torch thread)
+from tests.test_torch_layers import eager_cache_fixture  # and one torch thread
+
+eager_cache = eager_cache_fixture()   # eager JAX references: op compiles cached
 
 TOL = dict(rtol=0, atol=1e-6)
 TARGET_CONFIG = dict(ROI_PER_IMAGE=16, FG_RATIO=0.5, REG_FG_THRESH=0.55, CLS_FG_THRESH=0.75,

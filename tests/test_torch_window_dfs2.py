@@ -140,11 +140,22 @@ def test_dfs2_gradients_match_gather(runs, name):
 
 
 def test_dfs3_raises_and_names_the_widths():
-    for cls, widths in ((SpMiddleResNetFHD, ("64->64", "64->128", "128->128")),
-                        (SpMiddleFHD, ("64->64",))):
-        with pytest.raises(NotImplementedError, match="dense_from_stage=3") as err:
-            cls(num_input_features=5, sparse_shape=GRID, engine="window", dense_from_stage=3)
-        assert all(w in str(err.value) for w in widths)
+    """The window engine builds window modules past conv3_down at
+    ``dense_from_stage`` 3 (B1 takes 64->64, 64->128 and 128->128 since the
+    weights stream through shared memory); what the port still lacks,
+    ``engine="column"``, raises and names itself."""
+    from sparse2dense_tpu_torch.models.backbones.scn import (WinBasicBlock, WinDownsample,
+                                                             WinSubMStage)
+
+    res = SpMiddleResNetFHD(num_input_features=5, sparse_shape=GRID, engine="window",
+                            dense_from_stage=3)
+    assert isinstance(res.conv3_1, WinBasicBlock) and isinstance(res.conv4_down, WinDownsample)
+    second = SpMiddleFHD(num_input_features=5, sparse_shape=GRID, engine="window",
+                         dense_from_stage=3)
+    assert isinstance(second.subm2, WinSubMStage) and isinstance(second.down3, WinDownsample)
+    for cls in (SpMiddleResNetFHD, SpMiddleFHD):
+        with pytest.raises(NotImplementedError, match="engine='column'"):
+            cls(num_input_features=5, sparse_shape=GRID, engine="column", dense_from_stage=3)
 
 
 WINDOWS = (128, 256, 384, 512)

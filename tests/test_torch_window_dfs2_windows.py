@@ -13,8 +13,11 @@ from sparse2dense_tpu_torch.models.backbones.scn import SpMiddleResNetFHD
 from sparse2dense_tpu_torch.ops import window_conv as TWC
 from sparse2dense_tpu_torch.ops import window_kernel as TWK
 
+from tests.test_torch_layers import eager_cache_fixture
 from tests.test_torch_window_dfs2 import (  # noqa: F401 (fixtures)
     GRID, WINDOWS, frame, one_thread, seeded_weights)
+
+eager_cache = eager_cache_fixture()   # eager JAX references: op compiles cached
 
 
 def test_stage_windows_as_the_reference(frame, monkeypatch):

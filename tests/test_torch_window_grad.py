@@ -18,7 +18,10 @@ from sparse2dense_tpu.ops import window_conv as JWC
 from sparse2dense_tpu_torch.ops import window_conv as TWC
 from sparse2dense_tpu_torch.ops.window_kernel import WindowPass
 
+from tests.test_torch_layers import eager_cache_fixture
 from tests.test_window_conv import _clustered_scene, _pad
+
+eager_cache = eager_cache_fixture()   # eager JAX references: op compiles cached
 
 GRID = (8, 24, 24)
 TOL = dict(rtol=1e-5, atol=1e-5)

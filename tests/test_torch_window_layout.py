@@ -22,6 +22,13 @@ GRID = (9, 40, 40)
 
 @pytest.mark.parametrize("cin,cout", [(5, 16), (16, 16), (16, 32), (32, 32)])
 def test_window_weights_round_trip(cin, cout):
+    check_round_trip(cin, cout)
+
+
+def check_round_trip(cin, cout):
+    """The kernel's weight layout at (cin, cout) goes back to (27, Cin, Cout)
+    bit for bit, is zero past Cin and has each weight at the byte address
+    the kernel reads."""
     w = torch.from_numpy(np.random.RandomState(cin + cout).randn(27, cin, cout)
                          .astype(np.float32)).to(torch.bfloat16)
     wl = WK.window_weights(w)

@@ -12,7 +12,10 @@ from sparse2dense_tpu.ops.pallas.window_kernel import window_pass_pallas
 from sparse2dense_tpu_torch.ops import window_conv as TWC
 from sparse2dense_tpu_torch.ops import window_kernel as TWK
 
+from tests.test_torch_layers import eager_cache_fixture
 from tests.test_torch_window_conv import TOL, _plans_for
+
+eager_cache = eager_cache_fixture()   # eager JAX references: op compiles cached
 
 
 @pytest.mark.parametrize("ksize,window", [((3, 3, 3), 128), ((3, 3, 3), 256),
